@@ -1,0 +1,394 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero with its traceback):
+
+1. report the card and build the CUDA kernels from csrc/sweeps.cu;
+2. hold every kernel against its plain-torch version on the card, on the
+   204K-cell mesh (seed 42) with inputs made from numpy seeds: the
+   kernel-driven loop and the same loop through the plain version must
+   agree bit for bit; time one launch (CUDA events over many launches,
+   and its device time from a ``torch.profiler`` trace), the plain
+   version, and the least time the card could take (bytes or
+   operations);
+3. drive the port's main path: terrain-only ``PlanetEngine.generate`` at
+   204K cells, cold then warm, with every kernel's launch count read
+   around the warm run; then one more warm run under ``torch.profiler``
+   for the device's busy time and each kernel's device time per launch;
+4. check the 4K planet (seed 123) against the reference's pinned
+   c4k_s123 terrain distribution.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
+exits with code 1 before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N_CELLS = 204_000
+SEED = 42
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+SOURCE = "planet_heightmap_generation_torch/csrc/sweeps.cu"
+TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
+REPLACES = {"bfs": f"{TPU_KERNELS}:171", "flood": f"{TPU_KERNELS}:230",
+            "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480"}
+# c4k_s123 (tests/test_reference_parity.py:45-55): terrain-only metrics
+SNAPSHOT_C4K = dict(
+    land_fraction=0.31042,
+    elevation_hist=[0.0, 0.0, 0.0, 0.0055, 0.02424, 0.03274, 0.06048,
+                    0.12297, 0.24494, 0.1987, 0.02899, 0.02649, 0.04699,
+                    0.09198, 0.04574, 0.03024, 0.019, 0.00625, 0.00525,
+                    0.0095],
+    plate_count=12)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls after
+    a warm-up, between two CUDA events."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a, b) -> float:
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    if not bool((torch.isfinite(a) == torch.isfinite(b)).all()):
+        return float("inf")
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def with_plain(name: str, fn):
+    """Run ``fn()`` with the ``name`` wrapper of ops/sweep_cuda replaced by
+    its plain-torch version, so the same driver loop runs on the card
+    without the kernel."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    wrapper = getattr(sweep_cuda, f"{name}_sweep")
+    setattr(sweep_cuda, f"{name}_sweep", getattr(sweep_cuda,
+                                                 f"{name}_sweep_plain"))
+    try:
+        return fn()
+    finally:
+        setattr(sweep_cuda, f"{name}_sweep", wrapper)
+
+
+def popcount(bits) -> int:
+    b = bits.to(torch.int64) & 0xFFFFFFFF
+    total = 0
+    for d in range(32):
+        total += int(((b >> d) & 1).sum())
+    return total
+
+
+def bound_ms(nbytes: float, nops: float):
+    """(least ms, what bounds it) for a launch moving ``nbytes`` and doing
+    ``nops`` f32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ── phase 2: kernels against their plain versions ────────────────────
+
+def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
+    """One record per kernel: loop bit-identity, launches the loop took,
+    per-launch times and bound."""
+    from planet_heightmap_generation_torch.ops import banded, sweep_cuda
+    from planet_heightmap_generation_torch.ops.noise import tables, fbm
+    from planet_heightmap_generation_torch.elevation.assemble import (
+        distance_bfs_caps)
+    from planet_heightmap_generation_torch.erosion import flood, warp
+
+    npad = g.n_padded
+    rng = np.random.default_rng(SEED)
+    valid = g.valid.cpu().numpy()
+    bits = g.band_bits
+    edges = popcount(bits)
+    sf_res = math.sqrt(g.n_cells / 10000.0)
+    records = {}
+
+    def record(name, loop, sweep_args, nbytes, nops):
+        sweep_cuda.reset_launches()
+        out_k = loop()
+        torch.cuda.synchronize()
+        launches = sweep_cuda.LAUNCHES[name]
+        out_p = with_plain(name, loop)
+        torch.cuda.synchronize()
+        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        # bit-identity: +inf equals +inf, a NaN never equals anything
+        if not all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)):
+            errs = [max_abs_err(a.float(), b.float())
+                    for a, b in zip(outs_k, outs_p)]
+            raise AssertionError(f"{name}: kernel loop differs from plain "
+                                 f"loop (max abs err {errs})")
+        kern = getattr(sweep_cuda, f"{name}_sweep")
+        plain = getattr(sweep_cuda, f"{name}_sweep_plain")
+        one_k, one_p = kern(*sweep_args), plain(*sweep_args)
+        err = max_abs_err(one_k, one_p)
+        if not torch.equal(one_k, one_p):
+            raise AssertionError(f"{name}: one sweep differs ({err})")
+        ms = time_ms(lambda: kern(*sweep_args), reps)
+        plain_ms = time_ms(lambda: plain(*sweep_args), plain_reps)
+        dev_ms = mean_device_ms(device_events(
+            lambda: [kern(*sweep_args) for _ in range(20)]), name)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        records[name] = dict(loop_launches=launches, max_abs_err=err, ms=ms,
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        dev_txt = ("not measured" if dev_ms is None
+                   else f"{dev_ms * 1e3:.2f} us")
+        print(f"kernel {name:6s} bit-identical loop of {launches} launches; "
+              f"{ms * 1e3:8.2f} us/launch (device {dev_txt}), plain "
+              f"{plain_ms * 1e3:9.2f} us, bound {b_ms * 1e3:6.2f} us "
+              f"({b_by})", flush=True)
+
+    # 1. four-field distance BFS with random costs, the bfs5 loop's shape
+    f = 4
+    seeds = torch.as_tensor((rng.random((npad, f)) < 0.004)
+                            & valid[:, None], device=dev)
+    barrier = torch.as_tensor(rng.random((npad, f)) < 0.05, device=dev)
+    cost = torch.as_tensor(rng.random((npad, f)).astype(np.float32) + 0.5,
+                           device=dev)
+    hops = distance_bfs_caps(sf_res)[3]
+    cur = torch.where(seeds.T, 0.0, float("inf")).contiguous()
+    cost_t = torch.where(barrier.T & ~seeds.T, float("inf"),
+                         cost.T).contiguous()
+    record("bfs", lambda: banded.bfs_hops_multi_banded(
+        seeds, barrier, *g.bands, max_hops=hops, rand_cost=cost),
+        (cur, cost_t, bits, g.band_off),
+        nbytes=(3 * f + 1) * npad * 4, nops=f * (edges + 2 * npad))
+
+    # 2. stress over one same-plate gate of noise-blob plates
+    pos = g.pos
+    blob = fbm(tables(7.0, dev), pos[:, 0] * 2, pos[:, 1] * 2, pos[:, 2] * 2, 3)
+    plate = torch.floor(blob * 6).to(torch.int32)
+    gate = banded.band_gate(plate, g.band_off, g.band_mask)
+    rgate = banded.rem_gate_eq(plate, g.rem_src, g.rem_dst)
+    st0 = torch.as_tensor(np.where(rng.random(npad) < 0.01, rng.random(npad),
+                                   0.0).astype(np.float32), device=dev)
+    sf0 = torch.as_tensor(rng.random(npad).astype(np.float32), device=dev)
+    ocean = torch.as_tensor(rng.random(npad) < 0.3, device=dev)
+    base_decay = 0.5 + 5.0 * 0.04
+    decay = base_decay ** (1 / sf_res)
+    sub_decay = (base_decay * 0.45) ** (1 / sf_res)
+    passes = max(1, round(5.0 * 3 * sf_res))
+    state = torch.stack([st0, sf0, (st0 > 0.01).float(),
+                         ocean.float()]).contiguous()
+    gbits = banded.pack_band_bits(gate & g.band_mask)
+    record("stress", lambda: banded.propagate_stress_banded(
+        st0[:, None], sf0[:, None], (gate,), rgate[:, None], ocean[:, None],
+        *g.bands, decay, sub_decay, passes),
+        (state, gbits, g.band_off, decay, sub_decay),
+        nbytes=9 * npad * 4, nops=4 * popcount(gbits) + 4 * npad)
+
+    # 3. warp candidate propagation toward the default-slider targets
+    w = warp.warp_targets(pos, tables(SEED + 9999.0, dev),
+                          torch.tensor(0.5, device=dev))
+    steps = int(math.ceil(0.06 / (math.pi / math.sqrt(g.n_cells)))) + 8
+    wstate = torch.cat([torch.arange(npad, dtype=torch.float32,
+                                     device=dev)[None], pos.T]).contiguous()
+    record("warp", lambda: warp.warp_sources(
+        pos, w, *g.bands, max_steps=steps),
+        (wstate, w.T.contiguous(), bits, g.band_off),
+        nbytes=12 * npad * 4, nops=9 * edges + 9 * npad)
+
+    # 4. ε-fill of a noise terrain with its inland seas
+    e = fbm(tables(3.0, dev), pos[:, 0] * 2, pos[:, 1] * 2, pos[:, 2] * 2)
+    elev = torch.where(g.valid, e * 0.6 + 0.25 * pos[:, 2], 0.0)
+    is_ocean = (elev <= 0) & g.valid
+    oo = flood.open_ocean_mask(is_ocean, g.valid, *g.bands)
+    inland, _, surf0, frozen = flood._fill_common(
+        elev, is_ocean, oo, g.valid, *g.bands)
+    baked = torch.where(frozen, surf0, elev).contiguous()
+    record("flood", lambda: flood.epsilon_fill(
+        elev, is_ocean, oo, g.valid, *g.bands),
+        (surf0.contiguous(), inland.float().contiguous(), baked, bits,
+         g.band_off, flood.BIG, flood.EPS),
+        nbytes=5 * npad * 4, nops=2 * edges + 3 * npad)
+    return records
+
+
+# ── phases 3 and 4 ───────────────────────────────────────────────────
+
+def device_events(fn):
+    """The device events of a ``torch.profiler`` trace around ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def mean_device_ms(events, kernel: str):
+    """Mean device ms per launch of sweep kernel ``kernel``; None when the
+    trace holds none of its launches."""
+    t = [e.time_range.elapsed_us() for e in events
+         if f"{kernel}_sweep_kernel" in e.name]
+    return sum(t) / len(t) / 1e3 if t else None
+
+
+def profile_generate(dev, params, top: int = 8):
+    """One more warm generate under ``torch.profiler``: the device's busy
+    time (union of its event intervals), each sweep kernel's mean device
+    time per launch on the path, and the kernels that took the most
+    device time. None when the trace holds no device events."""
+    events = device_events(lambda: run_generate(dev, params))
+    if not events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(busy_ms=busy_us / 1e3,
+                device_ms={k: mean_device_ms(events, k) for k in REPLACES},
+                top=[(n[:90], t / 1e3, c) for n, (t, c) in ranked])
+
+
+def run_generate(dev, params):
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    engine = PlanetEngine(device=dev)
+    t0 = time.perf_counter()
+    res = engine.generate(params)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_planet(res, n_plates: int):
+    d = res.diagnostics()
+    n = res.graph.n_cells
+    plates = len(torch.unique(res.r_plate[:n]))
+    assert d["nan_count"] == 0, d
+    assert 0.15 < d["land_fraction"] < 0.5, d
+    assert plates == n_plates, (plates, n_plates)
+    return d, plates
+
+
+def snapshot_check(res):
+    n = res.graph.n_cells
+    e = res.elevation[:n].cpu().numpy()
+    hist = np.histogram(np.clip(e, -1, 1 - 1e-6), bins=20,
+                        range=(-1, 1))[0] / n
+    land = float((e > 0).mean())
+    l1 = float(np.abs(hist - np.asarray(SNAPSHOT_C4K["elevation_hist"])).sum())
+    plates = len(torch.unique(res.r_plate[:n]))
+    print(f"c4k_s123: land {land:.5f} (snapshot "
+          f"{SNAPSHOT_C4K['land_fraction']}), histogram L1 {l1:.5f}, "
+          f"plates {plates}", flush=True)
+    assert abs(land - SNAPSHOT_C4K["land_fraction"]) < 0.02
+    assert l1 < 0.05
+    assert plates == SNAPSHOT_C4K["plate_count"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.mesh.build import build_sphere
+    from planet_heightmap_generation_torch.mesh.device import to_device
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+    from planet_heightmap_generation_torch.ops.rng import ParkMiller
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {name} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    # 1. build
+    t0 = time.perf_counter()
+    report = sweep_cuda.build()
+    sweep_cuda._kernel("bfs_sweep")
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # 2. kernels against their plain versions on the 204K mesh
+    graph = build_sphere(N_CELLS, 0.75, rng=ParkMiller(SEED))
+    g = to_device(graph, dev)
+    print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
+          f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
+    records = kernel_checks(g, dev)
+
+    # 3. the slice: terrain-only generate at 204K, cold then warm
+    params = GenerationParams(seed=SEED, n_cells=N_CELLS, skip_climate=True)
+    _, cold_s = run_generate(dev, params)
+    print(f"generate 204K cold: {cold_s:.2f} s", flush=True)
+    sweep_cuda.reset_launches()
+    res, warm_s = run_generate(dev, params)
+    launches = dict(sweep_cuda.LAUNCHES)
+    print(res.timing.table())
+    print(f"generate 204K warm: {warm_s:.3f} s", flush=True)
+    diag, plates = check_planet(res, params.n_plates)
+    print(f"diagnostics: {diag}, plates {plates}", flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    assert not missing, f"kernels not launched on the main path: {missing}"
+    print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    prof = profile_generate(dev, params)
+    if prof is None:
+        print("profile: no device events in the trace (device time not "
+              "measured)")
+    else:
+        print(f"profile: device busy {prof['busy_ms']:.3f} ms of the warm "
+              f"{warm_s * 1e3:.1f} ms generate (idle share "
+              f"{1 - prof['busy_ms'] / (warm_s * 1e3):.4f})")
+        for k, v in prof["device_ms"].items():
+            print(f"  {k:6s} mean device time per launch on the path: "
+                  + ("not measured" if v is None else f"{v * 1e3:.2f} us"))
+        for n, t, c in prof["top"]:
+            print(f"  {t:9.3f} ms {c:6d}x {n}")
+
+    # 4. pinned distribution at 4K
+    small, _ = run_generate(dev, GenerationParams(
+        seed=123, n_cells=4000, n_plates=12, num_continents=2,
+        skip_climate=True))
+    snapshot_check(small)
+
+    kernels = [dict(
+        name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+        launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"])
+        for k, r in records.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

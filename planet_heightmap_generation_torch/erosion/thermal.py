@@ -1,0 +1,61 @@
+"""Thermal (talus-angle) erosion over the roll bands.
+
+The reference (js/terrain-post.js:644-686) scatters slope-excess material
+from each cell to its lower neighbours through a delta buffer. Here the
+symmetric-edge form (shed = per-edge excess above the talus slope;
+received = the higher neighbour's transfer times this edge's share of its
+total excess) runs over the Fibonacci roll bands. ``band_dist`` is the
+[N,D] banded edge length (ops.banded.band_nbr_dist), computed once by the
+composite loop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.banded import band_shift
+
+
+def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                 rem_src, rem_dst, rem_dist, talus_slope, k_thermal):
+    n = band_mask.shape[0]
+    land = (~is_ocean) & valid
+    src = rem_src
+
+    # pass 1: total slope excess shed by each cell (land→land edges only)
+    def edge_excess(h_me, h_nb, d, ok):
+        dd = torch.clamp(d, min=1e-6)
+        slope = (h_me - h_nb) / dd
+        return torch.where(ok & (slope > talus_slope),
+                           (slope - talus_slope) * dd, 0.0)
+
+    total_excess = torch.zeros(n, device=elev.device)
+    for d, off in enumerate(band_off):
+        ok = band_mask[:, d] & land & band_shift(land, off)
+        total_excess = total_excess + edge_excess(
+            elev, band_shift(elev, off), band_dist[:, d], ok)
+    ok_r = land[src] & land[rem_dst]
+    total_excess = total_excess.index_add(
+        0, src, edge_excess(elev[src], elev[rem_dst], rem_dist, ok_r))
+
+    transfer = k_thermal * total_excess * 0.5
+    shed = torch.where(total_excess > 0, transfer, 0.0)
+
+    # pass 2: received from each higher neighbour — the neighbour's
+    # transfer share across this edge
+    nb_share = torch.where(
+        total_excess > 0,
+        transfer / torch.clamp(total_excess, min=1e-20), 0.0)
+    recv = torch.zeros(n, device=elev.device)
+    for d, off in enumerate(band_off):
+        ok = band_mask[:, d] & land & band_shift(land, off)
+        excess_in = edge_excess(band_shift(elev, off), elev,
+                                band_dist[:, d], ok)
+        recv = recv + excess_in * band_shift(nb_share, off)
+    # remainder: every directed edge appears exactly once across bands +
+    # remainder, so one (src ← dst) pass covers all remaining flow
+    excess_in_r = edge_excess(elev[rem_dst], elev[src], rem_dist, ok_r)
+    recv = recv.index_add(0, src, excess_in_r * nb_share[rem_dst])
+
+    out = elev + torch.where(land, recv - shed, 0.0)
+    return out.to(torch.float32)

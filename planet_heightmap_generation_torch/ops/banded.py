@@ -1,0 +1,430 @@
+"""Banded neighbour sweeps — masked shifts over the Fibonacci spiral
+ordering, in torch.
+
+The spiral mesh ordering makes neighbour index offsets (j - i) concentrate
+onto ~32 signed Fibonacci numbers (mesh/build.py:build_banded). A
+neighbour reduction is then D shifts of the field with per-band masks plus
+a small remainder-edge scatter.
+
+Every function takes the graph's ``band_off`` (tuple), ``band_mask
+[NP,D]`` and the REAL remainder edges ``rem_src/rem_dst [M]`` (the
+DeviceGraph stores them pre-filtered, so no scatter here needs a drop
+mode) — normally splatted from ``g.bands``.
+
+The fixpoint loops (distance BFS, stress propagation, components) run one
+synchronous sweep per step through the CUDA kernels of ops/sweep_cuda.py
+(plain torch on CPU tensors) and follow the JAX jnp loops' semantics:
+iteration caps bound the number of sweeps, and a loop ends at the first
+sweep that changes nothing. The change flag is read every
+``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a fixpoint are
+no-ops and no loop runs past its cap.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import sweep_cuda
+
+CHECK_EVERY = 8
+INF = float("inf")
+
+
+def relax(step, state, cap=None):
+    """Iterate ``state = step(state, flag)`` until a sweep changes nothing
+    or ``cap`` sweeps ran. ``flag`` is an int32 [1] device tensor passed
+    only to the sweep whose change is read (else None). Returns
+    (state, sweeps run)."""
+    flag = None
+    done = 0
+    while cap is None or done < cap:
+        k = CHECK_EVERY if cap is None else min(CHECK_EVERY, cap - done)
+        for s in range(k):
+            if s == k - 1:
+                if flag is None:
+                    flag = torch.zeros(1, dtype=torch.int32,
+                                       device=_device_of(state))
+                flag.zero_()
+                state = step(state, flag)
+            else:
+                state = step(state, None)
+        done += k
+        if int(flag.item()) == 0:
+            break
+    return state, done
+
+
+def _device_of(state):
+    return (state[0] if isinstance(state, (tuple, list)) else state).device
+
+
+def _expand(mask, field):
+    """Broadcast a [N] or [N,D] mask against field rank ([N] or [N,F])."""
+    return mask[:, None] if field.dim() == 2 and mask.dim() == 1 else mask
+
+
+def band_shift(field, off):
+    """field[i + off] along the cell axis (wrap killed by band masks)."""
+    return torch.roll(field, -int(off), dims=0)
+
+
+def pack_band_bits(band_mask):
+    """[N, D≤32] bool band masks → [N] int32 words (bit d = band d)."""
+    d = band_mask.shape[1]
+    assert d <= 32, d
+    w = (torch.ones(d, dtype=torch.int64, device=band_mask.device)
+         << torch.arange(d, device=band_mask.device))
+    packed = (band_mask.to(torch.int64) * w).sum(1)
+    packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+    return packed.to(torch.int32).contiguous()
+
+
+def band_gate(cell_value, band_off, band_mask):
+    """[N,D] per-edge gate: band_mask[i,d] & (value[i+off_d] == value[i])."""
+    cols = [band_mask[:, d] & (band_shift(cell_value, off) == cell_value)
+            for d, off in enumerate(band_off)]
+    return torch.stack(cols, dim=1)
+
+
+def band_nbr_dist(pos, band_off, band_mask):
+    """[N,D] chord distance to each band neighbour, 0 where absent."""
+    cols = []
+    for d, off in enumerate(band_off):
+        delta = band_shift(pos, off) - pos
+        cols.append(torch.where(band_mask[:, d],
+                                torch.linalg.vector_norm(delta, dim=1), 0.0))
+    return torch.stack(cols, dim=1).to(torch.float32)
+
+
+def _scatter(out, rem_src, vals, reduce: str):
+    """out[rem_src] <reduce>= vals (include_self), along the cell axis."""
+    idx = rem_src if vals.dim() == 1 else rem_src[:, None].expand_as(vals)
+    return out.scatter_reduce(0, idx, vals, reduce)
+
+
+def banded_min(field, band_off, band_mask, rem_src, rem_dst, fill=INF,
+               gate=None):
+    out = torch.full_like(field, fill)
+    for d, off in enumerate(band_off):
+        m = band_mask[:, d] if gate is None else gate[:, d]
+        out = torch.minimum(out, torch.where(_expand(m, field),
+                                             band_shift(field, off), fill))
+    return _scatter(out, rem_src, field[rem_dst], "amin")
+
+
+def banded_max(field, band_off, band_mask, rem_src, rem_dst, fill=-INF,
+               gate=None):
+    out = torch.full_like(field, fill)
+    for d, off in enumerate(band_off):
+        m = band_mask[:, d] if gate is None else gate[:, d]
+        out = torch.maximum(out, torch.where(_expand(m, field),
+                                             band_shift(field, off), fill))
+    return _scatter(out, rem_src, field[rem_dst], "amax")
+
+
+def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
+    """Sum over neighbours (bands in order, then the remainder edges)."""
+    out = torch.zeros_like(field)
+    for d, off in enumerate(band_off):
+        m = band_mask[:, d] if gate is None else gate[:, d]
+        out = out + torch.where(_expand(m, field), band_shift(field, off), 0)
+    return _scatter(out, rem_src, field[rem_dst], "sum")
+
+
+def banded_count(band_mask, rem_src, gate=None, dtype=torch.int32):
+    """Neighbour degree [N]."""
+    m = band_mask if gate is None else gate
+    out = m.sum(1).to(dtype)
+    return _scatter(out, rem_src, torch.ones(rem_src.shape[0], dtype=dtype,
+                                             device=out.device), "sum")
+
+
+def rem_gate_eq(cell_value, rem_src, rem_dst):
+    """[M] remainder-edge equality gate matching :func:`band_gate`."""
+    return cell_value[rem_src] == cell_value[rem_dst]
+
+
+def banded_select(key_src, payloads, band_off, band_mask, rem_src, rem_dst,
+                  minimize=False, edge_payloads=None, rem_edge_payloads=None):
+    """Per-cell best-neighbour selection over [N] keys: the neighbour j
+    maximising (or minimising) ``key_src[j]``, with its payloads. Bands
+    are scanned in order and the FIRST best wins; remainder edges merge
+    last and win only on strict improvement, equal-key remainder ties
+    resolving toward the maximum payload. Returns
+    (best_key, [payloads...], [edge payloads...])."""
+    fill = INF if minimize else -INF
+    better = (lambda a, b: a < b) if minimize else (lambda a, b: a > b)
+    payloads = list(payloads)
+    edge_payloads = list(edge_payloads or [])
+
+    best_key = torch.full_like(key_src, fill)
+    best_pay = [torch.zeros_like(p) for p in payloads]
+    best_epay = [torch.zeros_like(ep[:, 0]) for ep in edge_payloads]
+    for d, off in enumerate(band_off):
+        k = torch.where(band_mask[:, d], band_shift(key_src, off), fill)
+        upd = better(k, best_key)
+        best_key = torch.where(upd, k, best_key)
+        best_pay = [torch.where(upd, band_shift(p, off), bp)
+                    for p, bp in zip(payloads, best_pay)]
+        best_epay = [torch.where(upd, ep[:, d], bep)
+                     for ep, bep in zip(edge_payloads, best_epay)]
+
+    rk = key_src[rem_dst]
+    w = _scatter(torch.full_like(key_src, fill), rem_src, rk,
+                 "amin" if minimize else "amax")
+    is_win = rk == w[rem_src]
+    upd = better(w, best_key)
+    best_key = torch.where(upd, w, best_key)
+
+    def pick(cand):
+        c = torch.where(is_win, cand, -INF)
+        return _scatter(torch.full(w.shape, -INF, dtype=cand.dtype,
+                                   device=w.device), rem_src, c, "amax")
+
+    best_pay = [torch.where(upd, pick(p[rem_dst]), bp)
+                for p, bp in zip(payloads, best_pay)]
+    best_epay = [torch.where(upd, pick(rep), bep)
+                 for rep, bep in zip(rem_edge_payloads or [], best_epay)]
+    return best_key, best_pay, best_epay
+
+
+# ── distance BFS (kernel 1) ──────────────────────────────────────────
+
+def bfs_hops_multi_banded(seeds, barrier, band_off, band_mask, rem_src,
+                          rem_dst, max_hops: int = 0, rand_cost=None):
+    """F independent min-plus distance fields relaxed together.
+
+    seeds/barrier [N,F] bool, rand_cost [N,F] f32 or None (unit costs).
+    Seeds and barriers are baked in (dist0 = 0 at seeds, cost = +inf at
+    non-seed barriers), which makes each kernel sweep equal one iteration
+    of the JAX jnp loop ``_bfs_hops_multi_jnp``. ``max_hops`` > 0 caps the
+    number of sweeps (values beyond may be path-order overestimates,
+    unreached = +inf). Returns [N,F] f32."""
+    seeds_t = seeds.T
+    dist = torch.where(seeds_t, 0.0, INF).to(torch.float32).contiguous()
+    cost = (torch.ones_like(dist) if rand_cost is None
+            else rand_cost.T.to(torch.float32))
+    cost = torch.where(barrier.T & ~seeds_t, INF, cost).contiguous()
+    bits = pack_band_bits(band_mask)
+    cost_src = cost[:, rem_src]
+    idx = rem_src[None, :].expand_as(cost_src)
+
+    def step(dist, flag):
+        new = sweep_cuda.bfs_sweep(dist, cost, bits, band_off, flag)
+        # remainder edges: dest rem_src receives rem_dst's PRE-sweep value
+        # plus its own cost (+inf at barriers blocks it)
+        cand = dist[:, rem_dst] + cost_src
+        if flag is not None:
+            flag |= (cand < new[:, rem_src]).any().to(torch.int32)
+        return new.scatter_reduce_(1, idx, cand, "amin")
+
+    dist, _ = relax(step, dist, cap=max_hops if max_hops > 0 else None)
+    return dist.T
+
+
+# ── stress propagation (kernel 2) ────────────────────────────────────
+
+def propagate_stress_banded(stress, subduct, gate_stack, rem_gate,
+                            ocean_cell, band_off, band_mask, rem_src,
+                            rem_dst, decay, subduct_decay, num_passes):
+    """G stress layers ([N,G] stress / subduct / ocean_cell, G [N,D] gates,
+    [M,G] remainder gates), each relaxed to its fixpoint or
+    ``num_passes`` sweeps. Per sweep each cell adopts the strongest
+    propagated stress among gated (same-plate) neighbours, the subduct
+    factor riding along — one iteration of ``_propagate_stress_jnp``:
+    the kernel takes the band argmax (strict ``>`` in band order) and
+    adopts it, then the remainder edges' two-phase scatter-argmax, read
+    from the pre-sweep state, is adopted on strict improvement."""
+    decay, subduct_decay = float(decay), float(subduct_decay)
+    sts, sfs = [], []
+    for g in range(stress.shape[1]):
+        st0 = stress[:, g].to(torch.float32)
+        state = torch.stack([st0, subduct[:, g].to(torch.float32),
+                             (st0 > 0.01).to(torch.float32),
+                             ocean_cell[:, g].to(torch.float32)]).contiguous()
+        bits = pack_band_bits(gate_stack[g] & band_mask)
+        rg = rem_gate[:, g]
+
+        def step(state, flag, bits=bits, rg=rg):
+            new = sweep_cuda.stress_sweep(state, bits, band_off, decay,
+                                          subduct_decay, flag)
+            st_s, sf_s = state[0, rem_dst], state[1, rem_dst]
+            prop = st_s * torch.where(sf_s > 0.5, subduct_decay, decay)
+            ok = (rg & (state[2, rem_dst] > 0) & (state[3, rem_dst] <= 0)
+                  & (prop >= 0.005))
+            key = torch.where(ok, prop, -INF)
+            w = _scatter(torch.full_like(st0, -INF), rem_src, key, "amax")
+            is_win = ok & (key == w[rem_src])
+            wsf = _scatter(torch.full_like(st0, -INF), rem_src,
+                           torch.where(is_win, sf_s, -INF), "amax")
+            upd = w > new[0]
+            if flag is not None:
+                flag |= upd.any().to(torch.int32)
+            return torch.stack([torch.where(upd, w, new[0]),
+                                torch.where(upd, wsf, new[1]),
+                                torch.where(upd, 1.0, new[2]), new[3]])
+
+        state, _ = relax(step, state, cap=int(num_passes))
+        sts.append(state[0])
+        sfs.append(state[1])
+    return torch.stack(sts, 1), torch.stack(sfs, 1)
+
+
+# ── carry BFS (plain torch; it has no kernel) ────────────────────────
+
+def band_bfs_banded(seeds, carried, band_off, band_mask, rem_src, rem_dst,
+                    max_hops: int, hops_cap=None, allow=None, rem_gate=None,
+                    tie=None, num_carry: int = 0, gate_mix=None):
+    """F carry-propagating BFS bands in one sweep loop (the JAX
+    ``band_bfs_banded``).
+
+    - seeds [N,F] bool; carried [C,N,F] f32; tie [N,F] (higher wins among
+      equal distances); hops_cap [F] ints; allow [N,F] receiver mask.
+    - gate_mix = (eq_gate [N,D], use [F] bools): field f is gated by
+      eq_gate where use[f], by the plain band mask otherwise; rem_gate
+      [M,F] gates the remainder edges.
+
+    The (dist, tie) pair packs into one float key (dist·2 - tie) and is
+    re-derived from the winning key. State rows are fields ([F,N]).
+    Returns (dist [N,F] f32 with +inf unreached, tie [N,F], carr [C,N,F])."""
+    n, f = seeds.shape
+    dev = seeds.device
+    c = max(num_carry, 0)
+    dist = torch.where(seeds.T, 0, max_hops + 1).to(torch.int32)
+    if hops_cap is None:
+        cap = torch.full((f, 1), max_hops, dtype=torch.int32, device=dev)
+    else:
+        cap = torch.as_tensor(list(hops_cap), dtype=torch.int32,
+                              device=dev)[:, None]
+    allow_t = (torch.ones((f, n), dtype=torch.bool, device=dev)
+               if allow is None else allow.T)
+    tie_c = (torch.zeros((f, n), dtype=torch.float32, device=dev)
+             if tie is None else tie.T.to(torch.float32))
+    carr = [carried[j].T.to(torch.float32) for j in range(c)]
+
+    if gate_mix is not None:
+        eq, use = gate_mix
+        use = [bool(u) for u in use]
+        gates = [torch.stack([eq[:, d] if use[g] else band_mask[:, d]
+                              for g in range(f)])
+                 for d in range(len(band_off))]
+    else:
+        gates = [band_mask[:, d][None, :].expand(f, n)
+                 for d in range(len(band_off))]
+    rg = (torch.ones((f, rem_src.shape[0]), dtype=torch.bool, device=dev)
+          if rem_gate is None else rem_gate.T)
+    ridx = rem_src[None, :].expand(f, -1)
+
+    def pack(d, t):
+        return d.to(torch.float32) * 2.0 - t
+
+    def step(state, flag):
+        dist, tie_c, carr = state
+        nd_src = dist + 1
+        key_src = torch.where(nd_src <= cap, pack(nd_src, tie_c), INF)
+        best_key = torch.full((f, n), INF, device=dev)
+        best_pay = [torch.zeros((f, n), device=dev) for _ in range(c)]
+        for d, off in enumerate(band_off):
+            k = torch.where(gates[d], torch.roll(key_src, -int(off), 1), INF)
+            u = k < best_key
+            best_key = torch.where(u, k, best_key)
+            best_pay = [torch.where(u, torch.roll(p, -int(off), 1), bp)
+                        for p, bp in zip(carr, best_pay)]
+        rk = torch.where(rg, key_src[:, rem_dst], INF)
+        w = torch.full((f, n), INF, device=dev).scatter_reduce(
+            1, ridx, rk, "amin")
+        is_win = rg & (rk == w[:, rem_src])
+        u = w < best_key
+        best_key = torch.where(u, w, best_key)
+
+        def pick(p):
+            cand = torch.where(is_win, p[:, rem_dst], -INF)
+            return torch.full((f, n), -INF, device=dev).scatter_reduce(
+                1, ridx, cand, "amax")
+
+        best_pay = [torch.where(u, pick(p), bp)
+                    for p, bp in zip(carr, best_pay)]
+        adopt = (best_key < pack(dist, tie_c)) & allow_t
+        new_dist = torch.where(
+            adopt, torch.ceil(best_key / 2.0).to(torch.int32), dist)
+        new_tie = torch.where(
+            adopt, new_dist.to(torch.float32) * 2.0 - best_key, tie_c)
+        new_carr = [torch.where(adopt, bp, p) for p, bp in zip(carr, best_pay)]
+        if flag is not None:
+            flag |= adopt.any().to(torch.int32)
+        return new_dist, new_tie, new_carr
+
+    (dist, tie_c, carr), _ = relax(step, (dist, tie_c, carr), cap=max_hops)
+    dist_out = torch.where(dist > cap, INF, dist.to(torch.float32))
+    if c:
+        carr_out = torch.stack([p.T for p in carr])
+    else:
+        carr_out = (torch.zeros((1, n, f), device=dev) if carried is None
+                    else carried)
+    return dist_out.T, tie_c.T, carr_out
+
+
+# ── connected components (kernel 1 with zero cost) ───────────────────
+
+def components_core(init_lab, member, gate_bits, rem_ok, band_off, rem_src,
+                    rem_dst):
+    """Min-label components: per step one gated min-label sweep (the BFS
+    kernel with cost 0 over f32 cell-index labels, exact below 2^24), the
+    remainder edges, root hooking (each member scatter-mins its new label
+    into its previous parent's slot) and two pointer jumps — one
+    iteration of the JAX jnp components loops. ``init_lab`` [N] f32
+    (N at non-members). Returns [N] int32."""
+    n = init_lab.shape[0]
+    cost = torch.zeros((1, n), dtype=torch.float32, device=init_lab.device)
+    src, dst = rem_src[rem_ok], rem_dst[rem_ok]
+    members = torch.nonzero(member).flatten()
+    all_members = members.shape[0] == n
+
+    def step(prev, flag):
+        new = sweep_cuda.bfs_sweep(prev[None], cost, gate_bits, band_off)[0]
+        new = new.scatter_reduce(0, src, prev[dst], "amin")
+        parent = prev[members].long()
+        new = new.scatter_reduce(0, parent, new[members], "amin")
+        for _ in range(2):
+            jumped = new[new.long().clamp(0, n - 1)]
+            new = jumped if all_members else torch.where(member, jumped, new)
+        if flag is not None:
+            flag |= (new != prev).any().to(torch.int32)
+        return new
+
+    lab, _ = relax(step, init_lab.to(torch.float32).contiguous())
+    return lab.to(torch.int32)
+
+
+def connected_components_gated(labels_eq, band_off, band_mask, rem_src,
+                               rem_dst):
+    """Min-label connected components over edges whose endpoints share
+    the same ``labels_eq`` value. Returns [N] int32."""
+    n = band_mask.shape[0]
+    gate = band_gate(labels_eq, band_off, band_mask)
+    return components_core(
+        torch.arange(n, dtype=torch.float32, device=band_mask.device),
+        torch.ones(n, dtype=torch.bool, device=band_mask.device),
+        pack_band_bits(gate), rem_gate_eq(labels_eq, rem_src, rem_dst),
+        band_off, rem_src, rem_dst)
+
+
+def flood_assign_banded(value, frontier, band_off, band_mask, rem_src,
+                        rem_dst):
+    """Propagate ``value`` outward from ``frontier`` cells to all
+    reachable unassigned cells, breadth-first, ties toward the min value.
+    Returns (value, reached)."""
+    big = torch.iinfo(value.dtype).max
+
+    def step(state, flag):
+        val, reached = state
+        masked = torch.where(reached, val, big)
+        best = banded_min(masked, band_off, band_mask, rem_src, rem_dst,
+                          fill=big)
+        newly = (~reached) & (best < big)
+        if flag is not None:
+            flag |= newly.any().to(torch.int32)
+        return torch.where(newly, best, val), reached | newly
+
+    (val, reached), _ = relax(step, (value, frontier))
+    return val, reached

@@ -1,0 +1,320 @@
+"""Hand-written CUDA kernels for the banded neighbour sweeps, and their
+plain-torch versions.
+
+Four kernels (csrc/sweeps.cu), each one synchronous sweep per launch:
+
+=========  ==========================================================
+``bfs``    min-plus relaxation (distance BFS, components min-labels)
+``stress`` gated argmax stress propagation with an sf payload
+``warp``   nearest-candidate propagation of the terrain domain warp
+``flood``  priority-flood ε-fill surface relaxation
+=========  ==========================================================
+
+Every wrapper takes the state as [F, NP] float32 planes, the band bits as
+one int32 word per cell (bit d = band d present, the packed form of
+``band_mask``) and the band offsets as a tuple. A wrapper given CPU
+tensors runs the plain-torch version; given CUDA tensors it launches its
+kernel (building the library on first use) or raises. There is no
+fallback between the two.
+
+The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
+``_build/`` beside this package at first use, and rebuilt when the source
+is newer than the library. ``LAUNCHES`` counts kernel launches per kernel;
+the plain versions never count.
+
+The remainder edges (~0.5 % of edges off the bands) are not the kernels'
+business: the drivers in ops/banded.py and erosion/ apply them as torch
+scatters after each launch, exactly as the JAX loops do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "sweeps.cu")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+LIBRARY = os.path.join(_BUILD_DIR, "sweeps.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"bfs": 0, "stress": 0, "warp": 0, "flood": 0}
+
+_LOCK = threading.Lock()
+_LIB = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    # cur, cost, bits, out, flag, np, nf, offs, n_offs, stream
+    "bfs_sweep": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # state, bits, out, flag, np, offs, n_offs, decay, sub_decay, stream
+    "stress_sweep": [_P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
+    # state, w, bits, out, flag, np, offs, n_offs, stream
+    "warp_sweep": [_P, _P, _P, _P, _P, _I, _P, _I, _P],
+    # surf, inland, elev_baked, bits, out, flag, np, offs, n_offs, big,
+    # eps, stream
+    "flood_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA sweep kernels are built from "
+        f"{SOURCE} with the CUDA toolkit")
+
+
+def build() -> str:
+    """Compile the kernel library if it is missing or older than its
+    source. Returns nvcc's report (ptxas register/spill lines) when it
+    compiled, "" when the library was up to date."""
+    with _LOCK:
+        if (os.path.exists(LIBRARY)
+                and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+            return ""
+        nvcc = _nvcc()
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        os.replace(tmp, LIBRARY)
+        return proc.stdout + proc.stderr
+
+
+def _kernel(name: str):
+    """The ctypes entry point ``name``, building and loading the library
+    on first use. Raises when the toolkit or the library is unavailable."""
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(LIBRARY)
+        for fn, args in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIB = lib
+    return getattr(_LIB, name)
+
+
+def _on_cpu(x) -> bool:
+    """Route: True → plain version, False → CUDA kernel; other devices
+    are refused."""
+    kind = x.device.type
+    if kind == "cpu":
+        return True
+    if kind == "cuda":
+        return False
+    raise ValueError(f"sweep kernels take cpu or cuda tensors, not {kind}")
+
+
+def _check(bits, flag, *planes):
+    """Raise unless a kernel can read its inputs safely: ``bits`` is a
+    contiguous int32 [NP], every (tensor, rows) of ``planes`` a contiguous
+    float32 [rows, NP] ([NP] where rows is None) on the same device, and
+    ``flag`` None or an int32 tensor there."""
+    dev, npad = bits.device, bits.shape[-1]
+    if bits.dtype != torch.int32 or bits.dim() != 1 or not bits.is_contiguous():
+        raise ValueError("band bits must be a contiguous int32 [NP] tensor")
+    for t, rows in planes:
+        want = (npad,) if rows is None else (rows, npad)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != want or not t.is_contiguous()):
+            raise ValueError(
+                f"sweep kernel input must be contiguous float32 {want} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if flag is not None and (flag.device != dev or flag.dtype != torch.int32
+                             or flag.numel() < 1):
+        raise ValueError("change flag must be an int32 tensor on the "
+                         "inputs' device")
+
+
+_OFFS_CACHE: dict = {}
+
+
+def _offs(band_off) -> tuple:
+    key = tuple(int(o) for o in band_off)
+    arr = _OFFS_CACHE.get(key)
+    if arr is None:
+        if len(key) > 32:
+            raise ValueError("at most 32 bands")
+        arr = (ctypes.c_int * max(1, len(key)))(*key)
+        _OFFS_CACHE[key] = arr
+    return ctypes.cast(arr, ctypes.c_void_p), len(key)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn, counter: str, *args):
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
+    LAUNCHES[counter] += 1
+
+
+def _bit(bits, d: int):
+    return ((bits >> d) & 1).bool()
+
+
+def _shift(x, off: int):
+    """x[..., (i + off) mod NP] — jnp.roll semantics along the cell axis."""
+    return torch.roll(x, -int(off), dims=-1)
+
+
+def _or_flag(flag, changed) -> None:
+    if flag is not None:
+        flag |= changed.to(torch.int32)
+
+
+# ── 1. BFS / components ──────────────────────────────────────────────
+
+def bfs_sweep_plain(cur, cost, bits, band_off, flag=None):
+    best = torch.full_like(cur, float("inf"))
+    for d, off in enumerate(band_off):
+        best = torch.minimum(
+            best, torch.where(_bit(bits, d), _shift(cur, off), float("inf")))
+    out = torch.minimum(cur, best + cost)
+    _or_flag(flag, (out != cur).any())
+    return out
+
+
+def bfs_sweep(cur, cost, bits, band_off, flag=None):
+    """One min-plus sweep over [F, NP] planes:
+    ``out = min(cur, min_{bands set} cur[:, i+off] + cost)``."""
+    if _on_cpu(cur):
+        return bfs_sweep_plain(cur, cost, bits, band_off, flag)
+    fn = _kernel("bfs_sweep")
+    f = cur.shape[0] if cur.dim() == 2 else -1
+    _check(bits, flag, (cur, f), (cost, f))
+    np_ = bits.shape[0]
+    out = torch.empty_like(cur)
+    offs, nd = _offs(band_off)
+    _launch(fn, "bfs", _ptr(cur), _ptr(cost), _ptr(bits), _ptr(out),
+            _ptr(flag), np_, f, offs, nd)
+    return out
+
+
+# ── 2. stress propagation ────────────────────────────────────────────
+
+def stress_sweep_plain(state, bits, band_off, decay, sub_decay, flag=None):
+    st, sf, act, oc = state
+    best = torch.full_like(st, float("-inf"))
+    bsf = torch.zeros_like(sf)
+    for d, off in enumerate(band_off):
+        nst, nsf = _shift(st, off), _shift(sf, off)
+        prop = nst * torch.where(nsf > 0.5, sub_decay, decay)
+        ok = (_bit(bits, d) & (_shift(act, off) > 0)
+              & (_shift(oc, off) <= 0) & (prop >= 0.005))
+        key = torch.where(ok, prop, float("-inf"))
+        u = key > best
+        best = torch.where(u, key, best)
+        bsf = torch.where(u, nsf, bsf)
+    upd = best > st
+    _or_flag(flag, upd.any())
+    return torch.stack([torch.where(upd, best, st), torch.where(upd, bsf, sf),
+                        torch.where(upd, 1.0, act), oc])
+
+
+def stress_sweep(state, bits, band_off, decay: float, sub_decay: float,
+                 flag=None):
+    """One stress sweep over the [4, NP] state (st, sf, act, ocean)."""
+    if _on_cpu(state):
+        return stress_sweep_plain(state, bits, band_off, decay, sub_decay,
+                                  flag)
+    fn = _kernel("stress_sweep")
+    _check(bits, flag, (state, 4))
+    out = torch.empty_like(state)
+    offs, nd = _offs(band_off)
+    _launch(fn, "stress", _ptr(state), _ptr(bits), _ptr(out),
+            _ptr(flag), state.shape[1], offs, nd, float(decay),
+            float(sub_decay))
+    return out
+
+
+# ── 3. terrain warp ──────────────────────────────────────────────────
+
+def dist2(p, w):
+    """Squared distance of [3, N] points to [3, N] targets, summed x, y, z
+    in that order (the kernel's order)."""
+    d = p - w
+    return d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+
+
+def warp_sweep_plain(state, w, bits, band_off, flag=None):
+    best = dist2(state[1:4], w)
+    out = state
+    for d, off in enumerate(band_off):
+        cand = _shift(state, off)
+        cd = dist2(cand[1:4], w)
+        u = _bit(bits, d) & (cd < best)
+        best = torch.where(u, cd, best)
+        out = torch.where(u, cand, out)
+    _or_flag(flag, (out[0] != state[0]).any())
+    return out.clone() if out is state else out
+
+
+def warp_sweep(state, w, bits, band_off, flag=None):
+    """One nearest-candidate sweep over the [4, NP] state (source index,
+    source xyz) against the [3, NP] targets ``w``."""
+    if _on_cpu(state):
+        return warp_sweep_plain(state, w, bits, band_off, flag)
+    fn = _kernel("warp_sweep")
+    _check(bits, flag, (state, 4), (w, 3))
+    out = torch.empty_like(state)
+    offs, nd = _offs(band_off)
+    _launch(fn, "warp", _ptr(state), _ptr(w), _ptr(bits),
+            _ptr(out), _ptr(flag), state.shape[1], offs, nd)
+    return out
+
+
+# ── 4. ε-fill ────────────────────────────────────────────────────────
+
+def flood_sweep_plain(surf, inland, elev_baked, bits, band_off, big: float,
+                      eps: float, flag=None):
+    masked = torch.where(inland > 0, big, surf)
+    best = torch.full_like(surf, float("inf"))
+    for d, off in enumerate(band_off):
+        best = torch.minimum(
+            best, torch.where(_bit(bits, d), _shift(masked, off),
+                              float("inf")))
+    out = torch.minimum(surf, torch.maximum(elev_baked, best + eps))
+    _or_flag(flag, (out != surf).any())
+    return out
+
+
+def flood_sweep(surf, inland, elev_baked, bits, band_off, big: float,
+                eps: float, flag=None):
+    """One ε-fill sweep over the [NP] surface; ``inland`` (0/1 f32) cells
+    present ``big`` to their neighbours."""
+    if _on_cpu(surf):
+        return flood_sweep_plain(surf, inland, elev_baked, bits, band_off,
+                                 big, eps, flag)
+    fn = _kernel("flood_sweep")
+    _check(bits, flag, (surf, None), (inland, None), (elev_baked, None))
+    out = torch.empty_like(surf)
+    offs, nd = _offs(band_off)
+    _launch(fn, "flood", _ptr(surf), _ptr(inland),
+            _ptr(elev_baked), _ptr(bits), _ptr(out), _ptr(flag),
+            surf.shape[0], offs, nd, float(big), float(eps))
+    return out

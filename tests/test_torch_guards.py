@@ -1,0 +1,150 @@
+"""Import and dispatch guards of the PyTorch port.
+
+- The port imports neither JAX nor the JAX package (checked in a fresh
+  interpreter, and by scanning its sources).
+- Entry points never fall back to the CPU on their own: the engine
+  refuses to start without CUDA unless the caller asks for the CPU, and a
+  sweep wrapper given a CUDA tensor launches its kernel or raises.
+- Requests the slice does not cover (climate, glacial erosion) raise.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
+import pytest
+import torch
+
+import planet_heightmap_generation_torch as port
+from planet_heightmap_generation_torch.ops import sweep_cuda
+
+PKG = pathlib.Path(port.__file__).parent
+MODULES = sorted(
+    "planet_heightmap_generation_torch." + ".".join(
+        p.relative_to(PKG).with_suffix("").parts).replace(".__init__", "")
+    for p in PKG.rglob("*.py"))
+
+
+def test_imports_pull_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m.rstrip('.'))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib') or"
+        " m.startswith('planet_heightmap_generation_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(PKG.parent)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+
+
+def test_sources_name_no_jax():
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        for word in ("import jax", "from jax", "planet_heightmap_generation_tpu"):
+            assert word not in text, f"{path}: {word}"
+
+
+def test_engine_without_cuda_raises(monkeypatch):
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlanetEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlanetEngine(device="cuda")
+    assert PlanetEngine(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [dict(skip_climate=False),
+                                dict(skip_climate=None),
+                                dict(skip_climate=True, glacial_erosion=0.5)])
+def test_uncovered_requests_raise(kw):
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    with pytest.raises(NotImplementedError):
+        PlanetEngine(device="cpu").generate(
+            GenerationParams(seed=1, n_cells=2000, n_plates=8, **kw))
+
+
+def _fake_cuda(shape):
+    """Stands in for a CUDA tensor: the wrappers route on ``.device``
+    before touching any data."""
+    return types.SimpleNamespace(device=torch.device("cuda"), shape=shape)
+
+
+@pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood"])
+def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(sweep_cuda, "_LIB", None)
+    monkeypatch.setattr(sweep_cuda, "LIBRARY", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(sweep_cuda, "_nvcc", no_nvcc)
+    before = dict(sweep_cuda.LAUNCHES)
+    x = _fake_cuda((4, 64))
+    call = {
+        "bfs": lambda: sweep_cuda.bfs_sweep(x, x, x, (1,)),
+        "stress": lambda: sweep_cuda.stress_sweep(x, x, (1,), 0.9, 0.8),
+        "warp": lambda: sweep_cuda.warp_sweep(x, x, x, (1,)),
+        "flood": lambda: sweep_cuda.flood_sweep(x, x, x, x, (1,), 1e9, 1e-6),
+    }[kernel]
+    with pytest.raises(RuntimeError):
+        call()
+    assert sweep_cuda.LAUNCHES == before
+
+
+def test_other_devices_refused():
+    x = torch.zeros((1, 8), device="meta")
+    with pytest.raises(ValueError):
+        sweep_cuda.bfs_sweep(x, x, x, (1,))
+
+
+@pytest.mark.parametrize("bad", ["plane_shape", "plane_dtype", "bits_dtype",
+                                 "strided", "flag_dtype"])
+def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
+    """The check every wrapper runs before handing pointers to a kernel."""
+    bits = torch.zeros(64, dtype=torch.int32)
+    plane = torch.zeros((4, 64))
+    flag = torch.zeros(1, dtype=torch.int32)
+    sweep_cuda._check(bits, flag, (plane, 4), (plane[0].clone(), None))
+    args = {
+        "plane_shape": (bits, flag, (plane[:, :32].contiguous(), 4)),
+        "plane_dtype": (bits, flag, (plane.double(), 4)),
+        "bits_dtype": (bits.long(), flag, (plane, 4)),
+        "strided": (bits, flag, (plane.T.contiguous().T, 4)),
+        "flag_dtype": (bits, flag.bool(), (plane, 4)),
+    }[bad]
+    with pytest.raises(ValueError):
+        sweep_cuda._check(*args)
+
+
+def test_cpu_wrappers_run_plain_versions_uncounted():
+    gen = torch.Generator().manual_seed(0)
+    n, offs = 64, (-3, 1, 5)
+    bits = torch.randint(0, 8, (n,), generator=gen, dtype=torch.int32)
+    st = torch.rand((4, n), generator=gen)
+    st[2:] = (st[2:] > 0.5).float()
+    w = torch.rand((3, n), generator=gen)
+    before = dict(sweep_cuda.LAUNCHES)
+    pairs = [
+        (sweep_cuda.bfs_sweep(st, st, bits, offs),
+         sweep_cuda.bfs_sweep_plain(st, st, bits, offs)),
+        (sweep_cuda.stress_sweep(st, bits, offs, 0.9, 0.7),
+         sweep_cuda.stress_sweep_plain(st, bits, offs, 0.9, 0.7)),
+        (sweep_cuda.warp_sweep(st, w, bits, offs),
+         sweep_cuda.warp_sweep_plain(st, w, bits, offs)),
+        (sweep_cuda.flood_sweep(st[0], st[2], st[1], bits, offs, 1e9, 1e-6),
+         sweep_cuda.flood_sweep_plain(st[0], st[2], st[1], bits, offs, 1e9,
+                                      1e-6)),
+    ]
+    for a, b in pairs:
+        assert torch.equal(a, b)
+    assert sweep_cuda.LAUNCHES == before
