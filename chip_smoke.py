@@ -4,20 +4,24 @@
 
 Phases (any failure exits non-zero with its traceback):
 
-1. report the card and build the CUDA kernels from csrc/sweeps.cu;
+1. report the card and build the six CUDA kernels from csrc/sweeps.cu;
 2. hold every kernel against its plain-torch version on the card, on the
-   204K-cell mesh (seed 42) with inputs made from numpy seeds: the
-   kernel-driven loop and the same loop through the plain version must
-   agree bit for bit; time one launch (CUDA events over many launches,
-   and its device time from a ``torch.profiler`` trace), the plain
-   version, and the least time the card could take (bytes or
-   operations);
-3. drive the port's main path: terrain-only ``PlanetEngine.generate`` at
-   204K cells, cold then warm, with every kernel's launch count read
-   around the warm run; then one more warm run under ``torch.profiler``
-   for the device's busy time and each kernel's device time per launch;
-4. check the 4K planet (seed 123) against the reference's pinned
-   c4k_s123 terrain distribution.
+   204K-cell mesh (seed 42) with inputs made from numpy seeds at the main
+   path's shapes: the kernel-driven loop and the same loop through the
+   plain version must agree bit for bit; time one launch (CUDA events
+   over many launches, and its device time from a ``torch.profiler``
+   trace), the plain version, the least time the card could take (bytes
+   or operations) and, where one PyTorch call computes the same function,
+   that call;
+3. drive the port's main path: the default ``PlanetEngine.generate``
+   (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
+   cold then warm, with every kernel's launch count read around the warm
+   run, then one more warm run under ``torch.profiler`` for the device's
+   busy time and each kernel's device time per launch; then one warm
+   terrain-only run (``skip_climate=True``), timed and profiled the same
+   way, so the terrain numbers stay comparable;
+4. check the 4K planet (seed 123) with climate against the reference's
+   pinned c4k_s123 snapshot: terrain distribution and Köppen shares.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -42,14 +46,17 @@ F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 SOURCE = "planet_heightmap_generation_torch/csrc/sweeps.cu"
 TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
 REPLACES = {"bfs": f"{TPU_KERNELS}:171", "flood": f"{TPU_KERNELS}:230",
-            "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480"}
-# c4k_s123 (tests/test_reference_parity.py:45-55): terrain-only metrics
+            "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480",
+            "smooth": f"{TPU_KERNELS}:564", "shadow": f"{TPU_KERNELS}:619"}
+# c4k_s123 (tests/test_reference_parity.py:45-55)
 SNAPSHOT_C4K = dict(
     land_fraction=0.31042,
     elevation_hist=[0.0, 0.0, 0.0, 0.0055, 0.02424, 0.03274, 0.06048,
                     0.12297, 0.24494, 0.1987, 0.02899, 0.02649, 0.04699,
                     0.09198, 0.04574, 0.03024, 0.019, 0.00625, 0.00525,
                     0.0095],
+    koppen_top={0: 0.6896, 29: 0.045, 6: 0.0422, 19: 0.0362,
+                3: 0.0307, 1: 0.0272, 30: 0.0247, 9: 0.0195},
     plate_count=12)
 
 
@@ -125,7 +132,7 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
     sf_res = math.sqrt(g.n_cells / 10000.0)
     records = {}
 
-    def record(name, loop, sweep_args, nbytes, nops):
+    def record(name, loop, sweep_args, nbytes, nops, library=None):
         sweep_cuda.reset_launches()
         out_k = loop()
         torch.cuda.synchronize()
@@ -150,16 +157,18 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
         plain_ms = time_ms(lambda: plain(*sweep_args), plain_reps)
         dev_ms = mean_device_ms(device_events(
             lambda: [kern(*sweep_args) for _ in range(20)]), name)
+        lib_ms = None if library is None else time_ms(library, reps)
         b_ms, b_by = bound_ms(nbytes, nops)
         records[name] = dict(loop_launches=launches, max_abs_err=err, ms=ms,
                              device_ms=dev_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         dev_txt = ("not measured" if dev_ms is None
                    else f"{dev_ms * 1e3:.2f} us")
+        lib_txt = "" if lib_ms is None else f", library {lib_ms * 1e3:.2f} us"
         print(f"kernel {name:6s} bit-identical loop of {launches} launches; "
               f"{ms * 1e3:8.2f} us/launch (device {dev_txt}), plain "
               f"{plain_ms * 1e3:9.2f} us, bound {b_ms * 1e3:6.2f} us "
-              f"({b_by})", flush=True)
+              f"({b_by}){lib_txt}", flush=True)
 
     # 1. four-field distance BFS with random costs, the bfs5 loop's shape
     f = 4
@@ -224,7 +233,70 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
         (surf0.contiguous(), inland.float().contiguous(), baked, bits,
          g.band_off, flood.BIG, flood.EPS),
         nbytes=5 * npad * 4, nops=2 * edges + 3 * npad)
+
+    # 5. smoothing: the F=2 plain passes (convergence, 9 passes) and the
+    # F=4 masked passes (ocean currents, 3 passes) of the default generate
+    ptr, nbr = banded.rem_csr(g.rem_src, g.rem_dst, npad)
+    m = nbr.shape[0]
+    f2 = torch.as_tensor(rng.standard_normal((npad, 2)).astype(np.float32),
+                         device=dev)
+    f4 = torch.as_tensor(rng.standard_normal((npad, 4)).astype(np.float32),
+                         device=dev)
+    ocean_m = torch.as_tensor(rng.random(npad) < 0.7, device=dev) & g.valid
+    deg = banded.banded_count(g.band_mask, g.rem_src, dtype=torch.float32)
+    c = (deg + 1).contiguous()
+    planes2 = f2.T.contiguous()
+    record("smooth", lambda: (
+        banded.smooth_field_banded(f2, *g.bands, 9),
+        banded.smooth_masked_banded(f4, ocean_m, *g.bands, 3)),
+        (planes2, c, bits, g.band_off, ptr, nbr),
+        nbytes=(2 * 2 + 2) * npad * 4 + (npad + 1 + m) * 4,
+        nops=2 * (edges + m + 2 * npad),
+        library=smooth_library(g, c, f2))
+
+    # 6. rain shadow: 56 hops (34 windward) of the default generate's
+    # [4, NP] state over winds and slopes made from numpy seeds
+    from planet_heightmap_generation_torch.climate import precipitation
+    elev6 = torch.as_tensor((rng.standard_normal(npad) * 0.4)
+                            .astype(np.float32), device=dev) * g.valid
+    height_km = torch.clamp(elev6, min=0.0) * 6.0
+    land = (elev6 > 0) & g.valid
+    wind3d2 = torch.as_tensor(rng.standard_normal((npad, 2, 3))
+                              .astype(np.float32) * 0.3, device=dev)
+    wdg2 = torch.as_tensor(rng.standard_normal((npad, 2))
+                           .astype(np.float32) * 0.1, device=dev)
+    avg_edge_km = math.pi * 6371 / math.sqrt(g.n_cells)
+    s_hops = max(8, round(2500 / avg_edge_km))
+    w_hops = max(6, round(1500 / avg_edge_km))
+    seed2 = precipitation._shadow_seeds2(elev6, height_km, land, wdg2)
+    state = torch.cat([seed2, seed2], 1).T.contiguous()
+    aux = torch.cat([g.pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T]).contiguous()
+    land_f = land.float().contiguous()
+    rs, rw = precipitation.shadow_retain(s_hops, w_hops)
+    land_edges = popcount(bits[land]) + int(land[g.rem_src].sum())
+    record("shadow", lambda: precipitation._rain_shadow2(
+        g.pos, elev6, height_km, land, wind3d2, wdg2, *g.bands, s_hops,
+        w_hops),
+        (state, aux, land_f, bits, g.band_off, ptr, nbr, rs, rw),
+        nbytes=(4 + 9 + 1 + 1 + 4) * npad * 4 + (npad + 1 + m) * 4,
+        nops=40 * land_edges + 8 * npad)
     return records
+
+
+def smooth_library(g, c, field):
+    """One PyTorch call computing a smoothing pass: the CSR adjacency with
+    self-loops, rows scaled by 1/c, times the [NP, F] field
+    (``torch.sparse.mm``). It multiplies by 1/c where the kernel divides,
+    so it is a yardstick of speed, not of bits; the port never calls it."""
+    npad = g.n_padded
+    rows = torch.arange(npad, device=g.device)
+    src = torch.cat([rows[:, None].expand_as(g.nbr_idx)[g.nbr_mask], rows])
+    dst = torch.cat([g.nbr_idx[g.nbr_mask], rows])
+    adj = torch.sparse_coo_tensor(
+        torch.stack([src, dst]), (1.0 / c)[src], (npad, npad),
+        check_invariants=True).coalesce()
+    adj = adj.to_sparse_csr()
+    return lambda: torch.sparse.mm(adj, field)
 
 
 # ── phases 3 and 4 ───────────────────────────────────────────────────
@@ -266,8 +338,10 @@ def profile_generate(dev, params, top: int = 8):
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return dict(busy_ms=busy_us / 1e3,
+    return dict(busy_ms=busy_us / 1e3, n_events=len(events),
                 device_ms={k: mean_device_ms(events, k) for k in REPLACES},
+                seen={k: sum(f"{k}_sweep_kernel" in e.name for e in events)
+                      for k in REPLACES},
                 top=[(n[:90], t / 1e3, c) for n, (t, c) in ranked])
 
 
@@ -291,6 +365,47 @@ def check_planet(res, n_plates: int):
     return d, plates
 
 
+def check_climate(res) -> str:
+    """Fail unless the result carries the whole climate: every field
+    finite on the real cells, Köppen codes valid."""
+    from planet_heightmap_generation_torch.climate import KOPPEN_CODES
+
+    n, npad = res.graph.n_cells, res.graph.n_padded
+    assert res.climate is not None
+    assert set(res.climate) == {"wind", "ocean", "precip", "temp", "koppen"}
+    kop = res.climate["koppen"][:n]
+    assert int(kop.min()) >= 0 and int(kop.max()) < len(KOPPEN_CODES)
+    fields = 0
+    for part in ("wind", "ocean", "precip", "temp"):
+        for k, v in res.climate[part].items():
+            if torch.is_tensor(v) and v.is_floating_point():
+                rows = v[:n] if v.shape[0] == npad else v
+                assert bool(torch.isfinite(rows).all()), (part, k)
+                fields += 1
+    counts = torch.bincount(kop.long(), minlength=len(KOPPEN_CODES))
+    top = sorted(((int(c), KOPPEN_CODES[i]) for i, c in enumerate(counts)),
+                 reverse=True)[:4]
+    return (f"{fields} fields finite, Koppen codes valid, most common "
+            + ", ".join(f"{name} {c / n:.4f}" for c, name in top))
+
+
+def report_profile(prof, warm_s: float):
+    if prof is None:
+        print("profile: no device events in the trace (device time not "
+              "measured)")
+        return
+    print(f"profile: device busy {prof['busy_ms']:.3f} ms of the warm "
+          f"{warm_s * 1e3:.1f} ms generate (idle share "
+          f"{1 - prof['busy_ms'] / (warm_s * 1e3):.4f}), "
+          f"{prof['n_events']} device events in the trace")
+    for k, v in prof["device_ms"].items():
+        print(f"  {k:6s} mean device time per launch on the path: "
+              + ("not measured" if v is None else f"{v * 1e3:.2f} us")
+              + f" ({prof['seen'][k]} launches in the trace)")
+    for n, t, c in prof["top"]:
+        print(f"  {t:9.3f} ms {c:6d}x {n}")
+
+
 def snapshot_check(res):
     n = res.graph.n_cells
     e = res.elevation[:n].cpu().numpy()
@@ -299,12 +414,18 @@ def snapshot_check(res):
     land = float((e > 0).mean())
     l1 = float(np.abs(hist - np.asarray(SNAPSHOT_C4K["elevation_hist"])).sum())
     plates = len(torch.unique(res.r_plate[:n]))
+    kop = res.climate["koppen"][:n].cpu().numpy()
+    shares = {c: float((kop == c).mean()) for c in SNAPSHOT_C4K["koppen_top"]}
+    worst = max(abs(shares[c] - f)
+                for c, f in SNAPSHOT_C4K["koppen_top"].items())
     print(f"c4k_s123: land {land:.5f} (snapshot "
           f"{SNAPSHOT_C4K['land_fraction']}), histogram L1 {l1:.5f}, "
-          f"plates {plates}", flush=True)
+          f"plates {plates}, Koppen top-8 shares {shares}, largest "
+          f"difference from the snapshot {worst:.5f}", flush=True)
     assert abs(land - SNAPSHOT_C4K["land_fraction"]) < 0.02
     assert l1 < 0.05
     assert plates == SNAPSHOT_C4K["plate_count"]
+    assert worst < 0.03, shares
 
 
 def main() -> int:
@@ -342,45 +463,46 @@ def main() -> int:
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
     records = kernel_checks(g, dev)
 
-    # 3. the slice: terrain-only generate at 204K, cold then warm
-    params = GenerationParams(seed=SEED, n_cells=N_CELLS, skip_climate=True)
+    # 3. the main path: the default generate (204K, climate on), cold
+    # then warm; then one warm terrain-only run
+    params = GenerationParams(seed=SEED)
+    assert params.n_cells == N_CELLS and params.skip_climate is None
     _, cold_s = run_generate(dev, params)
-    print(f"generate 204K cold: {cold_s:.2f} s", flush=True)
+    print(f"generate 204K (default, climate on) cold: {cold_s:.2f} s",
+          flush=True)
     sweep_cuda.reset_launches()
     res, warm_s = run_generate(dev, params)
     launches = dict(sweep_cuda.LAUNCHES)
     print(res.timing.table())
-    print(f"generate 204K warm: {warm_s:.3f} s", flush=True)
+    print(f"generate 204K (default, climate on) warm: {warm_s:.3f} s",
+          flush=True)
     diag, plates = check_planet(res, params.n_plates)
     print(f"diagnostics: {diag}, plates {plates}", flush=True)
+    print("climate: " + check_climate(res), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    prof = profile_generate(dev, params)
-    if prof is None:
-        print("profile: no device events in the trace (device time not "
-              "measured)")
-    else:
-        print(f"profile: device busy {prof['busy_ms']:.3f} ms of the warm "
-              f"{warm_s * 1e3:.1f} ms generate (idle share "
-              f"{1 - prof['busy_ms'] / (warm_s * 1e3):.4f})")
-        for k, v in prof["device_ms"].items():
-            print(f"  {k:6s} mean device time per launch on the path: "
-                  + ("not measured" if v is None else f"{v * 1e3:.2f} us"))
-        for n, t, c in prof["top"]:
-            print(f"  {t:9.3f} ms {c:6d}x {n}")
+    report_profile(profile_generate(dev, params), warm_s)
 
-    # 4. pinned distribution at 4K
+    terrain = GenerationParams(seed=SEED, skip_climate=True)
+    res_t, warm_t = run_generate(dev, terrain)
+    assert res_t.climate is None
+    print(res_t.timing.table())
+    print(f"generate 204K terrain-only warm: {warm_t:.3f} s", flush=True)
+    check_planet(res_t, terrain.n_plates)
+    report_profile(profile_generate(dev, terrain), warm_t)
+
+    # 4. pinned distribution at 4K, climate on
     small, _ = run_generate(dev, GenerationParams(
-        seed=123, n_cells=4000, n_plates=12, num_continents=2,
-        skip_climate=True))
+        seed=123, n_cells=4000, n_plates=12, num_continents=2))
     snapshot_check(small)
 
     kernels = [dict(
         name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
         launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"])
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        device_ms=r["device_ms"])
         for k, r in records.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

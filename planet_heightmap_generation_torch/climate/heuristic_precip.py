@@ -1,0 +1,129 @@
+"""Heuristic zonal precipitation model (blended 50-50 with the advection
+model); the JAX package's climate/heuristic_precip.py in torch: the
+multiplicative zonal base curve against ITCZ distance, idealized wind
+belts, the seasonal modifier with west-coast-weighted Mediterranean
+suppression, continental dryness, the orographic modifier and the hard
+coast cutoff."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.banded import banded_sum, dot3, smooth_passes
+from .util import smoothstep, elev_to_height_km, itcz_lookup
+
+DEG = math.pi / 180.0
+
+
+def zonal_base(dist_deg):
+    """Zonal precipitation curve vs ITCZ distance
+    (js/heuristic-precip.js:16-37)."""
+    return torch.where(
+        dist_deg < 5, 1.0,
+        torch.where(dist_deg < 10, 1.0 - 0.65 * smoothstep(5.0, 10.0, dist_deg),
+        torch.where(dist_deg < 33, 0.35 - 0.33 * smoothstep(10.0, 28.0, dist_deg),
+        torch.where(dist_deg < 55, 0.02 + 0.48 * smoothstep(33.0, 55.0, dist_deg),
+        torch.where(dist_deg < 70, 0.5 - 0.2 * smoothstep(55.0, 70.0, dist_deg),
+                    0.3 - 0.2 * smoothstep(70.0, 90.0, dist_deg))))))
+
+
+def heuristic_wind(dist_deg, hemi_sign):
+    """Idealized wind belts (js/heuristic-precip.js:51-81)."""
+    trade = smoothstep(5.0, 15.0, dist_deg) * (
+        1 - smoothstep(25.0, 32.0, dist_deg))
+    west = smoothstep(30.0, 40.0, dist_deg) * (
+        1 - smoothstep(55.0, 65.0, dist_deg))
+    polar = smoothstep(60.0, 70.0, dist_deg)
+    we = torch.where(
+        dist_deg < 5, 0.0,
+        torch.where(dist_deg < 30, -trade * 0.8,
+        torch.where(dist_deg < 60, west * 0.9, -polar * 0.4)))
+    wn = torch.where(
+        dist_deg < 5, -hemi_sign * 0.1,
+        torch.where(dist_deg < 30, -hemi_sign * trade * 0.3,
+        torch.where(dist_deg < 60, hemi_sign * west * 0.25,
+                    -hemi_sign * polar * 0.15)))
+    return we, wn
+
+
+def heuristic_wind_field(lat, lon, itcz_lats):
+    """Idealized wind for a full season (js/heuristic-precip.js:86-102);
+    ITCZ displacement dampened to 30 %."""
+    itcz_lat = itcz_lookup(itcz_lats, lon) * 0.3
+    signed = lat - itcz_lat
+    dist_deg = torch.abs(signed) / DEG
+    hemi = torch.where(signed > 0, 1.0, -1.0)
+    return heuristic_wind(dist_deg, hemi)
+
+
+def west_coast_signal(pos, is_land, coast_dist_land, east, band_off,
+                      band_mask, rem_src, rem_dst, wc_passes: int):
+    """West-coast signal: +1 west coast, −1 east coast, diffused ~300 km
+    through land (js/heuristic-precip.js:128-166).
+
+    The JAX diffusion sets non-land cells to 0 each pass,
+    ``where(land, (wc + Σ_nbr where(land, wc, 0)) / c, 0)`` with
+    c = 1 + land neighbours. The signal starts at 0 on every non-land
+    cell, so that is exactly the masked smoothing pass (non-mask cells pass
+    through their 0), and it runs through the smoothing kernel."""
+    oc = (~is_land).to(torch.float32)
+    s4 = banded_sum(torch.cat([oc[:, None], oc[:, None] * pos], 1),
+                    band_off, band_mask, rem_src, rem_dst)
+    ocean_cnt = s4[:, 0]
+    ocean_dot_east = dot3(s4[:, 1:4] - ocean_cnt[:, None] * pos, east)
+    coast_cell = is_land & (coast_dist_land == 0)
+    west_coast = torch.where(coast_cell & (ocean_cnt > 0),
+                             torch.where(ocean_dot_east < 0, 1.0, -1.0), 0.0)
+    land_f = is_land.to(torch.float32)
+    c = 1 + banded_sum(land_f, band_off, band_mask, rem_src, rem_dst)
+    return smooth_passes(west_coast, c, band_off, band_mask, rem_src,
+                         rem_dst, wc_passes, gate=land_f, upd=land_f)
+
+
+def heuristic_precip_raw(lat, lon, elev, is_land, continentality,
+                         coast_dist_land, elev_grad_e, elev_grad_n,
+                         west_coast, itcz_lats, avg_edge_km: float,
+                         is_summer: bool):
+    """Per-cell heuristic stack before the final smoothing
+    (js/heuristic-precip.js:119-266)."""
+    itcz_lat = itcz_lookup(itcz_lats, lon) * 0.3
+    signed = lat - itcz_lat
+    dist_deg = torch.abs(signed) / DEG
+    hemi = torch.where(signed > 0, 1.0, -1.0)
+    zonal = zonal_base(dist_deg)
+
+    abs_lat = torch.abs(lat) / DEG
+    in_summer_hemi = (lat >= 0) if is_summer else (lat < 0)
+    season_mod = torch.where(in_summer_hemi, 1.1, 0.9)
+    med = smoothstep(22.0, 30.0, abs_lat) * (
+        1 - smoothstep(38.0, 45.0, abs_lat))
+    strength = 0.15 + west_coast * 0.20
+    season_mod = season_mod * torch.where(
+        in_summer_hemi & (abs_lat > 22) & (abs_lat < 45),
+        1 - med * torch.clamp(strength, min=0.0), 1.0)
+
+    cont = torch.where(is_land, continentality, 0.0)
+    cont_mod = torch.where(cont > 0, 1.0 - cont * cont * 0.65, 1.0)
+
+    we, wn = heuristic_wind(dist_deg, hemi)
+    wdg = we * elev_grad_e + wn * elev_grad_n
+    uplift = torch.clamp(wdg * 15, max=1.0)
+    h_km = elev_to_height_km(torch.clamp(elev, min=0.0))
+    h_scale = torch.clamp(h_km / 3, max=1.0)
+    shadow = torch.clamp(-wdg * 18, max=1.0)
+    oro = torch.where(
+        is_land & (elev > 0),
+        torch.where(wdg > 0, 1.0 + uplift * 0.6,
+                    torch.clamp(1.0 - shadow * 0.7 * h_scale, min=0.3)),
+        1.0)
+
+    dist_km = coast_dist_land * avg_edge_km
+    dist_mod = torch.where(
+        is_land & (coast_dist_land > 0) & (dist_km > 2000),
+        torch.clamp(1 - smoothstep(2000.0, 3000.0, dist_km), min=0.03), 1.0)
+
+    precip = torch.clamp(zonal * season_mod * cont_mod * oro * dist_mod,
+                         min=0.05)
+    return precip.to(torch.float32)

@@ -9,7 +9,10 @@
 // which blocks run: each kernel equals its plain-torch version in
 // ops/sweep_cuda.py bit for bit, and equals one iteration of the JAX jnp
 // loop it replaces. The few remainder edges outside the bands are applied
-// by the Python driver after each launch, as torch scatters on [M].
+// by the Python sweep loop after each launch, as torch scatters on [M], for
+// the four min/argmin kernels (1-4), whose result does not depend on the
+// order of its terms; the two summing kernels (5-6) walk them in-kernel
+// from a CSR, in edge order (see "Remainder edges as CSR rows").
 //
 // What bounds these kernels on an H100: memory traffic, never arithmetic.
 // The least a launch must move is its state and auxiliary planes read
@@ -30,8 +33,9 @@
 // index is still wrapped modulo NP (jnp.roll semantics) so no thread can
 // read out of bounds.
 //
-// Change flag: every kernel ORs "some cell changed" into *flag (one
-// atomicOr per block after a block-level OR) when flag is not null.
+// Change flag: kernels 1-4 OR "some cell changed" into *flag (one
+// atomicOr per block after a block-level OR) when flag is not null; the
+// smoothing and rain-shadow passes run a fixed count and have none.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps a*b+c as two rounded
@@ -203,6 +207,160 @@ flood_sweep_kernel(const float* __restrict__ surf, const float* __restrict__ inl
   or_flag(flag, changed);
 }
 
+// ── Remainder edges as CSR rows ────────────────────────────────────────
+// The two climate kernels below SUM over neighbours, and a sum is not
+// order-free: the remainder edges (the ~0.5 % of edges outside the bands)
+// are walked inside the kernel, after the bands, from a CSR whose rows keep
+// the edges' original order (ops/banded.py rem_csr: a stable sort by
+// destination cell). That reproduces the JAX jnp order
+// ((sum over bands + r0) + r1) and, unlike an atomic scatter, gives the
+// same bits on every run. Rows are bounded by m and columns outside
+// [0, NP) are skipped, so a malformed CSR cannot make a thread read off
+// the arrays.
+__device__ __forceinline__ int row_begin(const int* ptr, int i, int m) {
+  const int k = ptr[i];
+  return k < 0 ? 0 : (k > m ? m : k);
+}
+__device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
+  const int k = ptr[i + 1];
+  return k < 0 ? 0 : (k > m ? m : k);
+}
+
+// ── 5. Laplacian smoothing pass ────────────────────────────────────────
+// Replaces _make_smooth_kernel (sweep_pallas.py:564). One thread per
+// (field, cell), the jnp semantics of ops/banded.py _smooth_field_jnp /
+// _smooth_masked_jnp and climate/temperature.py _diffuse_warmth_jnp:
+//   s   = sum over band neighbours j (in band order, from 0.0), then the
+//         remainder neighbours (in edge order), of f[j] — counting only
+//         neighbours with gate[j] > 0 when gate is given;
+//   out = (f[i] + s) / c[i]          where upd is null or upd[i] > 0,
+//   out = f[i]                       elsewhere.
+// c = 1 + degree (or 1 + the number of gated neighbours) comes in as a
+// plane. The division is IEEE-rounded (no fast math), as torch's is; the
+// Pallas kernel multiplied by a precomputed 1/c instead.
+// Masked smoothing passes gate = upd = mask; the frozen-cell restore of the
+// ocean-warmth diffusion passes gate = null, upd = not frozen.
+// Bound: bytes. An F=2 pass at 204K reads the field, c, bits and the CSR
+// once and writes the field: ~5.7 MB, ~1.7 us at 3.35 TB/s.
+__global__ void __launch_bounds__(kThreads)
+smooth_sweep_kernel(const float* __restrict__ f, const float* __restrict__ c,
+                    const float* __restrict__ gate,
+                    const float* __restrict__ upd,
+                    const uint32_t* __restrict__ bits,
+                    const int* __restrict__ rptr, const int* __restrict__ rnbr,
+                    int m, float* __restrict__ out, int np, int nf,
+                    Bands bands) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nf * np) return;
+  const int fi = t / np;
+  const int i = t - fi * np;
+  const float* row = f + (size_t)fi * np;
+  const uint32_t b = bits[i];
+  float s = 0.0f;
+  for (int d = 0; d < bands.n; ++d) {
+    if (!((b >> d) & 1u)) continue;
+    const int j = wrap(i + bands.off[d], np);
+    if (gate == nullptr || gate[j] > 0.0f) s += row[j];
+  }
+  const int k1 = row_end(rptr, i, m);
+  for (int k = row_begin(rptr, i, m); k < k1; ++k) {
+    const int j = rnbr[k];
+    if (j < 0 || j >= np) continue;
+    if (gate == nullptr || gate[j] > 0.0f) s += row[j];
+  }
+  const float fv = row[i];
+  out[t] = (upd == nullptr || upd[i] > 0.0f) ? (fv + s) / c[i] : fv;
+}
+
+// ── 6. Rain-shadow hop ─────────────────────────────────────────────────
+// Replaces _make_shadow_kernel (sweep_pallas.py:619); the jnp semantics of
+// climate/precipitation.py _rain_shadow2_jnp, one hop per launch. One
+// thread per cell carries all four columns of the state
+//   {shadow, windward} x {summer, winter}  (signs -1, -1, +1, +1).
+// aux planes: 0-2 position, 3-5 summer wind, 6-8 winter wind (xyz). For a
+// neighbour j of a LAND cell i, with d = p_j - p_i:
+//   up  weight (shadow columns)   = w_j . (-d)   (wind at j toward i),
+//   down weight (windward columns) = w_i . d      (wind at i toward j),
+// each dot summed x, y, z in that order, as the jnp einsum. A neighbour
+// counts for column c when its weight is > 0 and v_j * sign_c > 0; then
+//   wsum += w, wacc += w * v_j      (bands in order, then the remainder);
+//   carried = wacc / max(wsum, 1e-20) * retain_c,
+//   out = min(v_i, carried) for shadow, max(v_i, carried) for windward,
+// and cells with wsum == 0 (and every non-land cell) keep their value. The
+// per-column hop cap is the Python loop's. The weights are recomputed per band
+// from the position and wind planes instead of being read from a
+// materialized [D, 4, NP] stack (the jnp path at <= 400K cells): 9 aux
+// planes against 128. Bound: bytes — state, aux, land, bits and the CSR
+// read once, the state written once: 19 planes, ~16 MB at 204K, ~5 us at
+// 3.35 TB/s (about 40 flops per edge stay far below the f32 rate).
+__global__ void __launch_bounds__(kThreads)
+shadow_sweep_kernel(const float* __restrict__ s, const float* __restrict__ aux,
+                    const float* __restrict__ land,
+                    const uint32_t* __restrict__ bits,
+                    const int* __restrict__ rptr, const int* __restrict__ rnbr,
+                    int m, float* __restrict__ out, int np, Bands bands,
+                    float retain_s, float retain_w) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= np) return;
+  float v[4];
+  for (int c = 0; c < 4; ++c) v[c] = s[(size_t)c * np + i];
+  if (!(land[i] > 0.0f)) {
+    for (int c = 0; c < 4; ++c) out[(size_t)c * np + i] = v[c];
+    return;
+  }
+  const float* px = aux;
+  const float* py = aux + (size_t)np;
+  const float* pz = aux + 2 * (size_t)np;
+  const float* sx = aux + 3 * (size_t)np;
+  const float* sy = aux + 4 * (size_t)np;
+  const float* sz = aux + 5 * (size_t)np;
+  const float* wx = aux + 6 * (size_t)np;
+  const float* wy = aux + 7 * (size_t)np;
+  const float* wz = aux + 8 * (size_t)np;
+  const float pix = px[i], piy = py[i], piz = pz[i];
+  const float six = sx[i], siy = sy[i], siz = sz[i];
+  const float wix = wx[i], wiy = wy[i], wiz = wz[i];
+  const float sgn[4] = {-1.0f, -1.0f, 1.0f, 1.0f};
+  float wsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float wacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  auto visit = [&](int j) {
+    const float dx = px[j] - pix, dy = py[j] - piy, dz = pz[j] - piz;
+    const float nx = -dx, ny = -dy, nz = -dz;
+    float w[4];
+    w[0] = sx[j] * nx + sy[j] * ny + sz[j] * nz;
+    w[1] = wx[j] * nx + wy[j] * ny + wz[j] * nz;
+    w[2] = six * dx + siy * dy + siz * dz;
+    w[3] = wix * dx + wiy * dy + wiz * dz;
+    for (int c = 0; c < 4; ++c) {
+      const float vj = s[(size_t)c * np + j];
+      if (w[c] > 0.0f && vj * sgn[c] > 0.0f) {
+        wsum[c] += w[c];
+        wacc[c] += w[c] * vj;
+      }
+    }
+  };
+
+  const uint32_t b = bits[i];
+  for (int d = 0; d < bands.n; ++d) {
+    if ((b >> d) & 1u) visit(wrap(i + bands.off[d], np));
+  }
+  const int k1 = row_end(rptr, i, m);
+  for (int k = row_begin(rptr, i, m); k < k1; ++k) {
+    const int j = rnbr[k];
+    if (j >= 0 && j < np) visit(j);
+  }
+  for (int c = 0; c < 4; ++c) {
+    float o = v[c];
+    if (wsum[c] > 0.0f) {
+      const float carried = wacc[c] / fmaxf(wsum[c], 1e-20f)
+                            * (c < 2 ? retain_s : retain_w);
+      o = c < 2 ? fminf(v[c], carried) : fmaxf(v[c], carried);
+    }
+    out[(size_t)c * np + i] = o;
+  }
+}
+
 Bands make_bands(const int* offs, int n_offs) {
   Bands b;
   b.n = n_offs;
@@ -254,6 +412,29 @@ int flood_sweep(const float* surf, const float* inland,
   flood_sweep_kernel<<<blocks_for(np), kThreads, 0, (cudaStream_t)stream>>>(
       surf, inland, elev_baked, bits, out, flag, np,
       make_bands(offs, n_offs), big, eps);
+  return (int)cudaGetLastError();
+}
+
+int smooth_sweep(const float* field, const float* c, const float* gate,
+                 const float* upd, const uint32_t* bits, const int* rem_ptr,
+                 const int* rem_nbr, int m, float* out, int np, int nf,
+                 const int* offs, int n_offs, void* stream) {
+  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
+  smooth_sweep_kernel<<<blocks_for((long)nf * np), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      field, c, gate, upd, bits, rem_ptr, rem_nbr, m, out, np, nf,
+      make_bands(offs, n_offs));
+  return (int)cudaGetLastError();
+}
+
+int shadow_sweep(const float* state, const float* aux, const float* land,
+                 const uint32_t* bits, const int* rem_ptr, const int* rem_nbr,
+                 int m, float* out, int np, const int* offs, int n_offs,
+                 float retain_s, float retain_w, void* stream) {
+  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
+  shadow_sweep_kernel<<<blocks_for(np), kThreads, 0, (cudaStream_t)stream>>>(
+      state, aux, land, bits, rem_ptr, rem_nbr, m, out, np,
+      make_bands(offs, n_offs), retain_s, retain_w);
   return (int)cudaGetLastError();
 }
 

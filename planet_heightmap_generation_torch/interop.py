@@ -35,7 +35,12 @@ def state_from_numpy(mesh: Mapping[str, np.ndarray],
     """Tensors of the host prologue products.
 
     - ``mesh``: the SphereGraph fields (``SPHERE_FIELDS``) → ``graph`` (a
-      host SphereGraph) and ``g`` (its DeviceGraph on ``device``).
+      host SphereGraph) and ``g`` (its DeviceGraph on ``device``). Optional
+      ``banded`` (band_off, band_mask, rem_src, rem_dst) and
+      ``banded_packed`` (the packed 8-tuple, or None) carry the producer's
+      own band decomposition: the split of edges into bands and remainder
+      decides the order of sums and of first-best ties, so two
+      implementations compare like with like only on the same split.
     - ``plates``: is_ocean, pole, omega, density → ``plates`` =
       (is_ocean bool, pole f32, omega f32, density f32).
     - ``super_plates``: plate_to_super, is_ocean, pole, omega, density
@@ -48,6 +53,11 @@ def state_from_numpy(mesh: Mapping[str, np.ndarray],
     out: Dict = {}
     kw = {f: (int(mesh[f]) if f in ("n_cells", "n_padded", "pole_id")
               else np.asarray(mesh[f])) for f in SPHERE_FIELDS}
+    if "banded" in mesh:
+        kw["_banded"] = tuple(np.asarray(a) for a in mesh["banded"])
+        packed = mesh.get("banded_packed")
+        kw["_banded_packed"] = (None if packed is None
+                                else tuple(np.asarray(a) for a in packed))
     out["graph"] = graph = SphereGraph(**kw)
     out["g"] = to_device(graph, device)
 

@@ -64,8 +64,6 @@ import os as _os
 if _os.environ.get("PLANET_BAND_COUNT"):
     BAND_COUNT = int(_os.environ["PLANET_BAND_COUNT"])
 
-_BAND_OFF_CACHE: dict = {}
-
 
 def generate_fibonacci_sphere(n: int, jitter: float, rng: ParkMiller) -> np.ndarray:
     """N points on the unit sphere via golden-angle spiral with jitter.
@@ -352,29 +350,24 @@ def build_sphere(
 
 def _band_off_for(nbr_idx: np.ndarray, nbr_mask: np.ndarray, n_bands: int,
                   off_all=None) -> np.ndarray:
-    """The ``n_bands`` most common signed index offsets, sorted. The
-    offset tuple is STATIC in the jitted kernels, so it must be identical
-    for every seed at a given mesh size (seed sweeps share one
-    executable — cached per (npad, n_bands); jitter shifts a few edges
-    between bands and remainder but the dominant offsets are
-    structural)."""
+    """The ``n_bands`` most common signed index offsets of THIS mesh,
+    sorted. Unlike the JAX package, which caches them per (npad, n_bands)
+    so that seed sweeps share one jitted executable, the port derives them
+    from each mesh anew: with a process-wide cache a planet's band split,
+    and with it the order of its sums and first-best ties, would depend on
+    which mesh of the same padded size the process built first."""
     npad = nbr_idx.shape[0]
-    cache_key = (npad, n_bands)
-    band_off = _BAND_OFF_CACHE.get(cache_key)
-    if band_off is None:
-        if off_all is None:
-            i = np.arange(npad, dtype=np.int64)[:, None]
-            off_all = nbr_idx.astype(np.int64) - i
-        offs, counts = np.unique(off_all[nbr_mask], return_counts=True)
-        # select ± pairs together (the symmetric graph gives +o and -o
-        # equal counts; a cutoff tie must not split a pair)
-        pos_sel = offs > 0
-        pos_offs, pos_counts = offs[pos_sel], counts[pos_sel]
-        order = np.argsort(-pos_counts, kind="stable")
-        chosen = pos_offs[order][: n_bands // 2]
-        band_off = np.sort(np.concatenate([chosen, -chosen]))
-        _BAND_OFF_CACHE[cache_key] = band_off
-    return band_off
+    if off_all is None:
+        i = np.arange(npad, dtype=np.int64)[:, None]
+        off_all = nbr_idx.astype(np.int64) - i
+    offs, counts = np.unique(off_all[nbr_mask], return_counts=True)
+    # select ± pairs together (the symmetric graph gives +o and -o
+    # equal counts; a cutoff tie must not split a pair)
+    pos_sel = offs > 0
+    pos_offs, pos_counts = offs[pos_sel], counts[pos_sel]
+    order = np.argsort(-pos_counts, kind="stable")
+    chosen = pos_offs[order][: n_bands // 2]
+    return np.sort(np.concatenate([chosen, -chosen]))
 
 
 def build_banded_packed(nbr_idx: np.ndarray, nbr_mask: np.ndarray,

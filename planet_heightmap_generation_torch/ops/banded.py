@@ -18,6 +18,10 @@ iteration caps bound the number of sweeps, and a loop ends at the first
 sweep that changes nothing. The change flag is read every
 ``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a fixpoint are
 no-ops and no loop runs past its cap.
+
+The climate's Laplacian smoothing runs a fixed number of passes through
+the smoothing kernel; it sums, so it takes the remainder edges as CSR
+rows in edge order (:func:`rem_csr`) instead of a scatter.
 """
 
 from __future__ import annotations
@@ -428,3 +432,114 @@ def flood_assign_banded(value, frontier, band_off, band_mask, rem_src,
 
     (val, reached), _ = relax(step, (value, frontier))
     return val, reached
+
+
+# ── Laplacian smoothing (kernel 5) ───────────────────────────────────
+
+def rem_csr(rem_src, rem_dst, npad: int):
+    """The remainder edges as CSR rows of their destination cell, each row
+    in edge order (a stable sort): (rem_ptr int32 [NP+1], rem_nbr int32
+    [M]). The summing kernels walk a cell's row after its bands, which
+    reproduces the order in which the jnp scatter-add ``.at[rem_src].add``
+    accumulates, with no atomics."""
+    order = torch.sort(rem_src, stable=True).indices
+    cnt = torch.bincount(rem_src, minlength=npad)
+    ptr = torch.zeros(npad + 1, dtype=torch.int32, device=rem_src.device)
+    ptr[1:] = torch.cumsum(cnt, 0).to(torch.int32)
+    return ptr, rem_dst[order].to(torch.int32).contiguous()
+
+
+def smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
+                  passes: int, gate=None, upd=None):
+    """``passes`` smoothing passes through the smoothing kernel of
+    ops/sweep_cuda.py over a [N] or [N,F] field (see ``smooth_sweep`` for
+    ``c``, ``gate`` and ``upd``). Returns f32 of the field's shape."""
+    one_d = field.dim() == 1
+    planes = (field[None] if one_d else field.T).to(torch.float32)
+    planes = planes.contiguous()
+    bits = pack_band_bits(band_mask)
+    ptr, nbr = rem_csr(rem_src, rem_dst, band_mask.shape[0])
+    c = c.to(torch.float32).contiguous()
+    gate = None if gate is None else gate.to(torch.float32).contiguous()
+    upd = None if upd is None else upd.to(torch.float32).contiguous()
+    for _ in range(passes):
+        planes = sweep_cuda.smooth_sweep(planes, c, bits, band_off, ptr, nbr,
+                                         gate, upd)
+    return planes[0] if one_d else planes.T
+
+
+def smooth_field_banded(field, band_off, band_mask, rem_src, rem_dst,
+                        passes: int):
+    """Laplacian smoothing including the cell itself, ``passes`` times:
+    ``f ← (f + Σ_nbr f) / (deg + 1)`` — the JAX ``_smooth_field_jnp``
+    (which divides; its Pallas path multiplies by 1/(deg+1))."""
+    c = banded_count(band_mask, rem_src, dtype=torch.float32) + 1
+    return smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
+                         passes)
+
+
+def smooth_masked_banded(field, mask, band_off, band_mask, rem_src, rem_dst,
+                         passes: int):
+    """Smoothing restricted to ``mask`` cells: non-mask cells neither
+    contribute nor update (the JAX ``_smooth_masked_jnp``)."""
+    mf = mask.to(torch.float32)
+    c = 1 + banded_sum(mf, band_off, band_mask, rem_src, rem_dst)
+    return smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
+                         passes, gate=mf, upd=mf)
+
+
+# ── least-squares tangent gradients (plain torch) ────────────────────
+
+def dot3(a, b):
+    """Σ_c a[..., c]·b[..., c] over a last axis of 3, summed x, y, z in
+    that order (the order of the JAX package's 3-term einsums)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
+        + a[..., 2] * b[..., 2]
+
+
+def compute_gradients_banded(pos, field, east, north, band_off, band_mask,
+                             rem_src, rem_dst):
+    """Least-squares tangent gradients (js/wind.js:306-339) as quadratic
+    forms of ONE stacked neighbour sum, the JAX ``compute_gradients_banded``
+    term for term: Σ de² = vᵀMv with M = Σp_jp_jᵀ − p_iΣp_jᵀ − (Σp_j)p_iᵀ +
+    deg·p_ip_iᵀ, evaluated as ``vpp − 2·vp·vsp + deg·vp·vp``, and
+    Σ de·df = v·(Σf_jp_j − f_iΣp_j − p_iΣf_j + deg·f_ip_i). The terms
+    cancel in f32, so their order is kept. Returns (ge, gn) of the field's
+    shape."""
+    n = pos.shape[0]
+    f2 = field if field.dim() == 2 else field[:, None]
+    nf = f2.shape[1]
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    pp = torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], 1)
+    fp = (f2[:, :, None] * pos[:, None, :]).reshape(n, 3 * nf)
+    s = banded_sum(torch.cat([pp, pos, f2, fp], 1), band_off, band_mask,
+                   rem_src, rem_dst)
+    deg = banded_count(band_mask, rem_src, dtype=torch.float32)
+    s_pp, s_p = s[:, :6], s[:, 6:9]
+    s_f, s_fp = s[:, 9:9 + nf], s[:, 9 + nf:].reshape(n, nf, 3)
+
+    def quad(v):
+        vpp = (v[:, 0] * v[:, 0] * s_pp[:, 0]
+               + 2 * v[:, 0] * v[:, 1] * s_pp[:, 1]
+               + 2 * v[:, 0] * v[:, 2] * s_pp[:, 2]
+               + v[:, 1] * v[:, 1] * s_pp[:, 3]
+               + 2 * v[:, 1] * v[:, 2] * s_pp[:, 4]
+               + v[:, 2] * v[:, 2] * s_pp[:, 5])
+        vp, vsp = dot3(v, pos), dot3(v, s_p)
+        return vpp - 2 * vp * vsp + deg * vp * vp
+
+    def cross(v):
+        vfp = dot3(s_fp, v[:, None, :])
+        vp, vsp = dot3(v, pos), dot3(v, s_p)
+        return (vfp - f2 * vsp[:, None] - vp[:, None] * s_f
+                + deg[:, None] * f2 * vp[:, None])
+
+    sum_ee, sum_nn = quad(east), quad(north)
+    sum_ep, sum_np = cross(east), cross(north)
+    ge = torch.where(sum_ee[:, None] > 1e-12,
+                     sum_ep / torch.clamp(sum_ee, min=1e-20)[:, None], 0.0)
+    gn = torch.where(sum_nn[:, None] > 1e-12,
+                     sum_np / torch.clamp(sum_nn, min=1e-20)[:, None], 0.0)
+    if field.dim() == 1:
+        ge, gn = ge[:, 0], gn[:, 0]
+    return ge.to(torch.float32), gn.to(torch.float32)

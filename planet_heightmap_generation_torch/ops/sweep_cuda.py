@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels for the banded neighbour sweeps, and their
 plain-torch versions.
 
-Four kernels (csrc/sweeps.cu), each one synchronous sweep per launch:
+Six kernels (csrc/sweeps.cu), each one synchronous sweep per launch:
 
 =========  ==========================================================
 ``bfs``    min-plus relaxation (distance BFS, components min-labels)
 ``stress`` gated argmax stress propagation with an sf payload
 ``warp``   nearest-candidate propagation of the terrain domain warp
 ``flood``  priority-flood ε-fill surface relaxation
+``smooth`` one Laplacian smoothing pass (plain, masked, frozen cells)
+``shadow`` one rain-shadow hop (wind-aligned weighted min / max)
 =========  ==========================================================
 
 Every wrapper takes the state as [F, NP] float32 planes, the band bits as
@@ -22,9 +24,15 @@ The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 is newer than the library. ``LAUNCHES`` counts kernel launches per kernel;
 the plain versions never count.
 
-The remainder edges (~0.5 % of edges off the bands) are not the kernels'
-business: the drivers in ops/banded.py and erosion/ apply them as torch
-scatters after each launch, exactly as the JAX loops do.
+The remainder edges (~0.5 % of edges off the bands) are not the business
+of the four min/argmin kernels: the sweep loops in ops/banded.py and erosion/
+apply them as torch scatters after each launch, exactly as the JAX loops
+do. The smoothing and rain-shadow kernels SUM over neighbours, where the
+order of the terms sets the last bit, so they take the remainder edges as
+CSR rows in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32 [M],
+from ops/banded.py ``rem_csr``) and add them after the bands, as the JAX
+jnp scatter-add does; their plain versions walk the same rows in the same
+order.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bfs": 0, "stress": 0, "warp": 0, "flood": 0}
+LAUNCHES = {"bfs": 0, "stress": 0, "warp": 0, "flood": 0, "smooth": 0,
+            "shadow": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -63,6 +72,14 @@ _ARGTYPES = {
     # surf, inland, elev_baked, bits, out, flag, np, offs, n_offs, big,
     # eps, stream
     "flood_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
+    # field, c, gate, upd, bits, rem_ptr, rem_nbr, m, out, np, nf, offs,
+    # n_offs, stream
+    "smooth_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
+                     _P],
+    # state, aux, land, bits, rem_ptr, rem_nbr, m, out, np, offs, n_offs,
+    # retain_s, retain_w, stream
+    "shadow_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F,
+                     _P],
 }
 
 
@@ -146,6 +163,19 @@ def _check(bits, flag, *planes):
                              or flag.numel() < 1):
         raise ValueError("change flag must be an int32 tensor on the "
                          "inputs' device")
+
+
+def _check_csr(bits, rem_ptr, rem_nbr):
+    """Raise unless the remainder CSR is contiguous int32 on the bits'
+    device, ``rem_ptr`` [NP+1] and ``rem_nbr`` 1-D (the kernels clamp
+    row bounds to [0, M] and skip columns outside [0, NP))."""
+    dev, npad = bits.device, bits.shape[-1]
+    for t, want in ((rem_ptr, (npad + 1,)), (rem_nbr, None)):
+        if (t.device != dev or t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous()
+                or (want is not None and tuple(t.shape) != want)):
+            raise ValueError("remainder CSR must be contiguous int32 "
+                             f"rem_ptr [{npad + 1}] and rem_nbr [M] on {dev}")
 
 
 _OFFS_CACHE: dict = {}
@@ -317,4 +347,117 @@ def flood_sweep(surf, inland, elev_baked, bits, band_off, big: float,
     _launch(fn, "flood", _ptr(surf), _ptr(inland),
             _ptr(elev_baked), _ptr(bits), _ptr(out), _ptr(flag),
             surf.shape[0], offs, nd, float(big), float(eps))
+    return out
+
+
+# ── remainder rows for the plain summing versions ───────────────────
+
+def _rem_rows(rem_ptr, rem_nbr):
+    """Yield (has, j) per slot k of the CSR rows: ``has`` [NP] bool says
+    whether a cell has a k-th remainder edge, ``j`` [NP] int64 is its
+    neighbour (0 where it has none). Slots come in edge order."""
+    start, end = rem_ptr[:-1].long(), rem_ptr[1:].long()
+    m = rem_nbr.shape[0]
+    if m == 0:
+        return
+    nbr = rem_nbr.long()
+    for k in range(int((end - start).max())):
+        idx = start + k
+        has = idx < end
+        yield has, torch.where(has, nbr[idx.clamp(max=m - 1)], 0)
+
+
+# ── 5. Laplacian smoothing ───────────────────────────────────────────
+
+def smooth_sweep_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
+                       gate=None, upd=None):
+    gate_b = None if gate is None else gate > 0
+    s = torch.zeros_like(field)
+    for d, off in enumerate(band_off):
+        ok = _bit(bits, d)
+        if gate_b is not None:
+            ok = ok & _shift(gate_b, off)
+        s = torch.where(ok, s + _shift(field, off), s)
+    for has, j in _rem_rows(rem_ptr, rem_nbr):
+        ok = has if gate_b is None else has & gate_b[j]
+        s = torch.where(ok, s + field[:, j], s)
+    out = (field + s) / c
+    return out if upd is None else torch.where(upd > 0, out, field)
+
+
+def smooth_sweep(field, c, bits, band_off, rem_ptr, rem_nbr, gate=None,
+                 upd=None):
+    """One Laplacian pass over [F, NP] planes: ``(f + Σ_nbr f) / c``.
+    ``gate`` [NP] (0/1 f32): only neighbours with gate > 0 contribute;
+    ``upd`` [NP] (0/1 f32): only cells with upd > 0 update, the others
+    pass through. ``c`` [NP] is 1 + the (gated) neighbour count."""
+    if _on_cpu(field):
+        return smooth_sweep_plain(field, c, bits, band_off, rem_ptr,
+                                  rem_nbr, gate, upd)
+    fn = _kernel("smooth_sweep")
+    f = field.shape[0] if field.dim() == 2 else -1
+    _check(bits, None, (field, f), (c, None),
+           *((t, None) for t in (gate, upd) if t is not None))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    out = torch.empty_like(field)
+    offs, nd = _offs(band_off)
+    _launch(fn, "smooth", _ptr(field), _ptr(c), _ptr(gate), _ptr(upd),
+            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
+            _ptr(out), bits.shape[0], f, offs, nd)
+    return out
+
+
+# ── 6. rain-shadow hop ───────────────────────────────────────────────
+
+def _dot3(a, b):
+    """Σ_c a[c]·b[c] over [3, N] planes, x, y, z in that order."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                       retain_s: float, retain_w: float):
+    pos, wsi, wwi = aux[0:3], aux[3:6], aux[6:9]
+    sgn = torch.tensor([-1.0, -1.0, 1.0, 1.0], device=state.device)[:, None]
+    retain = torch.tensor([retain_s, retain_s, retain_w, retain_w],
+                          dtype=torch.float32, device=state.device)[:, None]
+    is_land = land > 0
+    wsum = torch.zeros_like(state)
+    wacc = torch.zeros_like(state)
+
+    def visit(ok, a_j, vals):
+        nonlocal wsum, wacc
+        d = a_j[0:3] - pos
+        nd = -d
+        w = torch.stack([_dot3(a_j[3:6], nd), _dot3(a_j[6:9], nd),
+                         _dot3(wsi, d), _dot3(wwi, d)])
+        use = ok & is_land & (w > 0) & (vals * sgn > 0)
+        wsum = torch.where(use, wsum + w, wsum)
+        wacc = torch.where(use, wacc + w * vals, wacc)
+
+    for d, off in enumerate(band_off):
+        visit(_bit(bits, d), _shift(aux, off), _shift(state, off))
+    for has, j in _rem_rows(rem_ptr, rem_nbr):
+        visit(has, aux[:, j], state[:, j])
+    carried = wacc / torch.clamp(wsum, min=1e-20) * retain
+    ext = torch.where(sgn < 0, torch.minimum(state, carried),
+                      torch.maximum(state, carried))
+    return torch.where(wsum > 0, ext, state)
+
+
+def shadow_sweep(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                 retain_s: float, retain_w: float):
+    """One rain-shadow hop over the [4, NP] state {shadow, windward} ×
+    {summer, winter}; ``aux`` [9, NP] holds position, summer wind and
+    winter wind (xyz each), ``land`` [NP] 0/1 gates the receiving cell."""
+    if _on_cpu(state):
+        return shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr,
+                                  rem_nbr, retain_s, retain_w)
+    fn = _kernel("shadow_sweep")
+    _check(bits, None, (state, 4), (aux, 9), (land, None))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    out = torch.empty_like(state)
+    offs, nd = _offs(band_off)
+    _launch(fn, "shadow", _ptr(state), _ptr(aux), _ptr(land), _ptr(bits),
+            _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
+            state.shape[1], offs, nd, float(retain_s), float(retain_w))
     return out

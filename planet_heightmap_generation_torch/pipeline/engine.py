@@ -1,14 +1,15 @@
-"""The planet engine — ``generate`` on a CUDA device (terrain path).
+"""The planet engine — ``generate`` on a CUDA device.
 
 One eager path: host prologue (mesh, coarse tectonics, super plates,
 hotspot domes, noise tables) in numpy and native C++, then plate
-projection → smoothing and reconnection → elevation → erosion in torch,
-with the banded sweep loops in the CUDA kernels of ops/sweep_cuda.py.
-
-Climate is not ported yet: a request for it raises. The reference skips
-climate above ``AUTO_CLIMATE_THRESHOLD`` cells by itself, so at those
-sizes the default parameters run here unchanged; below it, pass
-``skip_climate=True``.
+projection → smoothing and reconnection → elevation → erosion → climate
+(coast fields, wind, ocean currents, precipitation, temperature, Köppen)
+in torch, with the banded sweep loops in the CUDA kernels of
+ops/sweep_cuda.py. Climate runs when ``skip_climate`` is False, or None
+at ≤ ``AUTO_CLIMATE_THRESHOLD`` cells, as in the reference. A climate
+failure propagates: the JAX engine's seam that turns it into
+``PlanetResult.error`` belongs with ``compute_climate``, which is not
+ported yet. Glacial erosion is not ported and raises.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ from ..tectonics.super_plates import build_super_plates
 from ..elevation.assemble import assign_elevation, elevation_tables
 from ..elevation.hotspots import build_domes
 from ..erosion.composite import run_post_processing
+from ..climate import (compute_wind, compute_ocean_currents,
+                       compute_precipitation, compute_temperature,
+                       classify_koppen)
+from ..climate.wind import climate_coast_fields
 from .timing import StageTimer
 
 MAX_SUPER = 32
@@ -120,6 +125,7 @@ class PlanetSetup:
     domes: Dict[str, torch.Tensor]
     noise_pack: Dict
     warp_t: object
+    climate_t: object
     projection: tuple
     plate_arrays: tuple
     super_arrays: Optional[tuple]
@@ -193,12 +199,14 @@ def host_setup(params: GenerationParams, device, timer: StageTimer,
                  for k, v in domes_np.items()}
         noise_pack = elevation_tables(seed, device)
         warp_t = tables(seed + 9999, device)
+        climate_t = tables(seed, device)
         projection = projection_inputs(coarse, seed, params.n_plates, device)
 
     return PlanetSetup(
         params=params, graph=graph, g=g, coarse=coarse, plates=plates,
         super_sp=super_sp, domes=domes, noise_pack=noise_pack, warp_t=warp_t,
-        projection=projection, plate_arrays=plate_arrays(plates, device),
+        climate_t=climate_t, projection=projection,
+        plate_arrays=plate_arrays(plates, device),
         super_arrays=super_arrays(super_sp, device))
 
 
@@ -220,13 +228,10 @@ class PlanetEngine:
 
     def generate(self, params: GenerationParams,
                  on_progress: Optional[Callable] = None) -> PlanetResult:
-        """Terrain pipeline of the reference generate
-        (js/planet-worker.js:136-339), climate excluded."""
+        """The reference generate (js/planet-worker.js:136-339)."""
         skip_climate = params.skip_climate
         if skip_climate is None:
             skip_climate = params.n_cells > AUTO_CLIMATE_THRESHOLD
-        if not skip_climate:
-            raise NotImplementedError("climate is a later slice of the port")
         if params.glacial_erosion > 0:
             raise NotImplementedError(
                 "glacial erosion is not ported yet (ROADMAP queue 1, item 6)")
@@ -278,6 +283,11 @@ class PlanetEngine:
 
         debug = dict(elev_res.debug)
         debug["erosionDelta"] = erosion_delta
+        climate = None
+        if not skip_climate:
+            prog(80, "Simulating climate…")
+            climate = climate_stack(g, elevation, p_ocean, r_plate,
+                                    s.climate_t, params, timer, debug)
         return PlanetResult(
             graph=s.graph, params=params, r_plate=r_plate,
             plate_seeds=s.plates.seeds, plate_is_ocean=s.plates.is_ocean,
@@ -287,4 +297,50 @@ class PlanetEngine:
             mountain_mask=elev_res.mountain,
             coastline_mask=elev_res.coastline,
             ocean_seed_mask=elev_res.ocean_seeds,
-            climate=None, debug=debug, timing=timer)
+            climate=climate, debug=debug, timing=timer)
+
+
+def climate_stack(g: DeviceGraph, elevation, plate_is_ocean, r_plate,
+                  climate_t, params: GenerationParams, timer: StageTimer,
+                  debug: Dict) -> Dict:
+    """Wind → ocean → precipitation → temperature → Köppen on the final
+    elevation, after the merged 5-field coast BFS (the JAX package's
+    pipeline/fused.py ``_climate_stack``). Returns the climate dict and
+    adds the climate debug layers to ``debug``."""
+    with timer.stage("Climate: coast fields", sync=True):
+        d5, aux = climate_coast_fields(g, elevation, plate_is_ocean, r_plate)
+    with timer.stage("Climate: wind", sync=True):
+        wind = compute_wind(g, elevation, plate_is_ocean, r_plate, climate_t,
+                            coast_d=d5[:, :2], gf=aux["gf"],
+                            is_land=aux["is_land"],
+                            plate_land=aux["plate_land"], timer=timer)
+    with timer.stage("Climate: ocean currents", sync=True):
+        ocean = compute_ocean_currents(g, elevation, wind, coast_d=d5[:, 2:])
+    with timer.stage("Climate: precipitation", sync=True):
+        precip = compute_precipitation(g, elevation, wind, ocean,
+                                       params.precipitation_offset,
+                                       params.land_coverage)
+    with timer.stage("Climate: temperature", sync=True):
+        temp = compute_temperature(g, elevation, wind, ocean, precip,
+                                   params.temperature_offset)
+    with timer.stage("Climate: Köppen", sync=True):
+        koppen = classify_koppen(
+            elevation, temp["r_temperature_summer"],
+            temp["r_temperature_winter"], precip["r_precip_summer"],
+            precip["r_precip_winter"])
+    debug.update(
+        pressureSummer=wind["r_pressure_summer"],
+        pressureWinter=wind["r_pressure_winter"],
+        windSpeedSummer=wind["r_wind_speed_summer"],
+        windSpeedWinter=wind["r_wind_speed_winter"],
+        continentality=wind["r_continentality"],
+        precipSummer=precip["r_precip_summer"],
+        precipWinter=precip["r_precip_winter"],
+        rainShadowSummer=precip["r_rainshadow_summer"],
+        rainShadowWinter=precip["r_rainshadow_winter"],
+        tempSummer=temp["r_temperature_summer"],
+        tempWinter=temp["r_temperature_winter"],
+        koppen=koppen,
+    )
+    return dict(wind=wind, ocean=ocean, precip=precip, temp=temp,
+                koppen=koppen)

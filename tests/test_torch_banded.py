@@ -27,14 +27,16 @@ from planet_heightmap_generation_tpu.mesh.device import to_device as jdevice
 from planet_heightmap_generation_torch import interop
 from planet_heightmap_generation_torch.ops import banded as tb
 
+import torch_parity as tp
+
 INF = 1e30
 
 
 @pytest.fixture(scope="module")
 def graphs(tiny_sphere):
-    """(JAX DeviceGraph, port DeviceGraph) of the same mesh."""
-    g = interop.state_from_numpy(
-        {f: getattr(tiny_sphere, f) for f in interop.SPHERE_FIELDS})["g"]
+    """(JAX DeviceGraph, port DeviceGraph) of the same mesh and the same
+    band split."""
+    g = interop.state_from_numpy(tp.mesh_fields(tiny_sphere))["g"]
     return jdevice(tiny_sphere), g
 
 

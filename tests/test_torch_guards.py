@@ -5,7 +5,8 @@
 - Entry points never fall back to the CPU on their own: the engine
   refuses to start without CUDA unless the caller asks for the CPU, and a
   sweep wrapper given a CUDA tensor launches its kernel or raises.
-- Requests the slice does not cover (climate, glacial erosion) raise.
+- Requests the port does not cover yet (glacial erosion) raise, whatever
+  the climate setting; climate itself runs, on the CPU too.
 """
 
 import os
@@ -62,8 +63,9 @@ def test_engine_without_cuda_raises(monkeypatch):
     assert PlanetEngine(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(skip_climate=False),
-                                dict(skip_climate=None),
+@pytest.mark.parametrize("kw", [dict(skip_climate=False,
+                                     glacial_erosion=0.5),
+                                dict(skip_climate=None, glacial_erosion=0.5),
                                 dict(skip_climate=True, glacial_erosion=0.5)])
 def test_uncovered_requests_raise(kw):
     from planet_heightmap_generation_torch.config import GenerationParams
@@ -74,13 +76,28 @@ def test_uncovered_requests_raise(kw):
             GenerationParams(seed=1, n_cells=2000, n_plates=8, **kw))
 
 
+@pytest.mark.parametrize("skip_climate", [False, None, True])
+def test_climate_runs_on_cpu(skip_climate):
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    res = PlanetEngine(device="cpu").generate(GenerationParams(
+        seed=1, n_cells=2000, n_plates=8, skip_climate=skip_climate))
+    if skip_climate:
+        assert res.climate is None and "koppen" not in res.debug
+    else:
+        assert res.climate["koppen"].shape == (res.graph.n_padded,)
+        assert "Climate: Köppen" in dict(res.timing.stages)
+
+
 def _fake_cuda(shape):
     """Stands in for a CUDA tensor: the wrappers route on ``.device``
     before touching any data."""
     return types.SimpleNamespace(device=torch.device("cuda"), shape=shape)
 
 
-@pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood"])
+@pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood",
+                                    "smooth", "shadow"])
 def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -95,6 +112,9 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
         "stress": lambda: sweep_cuda.stress_sweep(x, x, (1,), 0.9, 0.8),
         "warp": lambda: sweep_cuda.warp_sweep(x, x, x, (1,)),
         "flood": lambda: sweep_cuda.flood_sweep(x, x, x, x, (1,), 1e9, 1e-6),
+        "smooth": lambda: sweep_cuda.smooth_sweep(x, x, x, (1,), x, x),
+        "shadow": lambda: sweep_cuda.shadow_sweep(x, x, x, x, (1,), x, x,
+                                                  0.9, 0.8),
     }[kernel]
     with pytest.raises(RuntimeError):
         call()
@@ -133,6 +153,10 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
     st = torch.rand((4, n), generator=gen)
     st[2:] = (st[2:] > 0.5).float()
     w = torch.rand((3, n), generator=gen)
+    aux = torch.rand((9, n), generator=gen) - 0.5
+    rem_ptr = torch.zeros(n + 1, dtype=torch.int32)
+    rem_ptr[6:] = 2
+    rem_nbr = torch.tensor([9, 40], dtype=torch.int32)
     before = dict(sweep_cuda.LAUNCHES)
     pairs = [
         (sweep_cuda.bfs_sweep(st, st, bits, offs),
@@ -144,6 +168,14 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
         (sweep_cuda.flood_sweep(st[0], st[2], st[1], bits, offs, 1e9, 1e-6),
          sweep_cuda.flood_sweep_plain(st[0], st[2], st[1], bits, offs, 1e9,
                                       1e-6)),
+        (sweep_cuda.smooth_sweep(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
+                                 st[2], st[3]),
+         sweep_cuda.smooth_sweep_plain(st, st[0] + 2, bits, offs, rem_ptr,
+                                       rem_nbr, st[2], st[3])),
+        (sweep_cuda.shadow_sweep(st - 0.5, aux, st[2], bits, offs, rem_ptr,
+                                 rem_nbr, 0.9, 0.8),
+         sweep_cuda.shadow_sweep_plain(st - 0.5, aux, st[2], bits, offs,
+                                       rem_ptr, rem_nbr, 0.9, 0.8)),
     ]
     for a, b in pairs:
         assert torch.equal(a, b)

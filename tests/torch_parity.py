@@ -34,6 +34,19 @@ def t(a):
     return torch.as_tensor(np.array(a))
 
 
+def mesh_fields(sphere):
+    """The fields of a JAX SphereGraph for ``interop.state_from_numpy``,
+    with the band split that graph really uses: the JAX package picks a
+    mesh's band offsets from the FIRST mesh of the same padded size built
+    in the process (mesh/build.py _BAND_OFF_CACHE), so under xdist another
+    test file's mesh can set them."""
+    from planet_heightmap_generation_torch import interop
+
+    mesh = {f: getattr(sphere, f) for f in interop.SPHERE_FIELDS}
+    mesh.update(banded=sphere.banded, banded_packed=sphere.banded_packed)
+    return mesh
+
+
 @functools.lru_cache(maxsize=1)
 def setup():
     """(JAX PlanetSetup, port state dict) for PARAMS."""
@@ -43,14 +56,14 @@ def setup():
     s = host_setup(PARAMS)
     po, pp, pw, pd = s.args[2]
     st = interop.state_from_numpy(
-        {f: getattr(s.graph, f) for f in interop.SPHERE_FIELDS},
+        mesh_fields(s.graph),
         plates=dict(is_ocean=np.asarray(po), pole=np.asarray(pp),
                     omega=np.asarray(pw), density=np.asarray(pd)),
         super_plates=dict(zip(SUPER_NAMES, map(np.asarray, s.args[3]))),
         domes={k: np.asarray(v) for k, v in s.domes.items()},
         noise={k: (np.asarray(v.perm), np.asarray(v.pm12))
                for k, v in list(s.noise_pack.items())
-               + [("warp", s.warp_t)]},
+               + [("warp", s.warp_t), ("climate", s.args[7])]},
         projection=dict(zip(PROJ_NAMES, map(np.asarray, s.args[1]))))
     return s, st
 
@@ -86,8 +99,28 @@ def assign_port(trunc):
         noise_mag=PARAMS.roughness, spread=PARAMS.spread,
         r_super_plate=tsa[0][tr.long()], super_is_ocean=tsa[1],
         super_pole=tsa[2], super_omega=tsa[3], super_density=tsa[4],
-        noise_pack={k: v for k, v in st["noise"].items() if k != "warp"},
+        noise_pack={k: v for k, v in st["noise"].items()
+                    if k not in ("warp", "climate")},
         domes=st["domes"], trunc=trunc)
+
+
+@functools.lru_cache(maxsize=1)
+def final_elevation():
+    """The port's final elevation of PARAMS (its assign_elevation on the
+    JAX plate map, then its post-processing at the default sliders) as
+    numpy f32: the shared input of the climate stage tests."""
+    import dataclasses
+
+    from planet_heightmap_generation_torch.erosion.composite import (
+        run_post_processing)
+
+    s, st = setup()
+    b = assign_port(None)
+    elev, _ = run_post_processing(
+        st["g"], b.elevation, 0, dataclasses.asdict(PARAMS),
+        hotspot=b.debug["hotspot"], avg_edge=np.pi / np.sqrt(s.graph.n_cells),
+        warp_t=st["noise"]["warp"])
+    return elev.numpy()
 
 
 def assign_both(trunc):
