@@ -4,28 +4,39 @@
 
 Phases (any failure exits non-zero with its traceback):
 
-1. report the card and build the six CUDA kernels from csrc/sweeps.cu;
+1. report the card and build the CUDA kernels from csrc/sweeps.cu;
 2. hold every kernel against its plain-torch version on the card, on the
    204K-cell mesh (seed 42) with inputs made from numpy seeds at the main
    path's shapes: the kernel-driven loop and the same loop through the
-   plain version must agree bit for bit; time one launch (CUDA events
-   over many launches, and its device time from a ``torch.profiler``
-   trace), the plain version, the least time the card could take (bytes
-   or operations) and, where one PyTorch call computes the same function,
-   that call;
+   plain version must agree bit for bit, and so must one launch and one
+   plain sweep at each shape; time one launch (CUDA events over many
+   launches, and its device time from a ``torch.profiler`` trace), the
+   plain version, the least time the card could take (bytes or
+   operations) and, where one PyTorch call computes the same function,
+   that call. The one-sweep BFS runs the components loop (F=1 labels,
+   zero cost, gated bits) and one F=4 distance sweep. A relax launch
+   (``bfs_relax``, ``flood``) runs a whole loop and must equal the plain
+   loop bit for bit: the distance BFS at the path's three shapes (F=4 at
+   the generate's cap of 119 sweeps, which must bind; the climate's F=5
+   coast fields at cap 70; F=1 at cap 28), the ε-fill at 1, 4 and 8 inner
+   sweeps per barrier round; the lines report sweeps (ε-fill: rounds),
+   device µs per launch and per sweep, and the bound per sweep and per
+   launch;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
-   cold then warm, with every kernel's launch count read around the warm
-   run, then one more warm run under ``torch.profiler`` for the device's
-   busy time and each kernel's device time per launch; then one warm
+   cold then warm, with every kernel's launch count (and the relax
+   launches' sweeps, read from the device) taken around the warm run,
+   then one more warm run under ``torch.profiler`` for the device's busy
+   time and each kernel's device time per launch; then one warm
    terrain-only run (``skip_climate=True``), timed and profiled the same
    way, so the terrain numbers stay comparable;
 4. check the 4K planet (seed 123) with climate against the reference's
    pinned c4k_s123 snapshot: terrain distribution and Köppen shares.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
-exits with code 1 before printing any result.
+Before the last line come a JSON object with one entry per kernel and the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``. Without CUDA the script exits with code 1 before printing any
+result.
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 SOURCE = "planet_heightmap_generation_torch/csrc/sweeps.cu"
 TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
-REPLACES = {"bfs": f"{TPU_KERNELS}:171", "flood": f"{TPU_KERNELS}:230",
+REPLACES = {"bfs": f"{TPU_KERNELS}:171", "bfs_relax": f"{TPU_KERNELS}:171",
+            "flood": f"{TPU_KERNELS}:230",
             "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480",
             "smooth": f"{TPU_KERNELS}:564", "shadow": f"{TPU_KERNELS}:619"}
 # c4k_s123 (tests/test_reference_parity.py:45-55)
@@ -60,10 +72,10 @@ SNAPSHOT_C4K = dict(
     plate_count=12)
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: int = 3) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls after
-    a warm-up, between two CUDA events."""
-    for _ in range(3):
+    ``warm`` warm-up calls, between two CUDA events."""
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -117,22 +129,28 @@ def bound_ms(nbytes: float, nops: float):
 
 def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
     """One record per kernel: loop bit-identity, launches the loop took,
-    per-launch times and bound."""
+    per-launch times and bound at each of the path's shapes."""
     from planet_heightmap_generation_torch.ops import banded, sweep_cuda
     from planet_heightmap_generation_torch.ops.noise import tables, fbm
     from planet_heightmap_generation_torch.elevation.assemble import (
         distance_bfs_caps)
     from planet_heightmap_generation_torch.erosion import flood, warp
+    from planet_heightmap_generation_torch.climate import wind
 
     npad = g.n_padded
     rng = np.random.default_rng(SEED)
+    rng2 = np.random.default_rng(SEED + 1)
     valid = g.valid.cpu().numpy()
     bits = g.band_bits
     edges = popcount(bits)
     sf_res = math.sqrt(g.n_cells / 10000.0)
     records = {}
 
-    def record(name, loop, sweep_args, nbytes, nops, library=None):
+    def record(name, loop, shapes, library=None):
+        """The driver ``loop()`` through the kernel and through the plain
+        version must agree bit for bit; then each (label, sweep_args,
+        nbytes, nops) of ``shapes`` checks and times one launch against
+        one plain sweep. The row's numbers are those of the first shape."""
         sweep_cuda.reset_launches()
         out_k = loop()
         torch.cuda.synchronize()
@@ -149,48 +167,120 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
                                  f"loop (max abs err {errs})")
         kern = getattr(sweep_cuda, f"{name}_sweep")
         plain = getattr(sweep_cuda, f"{name}_sweep_plain")
-        one_k, one_p = kern(*sweep_args), plain(*sweep_args)
-        err = max_abs_err(one_k, one_p)
-        if not torch.equal(one_k, one_p):
-            raise AssertionError(f"{name}: one sweep differs ({err})")
-        ms = time_ms(lambda: kern(*sweep_args), reps)
-        plain_ms = time_ms(lambda: plain(*sweep_args), plain_reps)
-        dev_ms = mean_device_ms(device_events(
-            lambda: [kern(*sweep_args) for _ in range(20)]), name)
+        per_shape = []
+        for label, args, nbytes, nops in shapes:
+            one_k, one_p = kern(*args), plain(*args)
+            err = max_abs_err(one_k, one_p)
+            if not torch.equal(one_k, one_p):
+                raise AssertionError(f"{name} ({label}): one sweep differs "
+                                     f"({err})")
+            ms = time_ms(lambda: kern(*args), reps)
+            plain_ms = time_ms(lambda: plain(*args), plain_reps)
+            dev_ms = mean_device_ms(device_events(
+                lambda: [kern(*args) for _ in range(20)]), KERNEL_FNS[name])
+            b_ms, b_by = bound_ms(nbytes, nops)
+            per_shape.append(dict(shape=label, max_abs_err=err, ms=ms,
+                                  device_ms=dev_ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by))
+            dev_txt = ("not measured" if dev_ms is None
+                       else f"{dev_ms * 1e3:.2f} us")
+            print(f"kernel {name:6s} [{label}] bit-identical loop of "
+                  f"{launches} launches, one sweep bit-identical; "
+                  f"{ms * 1e3:8.2f} us/launch (device {dev_txt}), plain "
+                  f"{plain_ms * 1e3:9.2f} us, bound {b_ms * 1e3:6.2f} us "
+                  f"({b_by})", flush=True)
         lib_ms = None if library is None else time_ms(library, reps)
-        b_ms, b_by = bound_ms(nbytes, nops)
-        records[name] = dict(loop_launches=launches, max_abs_err=err, ms=ms,
-                             device_ms=dev_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        dev_txt = ("not measured" if dev_ms is None
-                   else f"{dev_ms * 1e3:.2f} us")
-        lib_txt = "" if lib_ms is None else f", library {lib_ms * 1e3:.2f} us"
-        print(f"kernel {name:6s} bit-identical loop of {launches} launches; "
-              f"{ms * 1e3:8.2f} us/launch (device {dev_txt}), plain "
-              f"{plain_ms * 1e3:9.2f} us, bound {b_ms * 1e3:6.2f} us "
-              f"({b_by}){lib_txt}", flush=True)
+        if lib_ms is not None:
+            print(f"kernel {name:6s} library call {lib_ms * 1e3:.2f} us",
+                  flush=True)
+        records[name] = dict(
+            per_shape[0], loop_launches=launches, library_ms=lib_ms,
+            max_abs_err=max(x["max_abs_err"] for x in per_shape),
+            shapes=per_shape)
 
-    # 1. four-field distance BFS with random costs, the bfs5 loop's shape
+    def bfs_planes(seeds, barrier, cost=None):
+        """A distance BFS's [F, NP] start and cost planes, with seeds and
+        barriers baked in as ops/banded.py bfs_hops_multi_banded does."""
+        s, b = seeds.T, barrier.T
+        cur = torch.where(s, 0.0, float("inf")).contiguous()
+        c = torch.ones_like(cur) if cost is None else cost.T
+        return cur, torch.where(b & ~s, float("inf"), c).contiguous()
+
+    ptr, nbr = banded.rem_csr(g.rem_src, g.rem_dst, npad)
+    m = nbr.shape[0]
+    csr_bytes = (npad + 1 + m) * 4
+
+    def relax_bytes_ops(f):
+        return (3 * f + 1) * npad * 4 + csr_bytes, f * (edges + m + 2 * npad)
+
+    # four-field distance BFS with random costs, the bfs5 loop's shape, at
+    # the generate's cap; three seeds a field, so that the cap binds as it
+    # does on the path
     f = 4
-    seeds = torch.as_tensor((rng.random((npad, f)) < 0.004)
-                            & valid[:, None], device=dev)
+    seeds = np.zeros((npad, f), bool)
+    for k in range(f):
+        seeds[rng.choice(np.flatnonzero(valid), 3, replace=False), k] = True
     barrier = torch.as_tensor(rng.random((npad, f)) < 0.05, device=dev)
     cost = torch.as_tensor(rng.random((npad, f)).astype(np.float32) + 0.5,
                            device=dev)
     hops = distance_bfs_caps(sf_res)[3]
-    cur = torch.where(seeds.T, 0.0, float("inf")).contiguous()
-    cost_t = torch.where(barrier.T & ~seeds.T, float("inf"),
-                         cost.T).contiguous()
-    record("bfs", lambda: banded.bfs_hops_multi_banded(
-        seeds, barrier, *g.bands, max_hops=hops, rand_cost=cost),
-        (cur, cost_t, bits, g.band_off),
-        nbytes=(3 * f + 1) * npad * 4, nops=f * (edges + 2 * npad))
+    cur, cost_t = bfs_planes(torch.as_tensor(seeds, device=dev), barrier,
+                             cost)
 
-    # 2. stress over one same-plate gate of noise-blob plates
+    # noise-blob plates (the same-plate gates of components and stress)
+    # and a noise terrain with inland seas (coast seeds, ε-fill)
     pos = g.pos
     blob = fbm(tables(7.0, dev), pos[:, 0] * 2, pos[:, 1] * 2, pos[:, 2] * 2, 3)
     plate = torch.floor(blob * 6).to(torch.int32)
     gate = banded.band_gate(plate, g.band_off, g.band_mask)
+    e = fbm(tables(3.0, dev), pos[:, 0] * 2, pos[:, 1] * 2, pos[:, 2] * 2)
+    elev = torch.where(g.valid, e * 0.6 + 0.25 * pos[:, 2], 0.0)
+
+    # 1. the one-sweep BFS: the components loop over same-plate edges, its
+    # only caller on the path (F=1 cell-index labels, zero cost, gated
+    # bits), and one F=4 sweep of the distance BFS
+    comp_bits = banded.pack_band_bits(gate)
+    lab0 = torch.arange(npad, dtype=torch.float32, device=dev)[None]
+    record("bfs", lambda: banded.connected_components_gated(plate, *g.bands),
+           [("F=1 components", (lab0, torch.zeros_like(lab0), comp_bits,
+                                g.band_off),
+             4 * npad * 4, popcount(comp_bits) + 2 * npad),
+            ("F=4 distance", (cur, cost_t, bits, g.band_off),
+             (3 * f + 1) * npad * 4, f * (edges + 2 * npad))])
+
+    # 2. the distance-BFS relax launch at the path's three shapes: F=4 at
+    # cap 119 (the cap must bind), the climate's five coast fields at its
+    # cap 70 (coast seeds and barriers of the noise terrain over the
+    # noise-blob plates, unit cost), and F=1 at cap 28 (the land coast,
+    # random cost)
+    plate_ix = (plate - plate.min()).long()
+    plate_is_ocean = torch.as_tensor(
+        rng2.random(int(plate_ix.max()) + 1) < 0.5, device=dev)
+    seeds5, barriers5, _ = wind.coast_bfs_seeds(g, elev, plate_is_ocean,
+                                                plate_ix)
+    cur5, cost5 = bfs_planes(seeds5, barriers5)
+    cost1 = torch.as_tensor(rng2.random((npad, 1)).astype(np.float32) + 0.5,
+                            device=dev)
+    cur1, cost1 = bfs_planes(seeds5[:, :1], torch.zeros_like(seeds5[:, :1]),
+                             cost1)
+
+    def bfs_config(label, c, k, cap, must_bind):
+        def run():
+            return sweep_cuda.bfs_relax(c, k, bits, g.band_off, ptr, nbr, cap)
+        ref = plain_loop(lambda: sweep_cuda.bfs_relax_plain(
+            c, k, bits, g.band_off, ptr, nbr, cap))
+        return dict(label=label, run=run, ref=ref,
+                    cost=relax_bytes_ops(c.shape[0]),
+                    want=cap if must_bind else None)
+
+    records["bfs_relax"] = relax_record("bfs_relax", [
+        bfs_config(f"F=4 cap {hops}", cur, cost_t, hops, True),
+        bfs_config(f"F=5 cap {wind.climate_coast_cap(g.n_cells)}", cur5,
+                   cost5, wind.climate_coast_cap(g.n_cells), False),
+        bfs_config(f"F=1 cap {min(hops, 28)}", cur1, cost1, min(hops, 28),
+                   False)])
+
+    # 3. stress over one same-plate gate of the noise-blob plates
     rgate = banded.rem_gate_eq(plate, g.rem_src, g.rem_dst)
     st0 = torch.as_tensor(np.where(rng.random(npad) < 0.01, rng.random(npad),
                                    0.0).astype(np.float32), device=dev)
@@ -206,10 +296,10 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
     record("stress", lambda: banded.propagate_stress_banded(
         st0[:, None], sf0[:, None], (gate,), rgate[:, None], ocean[:, None],
         *g.bands, decay, sub_decay, passes),
-        (state, gbits, g.band_off, decay, sub_decay),
-        nbytes=9 * npad * 4, nops=4 * popcount(gbits) + 4 * npad)
+        [("[4, NP] state", (state, gbits, g.band_off, decay, sub_decay),
+          9 * npad * 4, 4 * popcount(gbits) + 4 * npad)])
 
-    # 3. warp candidate propagation toward the default-slider targets
+    # 4. warp candidate propagation toward the default-slider targets
     w = warp.warp_targets(pos, tables(SEED + 9999.0, dev),
                           torch.tensor(0.5, device=dev))
     steps = int(math.ceil(0.06 / (math.pi / math.sqrt(g.n_cells)))) + 8
@@ -217,27 +307,31 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
                                      device=dev)[None], pos.T]).contiguous()
     record("warp", lambda: warp.warp_sources(
         pos, w, *g.bands, max_steps=steps),
-        (wstate, w.T.contiguous(), bits, g.band_off),
-        nbytes=12 * npad * 4, nops=9 * edges + 9 * npad)
+        [("[4, NP] state", (wstate, w.T.contiguous(), bits, g.band_off),
+          12 * npad * 4, 9 * edges + 9 * npad)])
 
-    # 4. ε-fill of a noise terrain with its inland seas
-    e = fbm(tables(3.0, dev), pos[:, 0] * 2, pos[:, 1] * 2, pos[:, 2] * 2)
-    elev = torch.where(g.valid, e * 0.6 + 0.25 * pos[:, 2], 0.0)
+    # 5. ε-fill of the noise terrain with its inland seas, to its fixpoint,
+    # at k = 1, 4 and 8 inner sweeps per barrier round
     is_ocean = (elev <= 0) & g.valid
     oo = flood.open_ocean_mask(is_ocean, g.valid, *g.bands)
     inland, _, surf0, frozen = flood._fill_common(
         elev, is_ocean, oo, g.valid, *g.bands)
-    baked = torch.where(frozen, surf0, elev).contiguous()
-    record("flood", lambda: flood.epsilon_fill(
-        elev, is_ocean, oo, g.valid, *g.bands),
-        (surf0.contiguous(), inland.float().contiguous(), baked, bits,
-         g.band_off, flood.BIG, flood.EPS),
-        nbytes=5 * npad * 4, nops=2 * edges + 3 * npad)
+    fill_in = (surf0.contiguous(), inland.float().contiguous(),
+               torch.where(frozen, surf0, elev).contiguous(), bits,
+               g.band_off, ptr, nbr, flood.BIG, flood.EPS)
+    fill_ref = plain_loop(lambda: sweep_cuda.flood_relax_plain(*fill_in))
+    fill_cost = (5 * npad * 4 + csr_bytes, 2 * (edges + m) + 3 * npad)
 
-    # 5. smoothing: the F=2 plain passes (convergence, 9 passes) and the
+    def fill(k):
+        return lambda: sweep_cuda._flood_relax(*fill_in, k)
+
+    records["flood"] = relax_record("flood", [
+        dict(label=f"k={k}", run=fill(k), ref=fill_ref, cost=fill_cost,
+             want=None) for k in (1, 4, 8)],
+        primary=(1, 4, 8).index(sweep_cuda.FLOOD_INNER))
+
+    # 6. smoothing: the F=2 plain passes (convergence, 9 passes) and the
     # F=4 masked passes (ocean currents, 3 passes) of the default generate
-    ptr, nbr = banded.rem_csr(g.rem_src, g.rem_dst, npad)
-    m = nbr.shape[0]
     f2 = torch.as_tensor(rng.standard_normal((npad, 2)).astype(np.float32),
                          device=dev)
     f4 = torch.as_tensor(rng.standard_normal((npad, 4)).astype(np.float32),
@@ -249,12 +343,11 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
     record("smooth", lambda: (
         banded.smooth_field_banded(f2, *g.bands, 9),
         banded.smooth_masked_banded(f4, ocean_m, *g.bands, 3)),
-        (planes2, c, bits, g.band_off, ptr, nbr),
-        nbytes=(2 * 2 + 2) * npad * 4 + (npad + 1 + m) * 4,
-        nops=2 * (edges + m + 2 * npad),
+        [("F=2", (planes2, c, bits, g.band_off, ptr, nbr),
+          (2 * 2 + 2) * npad * 4 + csr_bytes, 2 * (edges + m + 2 * npad))],
         library=smooth_library(g, c, f2))
 
-    # 6. rain shadow: 56 hops (34 windward) of the default generate's
+    # 7. rain shadow: 56 hops (34 windward) of the default generate's
     # [4, NP] state over winds and slopes made from numpy seeds
     from planet_heightmap_generation_torch.climate import precipitation
     elev6 = torch.as_tensor((rng.standard_normal(npad) * 0.4)
@@ -277,10 +370,81 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
     record("shadow", lambda: precipitation._rain_shadow2(
         g.pos, elev6, height_km, land, wind3d2, wdg2, *g.bands, s_hops,
         w_hops),
-        (state, aux, land_f, bits, g.band_off, ptr, nbr, rs, rw),
-        nbytes=(4 + 9 + 1 + 1 + 4) * npad * 4 + (npad + 1 + m) * 4,
-        nops=40 * land_edges + 8 * npad)
+        [("[4, NP] state", (state, aux, land_f, bits, g.band_off, ptr, nbr,
+                            rs, rw),
+          (4 + 9 + 1 + 1 + 4) * npad * 4 + csr_bytes,
+          40 * land_edges + 8 * npad)])
     return records
+
+
+def plain_loop(plain):
+    """(state, sweeps, ms) of one run of a plain relax loop on the card."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref, sweeps = plain()
+    end.record()
+    torch.cuda.synchronize()
+    return ref, int(sweeps), start.elapsed_time(end)
+
+
+def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
+    """Check and time a relax kernel. Each config's ``run()`` is one relax
+    launch of the whole loop and must equal its plain loop (``ref``, from
+    :func:`plain_loop`) bit for bit, BFS also in its sweep count; where
+    ``want`` is set, the plain loop must have run that many sweeps (the
+    cap binds). ``cost`` is one sweep's (bytes, operations): the per-sweep
+    bound counts them once, the per-launch bound counts each byte once and
+    the operations of every sweep the plain loop needed. The row's numbers
+    are those of ``configs[primary]``."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    unit = "sweeps" if name == "bfs_relax" else "rounds"
+    out = []
+    for cfg in configs:
+        ref, ref_sweeps, plain_ms = cfg["ref"]
+        if cfg["want"] is not None and ref_sweeps != cfg["want"]:
+            raise AssertionError(f"{name} ({cfg['label']}): the plain loop "
+                                 f"ran {ref_sweeps} sweeps, not the cap "
+                                 f"{cfg['want']}")
+        run = cfg["run"]
+        sweep_cuda.reset_launches()
+        state, swept = run()
+        torch.cuda.synchronize()
+        launches, swept = sweep_cuda.LAUNCHES[name], int(swept)
+        err = max_abs_err(state, ref)
+        if not torch.equal(state, ref):
+            raise AssertionError(f"{name} ({cfg['label']}): relax launch "
+                                 f"differs from the plain loop (max abs err "
+                                 f"{err})")
+        if name == "bfs_relax" and swept != ref_sweeps:
+            raise AssertionError(f"{name} ({cfg['label']}): relax launch ran "
+                                 f"{swept} sweeps, the plain loop "
+                                 f"{ref_sweeps}")
+        ms = time_ms(run, reps)
+        dev_ms = mean_device_ms(device_events(
+            lambda: [run() for _ in range(5)]), KERNEL_FNS[name])
+        s_ms, s_by = bound_ms(*cfg["cost"])
+        b_ms, b_by = bound_ms(cfg["cost"][0], cfg["cost"][1] * ref_sweeps)
+        out.append(dict(
+            config=cfg["label"], loop_launches=launches, sweeps=swept,
+            plain_sweeps=ref_sweeps, max_abs_err=err, ms=ms,
+            device_ms=dev_ms,
+            device_ms_per_sweep=None if dev_ms is None else dev_ms / swept,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_ms_per_sweep=s_ms, bound_by_per_sweep=s_by))
+        dev_txt = ("not measured" if dev_ms is None else
+                   f"{dev_ms * 1e3:.2f} us ({dev_ms * 1e3 / swept:.3f} us "
+                   f"per {unit[:-1]})")
+        print(f"kernel {name} [{cfg['label']}]: bit-identical to the plain "
+              f"loop ({ref_sweeps} sweeps, {plain_ms:.1f} ms) in {launches} "
+              f"launch of {swept} {unit}; {ms * 1e3:9.2f} us/launch (device "
+              f"{dev_txt}); bound {s_ms * 1e3:.2f} us per sweep ({s_by}), "
+              f"{b_ms * 1e3:.2f} us per launch ({b_by})", flush=True)
+    row = dict(out[primary])
+    row.update(library_ms=None, configs=out,
+               max_abs_err=max(x["max_abs_err"] for x in out))
+    return row
 
 
 def smooth_library(g, c, field):
@@ -312,11 +476,15 @@ def device_events(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def mean_device_ms(events, kernel: str):
-    """Mean device ms per launch of sweep kernel ``kernel``; None when the
-    trace holds none of its launches."""
-    t = [e.time_range.elapsed_us() for e in events
-         if f"{kernel}_sweep_kernel" in e.name]
+# the device function of each kernel, as a trace names it
+KERNEL_FNS = {k: f"{k}_sweep_kernel" for k in REPLACES}
+KERNEL_FNS.update(bfs_relax="bfs_relax_kernel", flood="flood_relax_kernel")
+
+
+def mean_device_ms(events, fn: str):
+    """Mean device ms per launch of the device function ``fn``; None when
+    the trace holds none of its launches."""
+    t = [e.time_range.elapsed_us() for e in events if fn in e.name]
     return sum(t) / len(t) / 1e3 if t else None
 
 
@@ -339,9 +507,10 @@ def profile_generate(dev, params, top: int = 8):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(busy_ms=busy_us / 1e3, n_events=len(events),
-                device_ms={k: mean_device_ms(events, k) for k in REPLACES},
-                seen={k: sum(f"{k}_sweep_kernel" in e.name for e in events)
-                      for k in REPLACES},
+                device_ms={k: mean_device_ms(events, fn)
+                           for k, fn in KERNEL_FNS.items()},
+                seen={k: sum(fn in e.name for e in events)
+                      for k, fn in KERNEL_FNS.items()},
                 top=[(n[:90], t / 1e3, c) for n, (t, c) in ranked])
 
 
@@ -399,7 +568,8 @@ def report_profile(prof, warm_s: float):
           f"{1 - prof['busy_ms'] / (warm_s * 1e3):.4f}), "
           f"{prof['n_events']} device events in the trace")
     for k, v in prof["device_ms"].items():
-        print(f"  {k:6s} mean device time per launch on the path: "
+        print(f"  {KERNEL_FNS[k]:18s} mean device time per launch on the "
+              "path: "
               + ("not measured" if v is None else f"{v * 1e3:.2f} us")
               + f" ({prof['seen'][k]} launches in the trace)")
     for n, t, c in prof["top"]:
@@ -473,6 +643,7 @@ def main() -> int:
     sweep_cuda.reset_launches()
     res, warm_s = run_generate(dev, params)
     launches = dict(sweep_cuda.LAUNCHES)
+    swept = sweep_cuda.sweeps_run()
     print(res.timing.table())
     print(f"generate 204K (default, climate on) warm: {warm_s:.3f} s",
           flush=True)
@@ -481,8 +652,12 @@ def main() -> int:
     print("climate: " + check_climate(res), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
-    print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    report_profile(profile_generate(dev, params), warm_s)
+    print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f" | relax sweeps bfs_relax={swept['bfs_relax']} "
+          f"flood={swept['flood']} (rounds)")
+    assert launches["bfs"] + launches["bfs_relax"] <= 40, launches
+    prof = profile_generate(dev, params)
+    report_profile(prof, warm_s)
 
     terrain = GenerationParams(seed=SEED, skip_climate=True)
     res_t, warm_t = run_generate(dev, terrain)
@@ -497,12 +672,19 @@ def main() -> int:
         seed=123, n_cells=4000, n_plates=12, num_continents=2))
     snapshot_check(small)
 
+    # the row's times and bound are those of its phase-2 shape (configs /
+    # shapes list the others); path_device_ms is the mean device time per
+    # launch over the default generate's launches of the kernel
+    top = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = [dict(
         name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
         launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
-        device_ms=r["device_ms"])
+        path_device_ms=None if prof is None else prof["device_ms"][k],
+        **({"path_sweeps": swept[k]} if k in swept else {}),
+        **{x: v for x, v in r.items() if x not in top})
         for k, r in records.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,48 +1,62 @@
-// Banded neighbour-sweep kernels for Hopper (sm_90a), one synchronous
-// (Jacobi) sweep per launch.
+// Banded neighbour-sweep kernels for Hopper (sm_90a).
 //
 // The mesh's adjacency is "banded" (mesh/build.py): neighbour j of cell i
 // sits at j = i + off[d] for one of D <= 32 signed offsets, and bit d of
-// bits[i] says whether that band edge exists. A sweep reads every band
-// neighbour of a cell from the INPUT buffer and writes the cell's new value
-// to a separate OUTPUT buffer, so the result does not depend on the order in
-// which blocks run: each kernel equals its plain-torch version in
-// ops/sweep_cuda.py bit for bit, and equals one iteration of the JAX jnp
-// loop it replaces. The few remainder edges outside the bands are applied
-// by the Python sweep loop after each launch, as torch scatters on [M], for
-// the four min/argmin kernels (1-4), whose result does not depend on the
-// order of its terms; the two summing kernels (5-6) walk them in-kernel
-// from a CSR, in edge order (see "Remainder edges as CSR rows").
+// bits[i] says whether that band edge exists. The few remainder edges
+// outside the bands (~0.5 % of edges) come as CSR rows of their receiving
+// cell, in edge order (ops/banded.py rem_csr).
 //
-// What bounds these kernels on an H100: memory traffic, never arithmetic.
-// The least a launch must move is its state and auxiliary planes read
-// once, the packed u32 band bits read once and the state written once: at
-// 204K cells ~10 MB for the 4-field BFS, ~3 us at 3.35 TB/s. The band
-// reads at i+off come from L2 (the largest |off| is ~3.6*sqrt(N) cells,
-// so a block's band window is a few hundred KB), but a warp loops over all
-// D bands and issues a band's load whenever any of its 32 lanes has that
-// bit, so it touches up to D neighbour lines per field where a cell needs
-// ~6: that L2 traffic, not HBM, sets the device time, a few times the HBM
-// bound (PERF.md has the measured times). Either is small beside the host
-// cost of one sweep in the Python driver loop. The design keeps each
-// kernel simple and synchronous (one bit test per band, no shared memory,
-// coalesced reads of consecutive cells); several sweeps per launch and
-// fewer band loads per warp are later work.
+// Two kinds of kernel:
 //
-// Reads off the mesh: a set band bit always points inside [0, NP), but the
-// index is still wrapped modulo NP (jnp.roll semantics) so no thread can
-// read out of bounds.
+// - One synchronous (Jacobi) sweep per launch (stress, warp, smoothing,
+//   rain shadow; and a single BFS sweep, for the components loop, whose
+//   driver does host-side work between sweeps): a sweep reads every
+//   neighbour from the INPUT buffer and writes to a separate OUTPUT buffer,
+//   so the result does not depend on the order in which blocks run and
+//   equals one iteration of the JAX jnp loop. Stress and warp leave their
+//   remainder edges to the Python driver (torch scatters after each
+//   launch); smoothing and rain shadow sum, so they walk the CSR rows
+//   in-kernel in edge order, which reproduces the jnp order.
+// - A persistent relax kernel (BFS and ε-fill, "Staged-window relax"
+//   below): ONE cooperative launch runs the whole fixpoint loop, sweep
+//   after sweep, with a grid barrier between sweeps, the remainder edges
+//   in-kernel, a device-side change flag and the sweep count written to
+//   device memory. The host issues one launch and reads nothing back.
 //
-// Change flag: kernels 1-4 OR "some cell changed" into *flag (one
-// atomicOr per block after a block-level OR) when flag is not null; the
-// smoothing and rain-shadow passes run a fixed count and have none.
+// What bounds these kernels on an H100: memory traffic, never arithmetic
+// for a single sweep. The least a sweep must move is its state and
+// auxiliary planes read once, the packed u32 band bits read once and the
+// state written once: at 204K cells ~10 MB for the 4-field BFS, ~3 us at
+// 3.35 TB/s. The one-sweep kernels read band neighbours straight from
+// L2 (the largest |off| is ~3.6*sqrt(N) cells), one bit test per band; a
+// warp issues a band's load whenever any of its 32 lanes has that bit,
+// so it touches up to D neighbour lines per field where a cell needs ~6.
+// The staged-window kernels load each chunk's band window into shared
+// memory with coalesced loads instead (PERF.md has the measured times).
+//
+// Reads off the mesh: a set band bit always points inside [0, NP), but
+// indices are still wrapped modulo NP (jnp.roll semantics) so no thread
+// can read out of bounds; CSR rows are clamped to [0, M] and columns
+// outside [0, NP) skipped.
+//
+// Change flag: the one-sweep min/argmin kernels OR "some cell changed"
+// into *flag (one atomicOr per block after a block-level OR) when flag is
+// not null; the smoothing and rain-shadow passes run a fixed count and
+// have none.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps a*b+c as two rounded
 // operations, as torch evaluates it, so the warp distances match bit for
-// bit.
+// bit. The grid barrier (cooperative_groups::this_grid().sync()) needs no
+// -rdc since CUDA 11.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdlib>
+#include <initializer_list>
+#include <mutex>
 #include <math.h>
 #include <stdint.h>
 
@@ -50,6 +64,13 @@ namespace {
 
 constexpr int kMaxBands = 32;
 constexpr int kThreads = 256;
+// Staged-window kernels: one 1024-thread block per SM, one work item each
+// per sweep. Of the block shapes timed on an H100 while this kernel was
+// brought up (256 to 1024 threads, 1 to 8 items per SM), the fewest and
+// largest blocks ran fastest: the cheapest grid barrier and the longest
+// chunks, so the halo is staged least often.
+constexpr int kRelaxThreads = 1024;
+constexpr long kItemsPerSm = 1;
 
 struct Bands {
   int n;
@@ -64,36 +85,6 @@ __device__ __forceinline__ int wrap(int j, int np) {
 __device__ __forceinline__ void or_flag(int* flag, bool changed) {
   int any = __syncthreads_or(changed ? 1 : 0);
   if (flag != nullptr && threadIdx.x == 0 && any) atomicOr(flag, 1);
-}
-
-// ── 1. BFS / components: min-plus relaxation ───────────────────────────
-// Replaces _make_bfs_kernel (planet_heightmap_generation_tpu/ops/
-// sweep_pallas.py:171). One thread per (field, cell):
-//   out = min(cur, min_{d: bit d} cur[f, i + off_d] + cost[f, i]).
-// Seeds (cur = 0) and barriers (cost = +inf) are baked into the inputs.
-// With cost = 0 and cell-index labels it is one min-label sweep of the
-// connected-components core.
-__global__ void __launch_bounds__(kThreads)
-bfs_sweep_kernel(const float* __restrict__ cur, const float* __restrict__ cost,
-                 const uint32_t* __restrict__ bits, float* __restrict__ out,
-                 int* flag, int np, int nf, Bands bands) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  bool changed = false;
-  if (t < nf * np) {
-    const int f = t / np;
-    const int i = t - f * np;
-    const float* row = cur + (size_t)f * np;
-    const uint32_t b = bits[i];
-    float best = INFINITY;
-    for (int d = 0; d < bands.n; ++d) {
-      if ((b >> d) & 1u) best = fminf(best, row[wrap(i + bands.off[d], np)]);
-    }
-    const float c = cur[t];
-    const float v = fminf(c, best + cost[t]);
-    out[t] = v;
-    changed = v != c;
-  }
-  or_flag(flag, changed);
 }
 
 // ── 2. Stress propagation: gated argmax with payload ───────────────────
@@ -179,34 +170,6 @@ warp_sweep_kernel(const float* __restrict__ s, const float* __restrict__ w,
   or_flag(flag, changed);
 }
 
-// ── 4. Priority-flood ε-fill ───────────────────────────────────────────
-// Replaces _make_flood_kernel (sweep_pallas.py:230). Inland-sea cells
-// present `big` to their neighbours; frozen cells are baked in through
-// elev_baked (= their surface), so min(surf, cand) keeps them:
-//   out = min(surf, max(elev_baked, min_{d} surf'[i + off_d] + eps)).
-__global__ void __launch_bounds__(kThreads)
-flood_sweep_kernel(const float* __restrict__ surf, const float* __restrict__ inland,
-                   const float* __restrict__ elev_baked,
-                   const uint32_t* __restrict__ bits, float* __restrict__ out,
-                   int* flag, int np, Bands bands, float big, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool changed = false;
-  if (i < np) {
-    const uint32_t b = bits[i];
-    float best = INFINITY;
-    for (int d = 0; d < bands.n; ++d) {
-      if (!((b >> d) & 1u)) continue;
-      const int j = wrap(i + bands.off[d], np);
-      best = fminf(best, inland[j] > 0.0f ? big : surf[j]);
-    }
-    const float c = surf[i];
-    const float v = fminf(c, fmaxf(elev_baked[i], best + eps));
-    out[i] = v;
-    changed = v != c;
-  }
-  or_flag(flag, changed);
-}
-
 // ── Remainder edges as CSR rows ────────────────────────────────────────
 // The two climate kernels below SUM over neighbours, and a sum is not
 // order-free: the remainder edges (the ~0.5 % of edges outside the bands)
@@ -225,6 +188,289 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
   const int k = ptr[i + 1];
   return k < 0 ? 0 : (k > m ? m : k);
 }
+
+// ── 1 and 4. Staged-window relax: distance BFS and ε-fill ─────────────
+// Replace _make_bfs_kernel (sweep_pallas.py:171) and _make_flood_kernel
+// (sweep_pallas.py:230). One device template, two rules:
+//   BFS    out = min(cur, min_{nbr j} cur[f, j] + cost[f, i])
+//   ε-fill out = min(surf, max(elev_baked, min_{nbr j} surf'[j] + eps)),
+//          surf'[j] = big at inland cells.
+// Seeds, barriers and frozen cells are baked into cost / elev_baked. With
+// cost = 0 and cell-index labels the BFS rule is one min-label sweep of
+// the connected-components core. The remainder edges fold into the same
+// min before cost or eps is added: f32 addition rounds monotonically, so
+// min(a + c, b + c) == min(a, b) + c bit for bit, and the result equals the
+// kernel-then-torch-scatter step it replaces.
+//
+// Inside a sweep, work items are (field, chunk of T consecutive cells).
+// A block stages the chunk's band window [c0 - H, c0 + T + H) of the
+// input plane into shared memory as coalesced, aligned float4 loads (H =
+// max |off|, read from the offsets), then each thread walks the set bits
+// of its cell and reads those band neighbours from the window: a cell
+// costs (T + 2H) / T global words per field instead of up to 32 line
+// loads per warp. One field at a time keeps the window within shared
+// memory for any F; T is chosen at launch (one 1024-thread block per SM,
+// one item each: at 204K cells T = 7168 for F = 4, 2048 for F = 1, with
+// H = 1597). On an H100 a sweep takes a few times its byte bound and is
+// not held by L2 latency: several loads in flight per thread did not
+// help, nor did a warp-uniform band walk (conflict-free reads, but a
+// warp's 32 cells use nearly all 32 bands); in the relax kernel the grid
+// barrier and the flag add about half a one-sweep launch's time (PERF.md
+// has the numbers).
+//
+// The relax kernel runs the whole loop in one cooperative launch (grid =
+// co-resident blocks, cudaLaunchCooperativeKernel): sweep s reads only what
+// sweep s-1 wrote (two buffers in turn; sweep 0 reads the input), and a
+// grid barrier separates sweeps. The change flag rotates over three int32
+// slots: slot s % 3 is ORed in sweep s and read by every block after the
+// barrier, slot (s + 1) % 3 is zeroed by block 0 before it, so no block
+// reads a slot that another is resetting, and every block takes the same
+// exit decision. The loop stops at the first sweep that changes nothing or
+// after `cap` sweeps (0 = no cap); the sweep count goes to ctl[3].
+// Buffers written by other blocks are read with __ldcg (L2, not the
+// incoherent L1 or read-only path).
+//
+// BFS runs one Jacobi sweep per barrier: its loops on the path end at their
+// caps, where any more relaxation per round would give other values than
+// the jnp loop. The ε-fill may run `inner` sweeps per barrier on its staged
+// chunk (the TPU's stale-halo scheme, sweep_pallas.py:230-260): the chunk's
+// own cells update in shared memory, the halo and the remainder neighbours
+// stay as the round began. The fill operator is monotone and its iterates
+// fall from surface0, so every update reads values at or above the Jacobi
+// fixpoint and the loop can only stop at a fixpoint: it reaches the same
+// greatest fixpoint, bit for bit, in fewer barrier rounds. The count it
+// reports is rounds.
+//
+// Bound: per sweep, bytes (the state, its static planes, bits and the CSR
+// read once, the state written once); per relax launch each byte counts
+// once and the min/add work of every sweep counts toward operations.
+
+namespace cg = cooperative_groups;
+
+// The staged planes load as aligned float4 words: the entry points refuse
+// NP % 4 != 0 and planes off a 16-byte boundary.
+struct Geo {
+  int np, nf, T, H, m;
+  const uint32_t* bits;
+  const int* rptr;
+  const int* rnbr;
+  Bands bands;
+};
+
+// A rule reads the state at cell j of its plane as the neighbours see it
+// (stage, stage4: four cells), a cell's own value (own) and its static
+// term (aux: the cost or the baked elevation), makes the new value
+// (update) and, for the inner sweeps, the value the window keeps
+// (restage).
+struct BfsRule {
+  const float* cost;
+  __device__ float stage(const float* sf, int j) const { return __ldcg(sf + j); }
+  __device__ float4 stage4(const float* sf, int j) const {
+    return __ldcg(reinterpret_cast<const float4*>(sf + j));
+  }
+  __device__ float own(float w, const float*, int) const { return w; }
+  __device__ float aux(size_t t, int) const { return __ldg(cost + t); }
+  __device__ float update(float c, float best, float cost_i) const {
+    return fminf(c, best + cost_i);
+  }
+  __device__ float restage(float v, int) const { return v; }
+};
+
+struct FloodRule {
+  const float* inland;
+  const float* baked;
+  float big, eps;
+  __device__ float stage(const float* sf, int j) const {
+    const float v = __ldcg(sf + j);
+    return __ldg(inland + j) > 0.0f ? big : v;
+  }
+  __device__ float4 stage4(const float* sf, int j) const {
+    float4 v = __ldcg(reinterpret_cast<const float4*>(sf + j));
+    const float4 m = __ldg(reinterpret_cast<const float4*>(inland + j));
+    v.x = m.x > 0.0f ? big : v.x;
+    v.y = m.y > 0.0f ? big : v.y;
+    v.z = m.z > 0.0f ? big : v.z;
+    v.w = m.w > 0.0f ? big : v.w;
+    return v;
+  }
+  // inland cells are frozen and show `big` in the window: their own value
+  // is the input's
+  __device__ float own(float w, const float* sf, int i) const {
+    const float v = __ldcg(sf + i);
+    return __ldg(inland + i) > 0.0f ? v : w;
+  }
+  __device__ float aux(size_t, int i) const { return __ldg(baked + i); }
+  __device__ float update(float c, float best, float baked_i) const {
+    return fminf(c, fmaxf(baked_i, best + eps));
+  }
+  __device__ float restage(float v, int i) const {
+    return __ldg(inland + i) > 0.0f ? big : v;
+  }
+};
+
+template <class R>
+struct RelaxArgs {
+  R rule;
+  Geo geo;
+  const float* in;
+  float* out;
+  float* tmp;
+  int* ctl;    // [4]: three rotating change-flag slots, then the sweep count
+  int* total;  // running sweep total across launches, or null
+  int cap;
+  int inner;
+};
+
+// j in [-NP, inf) wrapped into [0, NP); windows reach past NP at most
+// by T + H + 3, so the loop runs once at most on all but tiny meshes
+__device__ __forceinline__ int wrap_up(int j, int np) {
+  if (j < 0) j += np;
+  while (j >= np) j -= np;
+  return j;
+}
+
+// Staging words a thread keeps in flight at once.
+constexpr int kStageBatch = 8;
+
+// One work item: field f, cells [c0, c0 + T). `inner` sweeps on the staged
+// window (1: a plain Jacobi sweep, written straight to dst). Band
+// neighbours come from the window (offs: the band offsets in shared
+// memory), remainder neighbours from global memory. Returns this thread's
+// "some cell changed". All threads of the block must call it.
+template <class R>
+__device__ bool relax_item(const R& r, const Geo& g, const float* src,
+                           float* dst, int f, int c0, float* win,
+                           const int* offs, int inner) {
+  const float* sf = src + (size_t)f * g.np;
+  float* df = dst + (size_t)f * g.np;
+  // the window starts at the multiple of 4 at or below c0 - H, so that it
+  // loads as aligned float4 words (NP % 4 == 0: a word never straddles the
+  // wrap); `base` is cell c0's slot
+  const int lead = (c0 - g.H) & 3;
+  const int ws = c0 - g.H - lead;
+  const int base = g.H + lead;
+  const int nq = (g.T + 2 * g.H + lead + 3) >> 2;
+  const int step = blockDim.x;
+  float4* win4 = reinterpret_cast<float4*>(win);
+  for (int q0 = threadIdx.x; q0 < nq; q0 += kStageBatch * step) {
+    float4 v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int q = q0 + u * step;
+      if (q < nq) v[u] = r.stage4(sf, wrap_up(ws + 4 * q, g.np));
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int q = q0 + u * step;
+      if (q < nq) win4[q] = v[u];
+    }
+  }
+  __syncthreads();
+  const int c1 = min(c0 + g.T, g.np);
+  const uint32_t live = g.bands.n < 32 ? (1u << g.bands.n) - 1u : ~0u;
+  bool changed = false;
+  for (int s = 0; s < inner; ++s) {
+    bool ch = false;
+    for (int i = c0 + threadIdx.x; i < c1; i += step) {
+      const int p = base + (i - c0);
+      const float c = r.own(win[p], sf, i);
+      float best = INFINITY;
+      for (uint32_t b = __ldg(g.bits + i) & live; b; b &= b - 1)
+        best = fminf(best, win[p + offs[__ffs(b) - 1]]);
+      if (g.m > 0) {
+        const int k1 = row_end(g.rptr, i, g.m);
+        for (int k = row_begin(g.rptr, i, g.m); k < k1; ++k) {
+          const int j = __ldg(g.rnbr + k);
+          if (j >= 0 && j < g.np) best = fminf(best, r.stage(sf, j));
+        }
+      }
+      const float v = r.update(c, best, r.aux((size_t)f * g.np + i, i));
+      if (inner == 1) {
+        df[i] = v;
+      } else if (v != c) {
+        win[p] = r.restage(v, i);
+      }
+      ch |= v != c;
+    }
+    changed |= ch;
+    // a sweep that changed nothing in the chunk leaves it at a fixpoint of
+    // its stale halo: the remaining inner sweeps would change nothing
+    if (inner > 1 && !__syncthreads_or(ch)) break;
+  }
+  if (inner > 1) {
+    for (int i = c0 + threadIdx.x; i < c1; i += step)
+      df[i] = r.own(win[base + (i - c0)], sf, i);
+  }
+  __syncthreads();  // the window is restaged by the next item
+  return changed;
+}
+
+template <class R>
+__device__ void sweep_once(const RelaxArgs<R>& a, int* flag) {
+  extern __shared__ __align__(16) float win[];
+  __shared__ int offs[kMaxBands];
+  const Geo& g = a.geo;
+  if (threadIdx.x < kMaxBands) offs[threadIdx.x] = g.bands.off[threadIdx.x];
+  const int chunks = (g.np + g.T - 1) / g.T;
+  const int f = blockIdx.x / chunks;
+  const bool ch = relax_item(a.rule, g, a.in, a.out, f,
+                             (blockIdx.x - f * chunks) * g.T, win, offs, 1);
+  or_flag(flag, ch);
+}
+
+template <class R>
+__device__ void relax_loop(const RelaxArgs<R>& a) {
+  extern __shared__ __align__(16) float win[];
+  __shared__ int offs[kMaxBands];
+  __shared__ int stop;
+  const Geo& g = a.geo;
+  if (threadIdx.x < kMaxBands) offs[threadIdx.x] = g.bands.off[threadIdx.x];
+  cg::grid_group grid = cg::this_grid();
+  const int chunks = (g.np + g.T - 1) / g.T;
+  const int items = g.nf * chunks;
+  int s = 0;
+  for (;; ++s) {
+    // sweep s reads buf[(s - 1) % 2] (the input at s = 0), writes buf[s % 2]
+    const float* src = s == 0 ? a.in : ((s & 1) ? a.out : a.tmp);
+    float* dst = (s & 1) ? a.tmp : a.out;
+    bool changed = false;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int f = it / chunks;
+      changed |= relax_item(a.rule, g, src, dst, f, (it - f * chunks) * g.T,
+                            win, offs, a.inner);
+    }
+    if (__syncthreads_or(changed) && threadIdx.x == 0)
+      atomicOr(&a.ctl[s % 3], 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[(s + 1) % 3] = 0;
+    grid.sync();
+    if (threadIdx.x == 0) {
+      const int flag = *(volatile int*)&a.ctl[s % 3];
+      stop = flag == 0 || (a.cap > 0 && s + 1 >= a.cap);
+    }
+    __syncthreads();
+    if (stop) break;
+  }
+  // the state ends in buf[s % 2]; bring it to `out`
+  if (s & 1) {
+    const size_t n = (size_t)g.nf * g.np;
+    for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+         t += (size_t)gridDim.x * blockDim.x)
+      a.out[t] = __ldcg(a.tmp + t);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.ctl[3] = s + 1;
+    if (a.total != nullptr) atomicAdd(a.total, s + 1);
+  }
+}
+
+__global__ void __launch_bounds__(kRelaxThreads)
+bfs_sweep_kernel(RelaxArgs<BfsRule> a, int* flag) { sweep_once(a, flag); }
+
+__global__ void __launch_bounds__(kRelaxThreads)
+bfs_relax_kernel(RelaxArgs<BfsRule> a) { relax_loop(a); }
+
+__global__ void __launch_bounds__(kRelaxThreads)
+flood_relax_kernel(RelaxArgs<FloodRule> a) { relax_loop(a); }
 
 // ── 5. Laplacian smoothing pass ────────────────────────────────────────
 // Replaces _make_smooth_kernel (sweep_pallas.py:564). One thread per
@@ -370,6 +616,143 @@ Bands make_bands(const int* offs, int n_offs) {
 
 int blocks_for(long total) { return (int)((total + kThreads - 1) / kThreads); }
 
+// The largest dynamic shared memory a block may take (227 KB), less room
+// for the static shared words.
+constexpr long kMaxWindowFloats = (232448 - 1024) / (long)sizeof(float);
+
+Geo make_geo(const uint32_t* bits, const int* rptr, const int* rnbr, int m,
+             int np, int nf, const int* offs, int n_offs) {
+  Geo g;
+  g.np = np;
+  g.nf = nf;
+  g.T = 0;
+  g.H = 0;
+  g.m = (rptr != nullptr && rnbr != nullptr && m > 0) ? m : 0;
+  g.bits = bits;
+  g.rptr = rptr;
+  g.rnbr = rnbr;
+  g.bands = make_bands(offs, n_offs);
+  return g;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// The staged planes load as float4 words: NP % 4 == 0, 16-byte aligned.
+bool staged_ok(int np, std::initializer_list<const void*> planes) {
+  if (np % 4 != 0) return false;
+  for (const void* p : planes)
+    if (!aligned16(p)) return false;
+  return true;
+}
+
+bool bad_shape(int np, int nf, int n_offs) {
+  return np < 1 || nf < 1 || n_offs < 0 || n_offs > kMaxBands;
+}
+
+// A staged kernel's launch plan: window half-width H = max |off|, chunk
+// size T, the window's bytes of dynamic shared memory and the grid. Plans
+// are cached per kernel, device, NP, F and H, so the SM-count, shared-
+// memory-attribute and occupancy calls run once per shape, not on each of
+// the components loop's one-sweep launches.
+struct Plan {
+  const void* kern;
+  int dev, np, nf, H;
+  int T, grid;
+  long smem;
+};
+constexpr int kPlanSlots = 16;
+Plan g_plans[kPlanSlots];
+int g_plan_count = 0;
+std::mutex g_plan_mu;
+
+// T: kItemsPerSm work items per SM, a multiple of the block size, no
+// larger than the mesh or than what shared memory holds beside the halo
+// (T + 2H floats plus the float4 alignment slack). Grid: one block per
+// item, or for a cooperative launch the co-resident blocks (no more than
+// there are items).
+int get_plan(const void* kern, bool cooperative, const Geo& g, Plan* out) {
+  int dev = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e != 0) return e;
+  int h = 0;
+  for (int d = 0; d < g.bands.n; ++d) h = std::max(h, std::abs(g.bands.off[d]));
+  std::lock_guard<std::mutex> lock(g_plan_mu);
+  for (int k = 0; k < std::min(g_plan_count, kPlanSlots); ++k) {
+    const Plan& p = g_plans[k];
+    if (p.kern == kern && p.dev == dev && p.np == g.np && p.nf == g.nf &&
+        p.H == h) {
+      *out = p;
+      return 0;
+    }
+  }
+  int nsm = 0;
+  e = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != 0) return e;
+  const int threads = kRelaxThreads;
+  const long per = kItemsPerSm * nsm;
+  long t = ((long)g.nf * g.np + per - 1) / per;
+  t = (t + threads - 1) / threads * threads;
+  t = std::max(t, (long)threads);
+  t = std::min(t, ((long)g.np + threads - 1) / threads * threads);
+  t = std::min(t, kMaxWindowFloats - 2L * h - 8);
+  if (t < 1) return (int)cudaErrorInvalidValue;
+  Plan p{kern, dev, g.np, g.nf, h, (int)t, 0,
+         (t + 2L * h + 8) * (long)sizeof(float)};
+  // the most any plan takes, so that no plan's limit shrinks another's
+  e = (int)cudaFuncSetAttribute(kern,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)(kMaxWindowFloats * sizeof(float)));
+  if (e != 0) return e;
+  const long items = (long)g.nf * ((g.np + p.T - 1) / p.T);
+  if (cooperative) {
+    int per_sm = 0;
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kRelaxThreads, p.smem);
+    if (e != 0) return e;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    p.grid = (int)std::min((long)per_sm * nsm, items);
+  } else {
+    p.grid = (int)items;
+  }
+  g_plans[g_plan_count++ % kPlanSlots] = p;
+  *out = p;
+  return 0;
+}
+
+// One sweep: one block per work item, a normal launch.
+template <class R>
+int launch_once(void (*kern)(RelaxArgs<R>, int*), RelaxArgs<R> a, int* flag,
+                cudaStream_t stream) {
+  Plan p;
+  const int e = get_plan((const void*)kern, false, a.geo, &p);
+  if (e != 0) return e;
+  a.geo.T = p.T;
+  a.geo.H = p.H;
+  kern<<<p.grid, kRelaxThreads, p.smem, stream>>>(a, flag);
+  return (int)cudaGetLastError();
+}
+
+// The whole relax loop in one cooperative launch. A refused launch
+// returns its error; it never runs.
+template <class R>
+int launch_relax(void (*kern)(RelaxArgs<R>), RelaxArgs<R> a,
+                 cudaStream_t stream) {
+  Plan p;
+  int e = get_plan((const void*)kern, true, a.geo, &p);
+  if (e != 0) return e;
+  a.geo.T = p.T;
+  a.geo.H = p.H;
+  void* args[] = {&a};
+  e = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(p.grid),
+                                       dim3(kRelaxThreads), args,
+                                       (size_t)p.smem, stream);
+  if (e != 0) {
+    cudaGetLastError();
+    return e;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
@@ -379,11 +762,36 @@ extern "C" {
 int bfs_sweep(const float* cur, const float* cost, const uint32_t* bits,
               float* out, int* flag, int np, int nf, const int* offs,
               int n_offs, void* stream) {
-  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
-  bfs_sweep_kernel<<<blocks_for((long)nf * np), kThreads, 0,
-                     (cudaStream_t)stream>>>(cur, cost, bits, out, flag, np,
-                                             nf, make_bands(offs, n_offs));
-  return (int)cudaGetLastError();
+  if (bad_shape(np, nf, n_offs) || !staged_ok(np, {cur, out}))
+    return (int)cudaErrorInvalidValue;
+  RelaxArgs<BfsRule> a{};
+  a.rule.cost = cost;
+  a.geo = make_geo(bits, nullptr, nullptr, 0, np, nf, offs, n_offs);
+  a.in = cur;
+  a.out = out;
+  a.inner = 1;
+  return launch_once(bfs_sweep_kernel, a, flag, (cudaStream_t)stream);
+}
+
+// ctl: int32 [4] zeroed by the caller (flag slots, then the sweep count);
+// total: an int32 counter the sweep count is added to, or null.
+int bfs_relax(const float* cur, const float* cost, const uint32_t* bits,
+              const int* rem_ptr, const int* rem_nbr, int m, float* out,
+              float* tmp, int* ctl, int* total, int np, int nf,
+              const int* offs, int n_offs, int cap, void* stream) {
+  if (bad_shape(np, nf, n_offs) || !staged_ok(np, {cur, out, tmp}))
+    return (int)cudaErrorInvalidValue;
+  RelaxArgs<BfsRule> a{};
+  a.rule.cost = cost;
+  a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, nf, offs, n_offs);
+  a.in = cur;
+  a.out = out;
+  a.tmp = tmp;
+  a.ctl = ctl;
+  a.total = total;
+  a.cap = cap;
+  a.inner = 1;
+  return launch_relax(bfs_relax_kernel, a, (cudaStream_t)stream);
 }
 
 int stress_sweep(const float* state, const uint32_t* bits, float* out,
@@ -404,15 +812,24 @@ int warp_sweep(const float* state, const float* w, const uint32_t* bits,
   return (int)cudaGetLastError();
 }
 
-int flood_sweep(const float* surf, const float* inland,
-                const float* elev_baked, const uint32_t* bits, float* out,
-                int* flag, int np, const int* offs, int n_offs, float big,
-                float eps, void* stream) {
-  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
-  flood_sweep_kernel<<<blocks_for(np), kThreads, 0, (cudaStream_t)stream>>>(
-      surf, inland, elev_baked, bits, out, flag, np,
-      make_bands(offs, n_offs), big, eps);
-  return (int)cudaGetLastError();
+int flood_relax(const float* surf, const float* inland,
+                const float* elev_baked, const uint32_t* bits,
+                const int* rem_ptr, const int* rem_nbr, int m, float* out,
+                float* tmp, int* ctl, int* total, int np, const int* offs,
+                int n_offs, float big, float eps, int inner, void* stream) {
+  if (bad_shape(np, 1, n_offs) || inner < 1 ||
+      !staged_ok(np, {surf, inland, out, tmp}))
+    return (int)cudaErrorInvalidValue;
+  RelaxArgs<FloodRule> a{};
+  a.rule = FloodRule{inland, elev_baked, big, eps};
+  a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, 1, offs, n_offs);
+  a.in = surf;
+  a.out = out;
+  a.tmp = tmp;
+  a.ctl = ctl;
+  a.total = total;
+  a.inner = inner;
+  return launch_relax(flood_relax_kernel, a, (cudaStream_t)stream);
 }
 
 int smooth_sweep(const float* field, const float* c, const float* gate,

@@ -8,8 +8,8 @@ ascending surface order. Each pass becomes a parallel equivalent:
 - Pass 1 (fill): the ε-fill iteration
   ``surface ← max(elev, min_nbr(surface) + ε)`` run to its fixpoint, seeded
   from land adjacent to the largest (open) ocean component; inland seas are
-  opaque to the flood (js/terrain-post.js:119). One sweep per launch of the
-  flood kernel (ops/sweep_cuda.py). The per-cell Knuth-hash noise that
+  opaque to the flood (js/terrain-post.js:119). One relax launch of the
+  flood kernel (ops/sweep_cuda.py) runs it to the fixpoint. The per-cell Knuth-hash noise that
   meanders the reference's flood fronts perturbs the drain-pointer
   selection instead.
 - Pass 2 (carve): the carve share of each pit's deficit is accumulated
@@ -27,7 +27,7 @@ import torch
 from ..ops import sweep_cuda
 from ..ops.graph import hash01
 from ..ops.banded import (banded_sum, banded_count, band_shift, band_gate,
-                          pack_band_bits, components_core, relax)
+                          pack_band_bits, components_core, rem_csr)
 from .fluvial import log_rounds
 
 EPS = 1e-6  # reference uses 1e-7; promoted one decade so the increment
@@ -87,8 +87,10 @@ def epsilon_fill(elev, is_ocean, open_ocean, valid, band_off, band_mask,
 
     Frozen cells are baked in by clamping their relax target to their own
     surface (cand = max(surface0, ·) keeps min(surf, cand) = surface0), so
-    each flood-kernel sweep plus the remainder-edge scatter equals one
-    iteration of the JAX jnp loop ``_epsilon_fill_jnp``."""
+    a Jacobi sweep of the flood kernel, remainder rows included, equals one
+    iteration of the JAX jnp loop ``_epsilon_fill_jnp``. The whole loop is
+    one relax launch (ops/sweep_cuda.py ``flood_relax``) with no host sync;
+    its inner sweeps on stale halos reach the same fixpoint."""
     inland, seed, surface0, frozen = _fill_common(
         elev, is_ocean, open_ocean, valid, band_off, band_mask, rem_src,
         rem_dst)
@@ -96,19 +98,10 @@ def epsilon_fill(elev, is_ocean, open_ocean, valid, band_off, band_mask,
         torch.float32).contiguous()
     inland_f = inland.to(torch.float32).contiguous()
     bits = pack_band_bits(band_mask)
-    inland_dst = inland[rem_dst]
-    baked_src = elev_baked[rem_src]
-
-    def step(surf, flag):
-        new = sweep_cuda.flood_sweep(surf, inland_f, elev_baked, bits,
-                                     band_off, BIG, EPS, flag)
-        vals = torch.where(inland_dst, BIG, surf[rem_dst])
-        cand = torch.maximum(baked_src, vals + EPS)
-        if flag is not None:
-            flag |= (cand < new[rem_src]).any().to(torch.int32)
-        return new.scatter_reduce_(0, rem_src, cand, "amin")
-
-    surface, _ = relax(step, surface0.contiguous())
+    ptr, nbr = rem_csr(rem_src, rem_dst, band_mask.shape[0])
+    surface, _ = sweep_cuda.flood_relax(surface0.contiguous(), inland_f,
+                                        elev_baked, bits, band_off, ptr, nbr,
+                                        BIG, EPS)
     return _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean,
                         valid, band_off, band_mask, rem_src, rem_dst)
 

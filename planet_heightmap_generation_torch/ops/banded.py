@@ -11,13 +11,14 @@ Every function takes the graph's ``band_off`` (tuple), ``band_mask
 DeviceGraph stores them pre-filtered, so no scatter here needs a drop
 mode) — normally splatted from ``g.bands``.
 
-The fixpoint loops (distance BFS, stress propagation, components) run one
-synchronous sweep per step through the CUDA kernels of ops/sweep_cuda.py
-(plain torch on CPU tensors) and follow the JAX jnp loops' semantics:
-iteration caps bound the number of sweeps, and a loop ends at the first
-sweep that changes nothing. The change flag is read every
-``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a fixpoint are
-no-ops and no loop runs past its cap.
+The fixpoint loops follow the JAX jnp loops' semantics: iteration caps
+bound the number of sweeps, and a loop ends at the first sweep that changes
+nothing. The distance BFS runs its whole loop in one relax launch of the
+BFS kernel (ops/sweep_cuda.py, plain torch on CPU tensors), with no host
+sync. Stress propagation, the carry BFS, components and flood_assign run
+one synchronous sweep per step under :func:`relax`, which reads the change
+flag every ``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a
+fixpoint are no-ops and no loop runs past its cap.
 
 The climate's Laplacian smoothing runs a fixed number of passes through
 the smoothing kernel; it sums, so it takes the remainder edges as CSR
@@ -200,8 +201,10 @@ def bfs_hops_multi_banded(seeds, barrier, band_off, band_mask, rem_src,
 
     seeds/barrier [N,F] bool, rand_cost [N,F] f32 or None (unit costs).
     Seeds and barriers are baked in (dist0 = 0 at seeds, cost = +inf at
-    non-seed barriers), which makes each kernel sweep equal one iteration
-    of the JAX jnp loop ``_bfs_hops_multi_jnp``. ``max_hops`` > 0 caps the
+    non-seed barriers), which makes each sweep equal one iteration of the
+    JAX jnp loop ``_bfs_hops_multi_jnp``. The whole loop is one relax
+    launch (ops/sweep_cuda.py ``bfs_relax``), the remainder edges walked as
+    CSR rows inside it, with no host sync. ``max_hops`` > 0 caps the
     number of sweeps (values beyond may be path-order overestimates,
     unreached = +inf). Returns [N,F] f32."""
     seeds_t = seeds.T
@@ -210,19 +213,9 @@ def bfs_hops_multi_banded(seeds, barrier, band_off, band_mask, rem_src,
             else rand_cost.T.to(torch.float32))
     cost = torch.where(barrier.T & ~seeds_t, INF, cost).contiguous()
     bits = pack_band_bits(band_mask)
-    cost_src = cost[:, rem_src]
-    idx = rem_src[None, :].expand_as(cost_src)
-
-    def step(dist, flag):
-        new = sweep_cuda.bfs_sweep(dist, cost, bits, band_off, flag)
-        # remainder edges: dest rem_src receives rem_dst's PRE-sweep value
-        # plus its own cost (+inf at barriers blocks it)
-        cand = dist[:, rem_dst] + cost_src
-        if flag is not None:
-            flag |= (cand < new[:, rem_src]).any().to(torch.int32)
-        return new.scatter_reduce_(1, idx, cand, "amin")
-
-    dist, _ = relax(step, dist, cap=max_hops if max_hops > 0 else None)
+    ptr, nbr = rem_csr(rem_src, rem_dst, band_mask.shape[0])
+    dist, _ = sweep_cuda.bfs_relax(dist, cost, bits, band_off, ptr, nbr,
+                                   int(max_hops))
     return dist.T
 
 
@@ -441,12 +434,13 @@ def rem_csr(rem_src, rem_dst, npad: int):
     in edge order (a stable sort): (rem_ptr int32 [NP+1], rem_nbr int32
     [M]). The summing kernels walk a cell's row after its bands, which
     reproduces the order in which the jnp scatter-add ``.at[rem_src].add``
-    accumulates, with no atomics."""
-    order = torch.sort(rem_src, stable=True).indices
-    cnt = torch.bincount(rem_src, minlength=npad)
-    ptr = torch.zeros(npad + 1, dtype=torch.int32, device=rem_src.device)
-    ptr[1:] = torch.cumsum(cnt, 0).to(torch.int32)
-    return ptr, rem_dst[order].to(torch.int32).contiguous()
+    accumulates, with no atomics. Row starts come from a sorted search, so
+    building the CSR issues no host sync."""
+    key, order = torch.sort(rem_src, stable=True)
+    ptr = torch.searchsorted(key, torch.arange(
+        npad + 1, dtype=key.dtype, device=rem_src.device))
+    return (ptr.to(torch.int32).contiguous(),
+            rem_dst[order].to(torch.int32).contiguous())
 
 
 def smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,

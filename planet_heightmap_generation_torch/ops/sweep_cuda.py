@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the banded neighbour sweeps, and their
 plain-torch versions.
 
-Six kernels (csrc/sweeps.cu), each one synchronous sweep per launch:
+Six kernels (csrc/sweeps.cu):
 
 =========  ==========================================================
 ``bfs``    min-plus relaxation (distance BFS, components min-labels)
@@ -12,6 +12,14 @@ Six kernels (csrc/sweeps.cu), each one synchronous sweep per launch:
 ``shadow`` one rain-shadow hop (wind-aligned weighted min / max)
 =========  ==========================================================
 
+``bfs`` and ``flood`` have a relax entry (``bfs_relax``, ``flood_relax``):
+ONE cooperative launch runs the whole fixpoint loop on the device (grid
+barrier between sweeps, change flag and sweep count in device memory) and
+returns ``(state, sweeps)`` with ``sweeps`` an int32 [1] device tensor;
+nothing is read back to the host. The others, and ``bfs`` for the
+components loop, have a one-sweep entry (``<name>_sweep``); the ε-fill's
+one sweep exists only as its plain version, the relax loop's oracle.
+
 Every wrapper takes the state as [F, NP] float32 planes, the band bits as
 one int32 word per cell (bit d = band d present, the packed form of
 ``band_mask``) and the band offsets as a tuple. A wrapper given CPU
@@ -21,18 +29,18 @@ fallback between the two.
 
 The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 ``_build/`` beside this package at first use, and rebuilt when the source
-is newer than the library. ``LAUNCHES`` counts kernel launches per kernel;
-the plain versions never count.
+is newer than the library. ``LAUNCHES`` counts launches per kernel
+(``bfs`` the one-sweep BFS, ``bfs_relax`` and ``flood`` the relax
+launches, one each), and :func:`sweeps_run` the sweeps (ε-fill: rounds)
+that the relax launches ran; the plain versions never count.
 
-The remainder edges (~0.5 % of edges off the bands) are not the business
-of the four min/argmin kernels: the sweep loops in ops/banded.py and erosion/
-apply them as torch scatters after each launch, exactly as the JAX loops
-do. The smoothing and rain-shadow kernels SUM over neighbours, where the
-order of the terms sets the last bit, so they take the remainder edges as
-CSR rows in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32 [M],
-from ops/banded.py ``rem_csr``) and add them after the bands, as the JAX
-jnp scatter-add does; their plain versions walk the same rows in the same
-order.
+Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
+receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
+[M], from ops/banded.py ``rem_csr``). The relax, smoothing and rain-shadow
+kernels walk them in-kernel after the bands (a sum keeps the jnp order;
+a min is order-free); their plain versions walk the same rows. The
+one-sweep stress, warp and BFS entries take no CSR: their drivers apply
+the remainder edges as torch scatters after each launch.
 """
 
 from __future__ import annotations
@@ -53,8 +61,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bfs": 0, "stress": 0, "warp": 0, "flood": 0, "smooth": 0,
-            "shadow": 0}
+LAUNCHES = {"bfs": 0, "bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
+            "smooth": 0, "shadow": 0}
+# ε-fill sweeps per barrier round on the staged chunk (BFS always runs 1)
+FLOOD_INNER = 4
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -69,9 +79,14 @@ _ARGTYPES = {
     "stress_sweep": [_P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
     # state, w, bits, out, flag, np, offs, n_offs, stream
     "warp_sweep": [_P, _P, _P, _P, _P, _I, _P, _I, _P],
-    # surf, inland, elev_baked, bits, out, flag, np, offs, n_offs, big,
-    # eps, stream
-    "flood_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
+    # cur, cost, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, total, np, nf,
+    # offs, n_offs, cap, stream
+    "bfs_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I,
+                  _I, _P],
+    # surf, inland, elev_baked, bits, rem_ptr, rem_nbr, m, out, tmp, ctl,
+    # total, np, offs, n_offs, big, eps, inner, stream
+    "flood_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I,
+                    _F, _F, _I, _P],
     # field, c, gate, upd, bits, rem_ptr, rem_nbr, m, out, np, nf, offs,
     # n_offs, stream
     "smooth_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
@@ -83,9 +98,36 @@ _ARGTYPES = {
 }
 
 
+# per CUDA device: int32 [2] running sweep totals of the bfs / flood relax
+# launches, added to by the kernels themselves
+_SWEEP_TOTALS: dict = {}
+_RELAX_SLOT = {"bfs_relax": 0, "flood": 1}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for t in _SWEEP_TOTALS.values():
+        t.zero_()
+
+
+def sweeps_run() -> dict:
+    """Sweeps (ε-fill: barrier rounds) run by the relax launches since the
+    last :func:`reset_launches`. Reads the device counters (a host sync):
+    for measurement, never on the path."""
+    out = {k: 0 for k in _RELAX_SLOT}
+    for t in _SWEEP_TOTALS.values():
+        for k, slot in _RELAX_SLOT.items():
+            out[k] += int(t[slot])
+    return out
+
+
+def _sweep_total(name: str, device):
+    t = _SWEEP_TOTALS.get(device)
+    if t is None:
+        t = torch.zeros(2, dtype=torch.int32, device=device)
+        _SWEEP_TOTALS[device] = t
+    return t[_RELAX_SLOT[name]:]
 
 
 def _nvcc() -> str:
@@ -146,19 +188,24 @@ def _on_cpu(x) -> bool:
 
 def _check(bits, flag, *planes):
     """Raise unless a kernel can read its inputs safely: ``bits`` is a
-    contiguous int32 [NP], every (tensor, rows) of ``planes`` a contiguous
-    float32 [rows, NP] ([NP] where rows is None) on the same device, and
-    ``flag`` None or an int32 tensor there."""
+    contiguous int32 [NP] with NP a multiple of 4, every (tensor, rows) of
+    ``planes`` a contiguous, 16-byte aligned float32 [rows, NP] ([NP] where
+    rows is None) on the same device (the staged kernels load planes as
+    float4 words), and ``flag`` None or an int32 tensor there."""
     dev, npad = bits.device, bits.shape[-1]
     if bits.dtype != torch.int32 or bits.dim() != 1 or not bits.is_contiguous():
         raise ValueError("band bits must be a contiguous int32 [NP] tensor")
+    if npad % 4:
+        raise ValueError(f"NP must be a multiple of 4, got {npad}")
     for t, rows in planes:
         want = (npad,) if rows is None else (rows, npad)
         if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != want or not t.is_contiguous()):
+                or tuple(t.shape) != want or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(
-                f"sweep kernel input must be contiguous float32 {want} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+                f"sweep kernel input must be contiguous, 16-byte aligned "
+                f"float32 {want} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
     if flag is not None and (flag.device != dev or flag.dtype != torch.int32
                              or flag.numel() < 1):
         raise ValueError("change flag must be an int32 tensor on the "
@@ -318,7 +365,7 @@ def warp_sweep(state, w, bits, band_off, flag=None):
     return out
 
 
-# ── 4. ε-fill ────────────────────────────────────────────────────────
+# ── 4. ε-fill (one sweep, plain: the relax loop's oracle) ──────────
 
 def flood_sweep_plain(surf, inland, elev_baked, bits, band_off, big: float,
                       eps: float, flag=None):
@@ -330,23 +377,6 @@ def flood_sweep_plain(surf, inland, elev_baked, bits, band_off, big: float,
                               float("inf")))
     out = torch.minimum(surf, torch.maximum(elev_baked, best + eps))
     _or_flag(flag, (out != surf).any())
-    return out
-
-
-def flood_sweep(surf, inland, elev_baked, bits, band_off, big: float,
-                eps: float, flag=None):
-    """One ε-fill sweep over the [NP] surface; ``inland`` (0/1 f32) cells
-    present ``big`` to their neighbours."""
-    if _on_cpu(surf):
-        return flood_sweep_plain(surf, inland, elev_baked, bits, band_off,
-                                 big, eps, flag)
-    fn = _kernel("flood_sweep")
-    _check(bits, flag, (surf, None), (inland, None), (elev_baked, None))
-    out = torch.empty_like(surf)
-    offs, nd = _offs(band_off)
-    _launch(fn, "flood", _ptr(surf), _ptr(inland),
-            _ptr(elev_baked), _ptr(bits), _ptr(out), _ptr(flag),
-            surf.shape[0], offs, nd, float(big), float(eps))
     return out
 
 
@@ -365,6 +395,107 @@ def _rem_rows(rem_ptr, rem_nbr):
         idx = start + k
         has = idx < end
         yield has, torch.where(has, nbr[idx.clamp(max=m - 1)], 0)
+
+
+def rem_min_plain(x, rem_ptr, rem_nbr):
+    """Per cell, the min of ``x[..., j]`` over its remainder row (+inf
+    where the row is empty); ``x`` is [NP] or [F, NP]."""
+    best = torch.full_like(x, float("inf"))
+    for has, j in _rem_rows(rem_ptr, rem_nbr):
+        best = torch.where(has, torch.minimum(best, x[..., j]), best)
+    return best
+
+
+# ── relax loops: BFS and ε-fill to their fixpoint in one launch ──────
+
+def _relax_plain(step, state, cap: int):
+    """Run ``state = step(state)`` until a sweep changes nothing or ``cap``
+    sweeps ran (cap <= 0: no cap). Returns (state, sweeps int32 [1])."""
+    sweeps = 0
+    while cap <= 0 or sweeps < cap:
+        new = step(state)
+        sweeps += 1
+        done = torch.equal(new, state)
+        state = new
+        if done:
+            break
+    return state, torch.tensor([sweeps], dtype=torch.int32)
+
+
+def bfs_relax_plain(cur, cost, bits, band_off, rem_ptr, rem_nbr, cap: int = 0):
+    def step(x):
+        out = bfs_sweep_plain(x, cost, bits, band_off)
+        return torch.minimum(out, rem_min_plain(x, rem_ptr, rem_nbr) + cost)
+
+    return _relax_plain(step, cur, int(cap))
+
+
+def bfs_relax(cur, cost, bits, band_off, rem_ptr, rem_nbr, cap: int = 0):
+    """Min-plus sweeps over [F, NP] planes, the remainder rows included,
+    until a sweep changes nothing or ``cap`` sweeps ran (<= 0: no cap); each
+    sweep is one Jacobi iteration of the jnp loop. Returns (state,
+    sweeps)."""
+    if _on_cpu(cur):
+        return bfs_relax_plain(cur, cost, bits, band_off, rem_ptr, rem_nbr,
+                               cap)
+    fn = _kernel("bfs_relax")
+    f = cur.shape[0] if cur.dim() == 2 else -1
+    _check(bits, None, (cur, f), (cost, f))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    out, tmp = torch.empty_like(cur), torch.empty_like(cur)
+    ctl = torch.zeros(4, dtype=torch.int32, device=cur.device)
+    offs, nd = _offs(band_off)
+    _launch(fn, "bfs_relax", _ptr(cur), _ptr(cost), _ptr(bits),
+            _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
+            _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("bfs_relax", cur.device)),
+            bits.shape[0], f, offs, nd, int(cap))
+    return out, ctl[3:]
+
+
+def flood_relax_plain(surf, inland, elev_baked, bits, band_off, rem_ptr,
+                      rem_nbr, big: float, eps: float):
+    """Jacobi sweeps to the fixpoint; the count returned is sweeps."""
+    def step(x):
+        out = flood_sweep_plain(x, inland, elev_baked, bits, band_off, big,
+                                eps)
+        rem = rem_min_plain(torch.where(inland > 0, big, x), rem_ptr,
+                            rem_nbr)
+        return torch.minimum(out, torch.maximum(elev_baked, rem + eps))
+
+    return _relax_plain(step, surf, 0)
+
+
+def flood_relax(surf, inland, elev_baked, bits, band_off, rem_ptr, rem_nbr,
+                big: float, eps: float):
+    """The ε-fill over the [NP] surface to its fixpoint, the remainder rows
+    included. The kernel runs ``FLOOD_INNER`` sweeps on each staged chunk
+    per barrier round; the fixpoint, and so the surface, is the Jacobi
+    loop's. Returns (surface, rounds)."""
+    return _flood_relax(surf, inland, elev_baked, bits, band_off, rem_ptr,
+                        rem_nbr, big, eps, FLOOD_INNER)
+
+
+def _flood_relax(surf, inland, elev_baked, bits, band_off, rem_ptr, rem_nbr,
+                 big: float, eps: float, inner: int):
+    """:func:`flood_relax` at ``inner`` sweeps per barrier round (the
+    smoke script times other counts against ``FLOOD_INNER``)."""
+    if _on_cpu(surf):
+        return flood_relax_plain(surf, inland, elev_baked, bits, band_off,
+                                 rem_ptr, rem_nbr, big, eps)
+    fn = _kernel("flood_relax")
+    _check(bits, None, (surf, None), (inland, None), (elev_baked, None))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    if int(inner) < 1:
+        raise ValueError("inner sweeps must be >= 1")
+    out, tmp = torch.empty_like(surf), torch.empty_like(surf)
+    ctl = torch.zeros(4, dtype=torch.int32, device=surf.device)
+    offs, nd = _offs(band_off)
+    _launch(fn, "flood", _ptr(surf), _ptr(inland), _ptr(elev_baked),
+            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
+            _ptr(out), _ptr(tmp), _ptr(ctl),
+            _ptr(_sweep_total("flood", surf.device)), surf.shape[0], offs, nd,
+            float(big), float(eps), int(inner))
+    return out, ctl[3:]
 
 
 # ── 5. Laplacian smoothing ───────────────────────────────────────────

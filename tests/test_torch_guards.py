@@ -97,7 +97,7 @@ def _fake_cuda(shape):
 
 
 @pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood",
-                                    "smooth", "shadow"])
+                                    "smooth", "shadow", "bfs_relax"])
 def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -111,10 +111,12 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
         "bfs": lambda: sweep_cuda.bfs_sweep(x, x, x, (1,)),
         "stress": lambda: sweep_cuda.stress_sweep(x, x, (1,), 0.9, 0.8),
         "warp": lambda: sweep_cuda.warp_sweep(x, x, x, (1,)),
-        "flood": lambda: sweep_cuda.flood_sweep(x, x, x, x, (1,), 1e9, 1e-6),
+        "flood": lambda: sweep_cuda.flood_relax(x, x, x, x, (1,), x, x, 1e9,
+                                                1e-6),
         "smooth": lambda: sweep_cuda.smooth_sweep(x, x, x, (1,), x, x),
         "shadow": lambda: sweep_cuda.shadow_sweep(x, x, x, x, (1,), x, x,
                                                   0.9, 0.8),
+        "bfs_relax": lambda: sweep_cuda.bfs_relax(x, x, x, (1,), x, x, 5),
     }[kernel]
     with pytest.raises(RuntimeError):
         call()
@@ -128,22 +130,42 @@ def test_other_devices_refused():
 
 
 @pytest.mark.parametrize("bad", ["plane_shape", "plane_dtype", "bits_dtype",
-                                 "strided", "flag_dtype"])
+                                 "strided", "flag_dtype", "csr_ptr_shape",
+                                 "csr_nbr_dtype", "np_not_multiple_of_4",
+                                 "misaligned"])
 def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
-    """The check every wrapper runs before handing pointers to a kernel."""
+    """The checks every wrapper runs before handing pointers to a kernel
+    (``_check``; ``_check_csr`` for the kernels that walk remainder
+    rows). The staged kernels load planes as float4 words, so NP must be
+    a multiple of 4 and every plane 16-byte aligned."""
     bits = torch.zeros(64, dtype=torch.int32)
     plane = torch.zeros((4, 64))
     flag = torch.zeros(1, dtype=torch.int32)
+    ptr = torch.zeros(65, dtype=torch.int32)
+    nbr = torch.zeros(3, dtype=torch.int32)
     sweep_cuda._check(bits, flag, (plane, 4), (plane[0].clone(), None))
-    args = {
-        "plane_shape": (bits, flag, (plane[:, :32].contiguous(), 4)),
-        "plane_dtype": (bits, flag, (plane.double(), 4)),
-        "bits_dtype": (bits.long(), flag, (plane, 4)),
-        "strided": (bits, flag, (plane.T.contiguous().T, 4)),
-        "flag_dtype": (bits, flag.bool(), (plane, 4)),
+    sweep_cuda._check_csr(bits, ptr, nbr)
+    call = {
+        "plane_shape": lambda: sweep_cuda._check(
+            bits, flag, (plane[:, :32].contiguous(), 4)),
+        "plane_dtype": lambda: sweep_cuda._check(bits, flag,
+                                                 (plane.double(), 4)),
+        "bits_dtype": lambda: sweep_cuda._check(bits.long(), flag,
+                                                (plane, 4)),
+        "strided": lambda: sweep_cuda._check(
+            bits, flag, (plane.T.contiguous().T, 4)),
+        "flag_dtype": lambda: sweep_cuda._check(bits, flag.bool(),
+                                                (plane, 4)),
+        "csr_ptr_shape": lambda: sweep_cuda._check_csr(bits, ptr[:-1], nbr),
+        "csr_nbr_dtype": lambda: sweep_cuda._check_csr(bits, ptr,
+                                                       nbr.long()),
+        "np_not_multiple_of_4": lambda: sweep_cuda._check(
+            bits[:62].clone(), flag, (plane[:, :62].contiguous(), 4)),
+        "misaligned": lambda: sweep_cuda._check(
+            bits, flag, (torch.zeros(65)[1:], None)),
     }[bad]
     with pytest.raises(ValueError):
-        sweep_cuda._check(*args)
+        call()
 
 
 def test_cpu_wrappers_run_plain_versions_uncounted():
@@ -158,16 +180,22 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
     rem_ptr[6:] = 2
     rem_nbr = torch.tensor([9, 40], dtype=torch.int32)
     before = dict(sweep_cuda.LAUNCHES)
-    pairs = [
+    relaxed = [
+        (sweep_cuda.bfs_relax(st, st + 0.5, bits, offs, rem_ptr, rem_nbr, 3),
+         sweep_cuda.bfs_relax_plain(st, st + 0.5, bits, offs, rem_ptr,
+                                    rem_nbr, 3)),
+        (sweep_cuda.flood_relax(st[0], st[2], st[1], bits, offs, rem_ptr,
+                                rem_nbr, 1e9, 1e-6),
+         sweep_cuda.flood_relax_plain(st[0], st[2], st[1], bits, offs,
+                                      rem_ptr, rem_nbr, 1e9, 1e-6)),
+    ]
+    pairs = [x for (a, b) in relaxed for x in zip(a, b)] + [
         (sweep_cuda.bfs_sweep(st, st, bits, offs),
          sweep_cuda.bfs_sweep_plain(st, st, bits, offs)),
         (sweep_cuda.stress_sweep(st, bits, offs, 0.9, 0.7),
          sweep_cuda.stress_sweep_plain(st, bits, offs, 0.9, 0.7)),
         (sweep_cuda.warp_sweep(st, w, bits, offs),
          sweep_cuda.warp_sweep_plain(st, w, bits, offs)),
-        (sweep_cuda.flood_sweep(st[0], st[2], st[1], bits, offs, 1e9, 1e-6),
-         sweep_cuda.flood_sweep_plain(st[0], st[2], st[1], bits, offs, 1e9,
-                                      1e-6)),
         (sweep_cuda.smooth_sweep(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
                                  st[2], st[3]),
          sweep_cuda.smooth_sweep_plain(st, st[0] + 2, bits, offs, rem_ptr,
