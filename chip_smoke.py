@@ -15,13 +15,18 @@ Phases (any failure exits non-zero with its traceback):
    operations) and, where one PyTorch call computes the same function,
    that call. The one-sweep BFS runs the components loop (F=1 labels,
    zero cost, gated bits) and one F=4 distance sweep. A relax launch
-   (``bfs_relax``, ``flood``) runs a whole loop and must equal the plain
-   loop bit for bit: the distance BFS at the path's three shapes (F=4 at
-   the generate's cap of 119 sweeps, which must bind; the climate's F=5
-   coast fields at cap 70; F=1 at cap 28), the ε-fill at 1, 4 and 8 inner
-   sweeps per barrier round; the lines report sweeps (ε-fill: rounds),
-   device µs per launch and per sweep, and the bound per sweep and per
-   launch;
+   (``bfs_relax``, ``stress``, ``flood``, ``smooth``) runs a whole loop
+   and must equal the plain loop bit for bit: the distance BFS at the
+   path's three shapes (F=4 at the generate's cap of 119 sweeps, which
+   must bind; the climate's F=5 coast fields at cap 70; F=1 at cap 28);
+   stress at the path's two layers and cap of 68 sweeps, where the cap
+   must bind, and at a decay that reaches its fixpoint before it (BFS and
+   stress also in their sweep count); the ε-fill at 1, 4 and 8 inner
+   sweeps per barrier round; smoothing at every (fields, gate, update
+   mask, passes) shape of the climate stack. The lines report sweeps
+   (ε-fill: rounds; smoothing: passes), device µs per launch and per
+   sweep, and the bound per sweep and per launch. ``banded_sum`` on the
+   card must equal the same call on CPU tensors bit for bit;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the relax
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +66,10 @@ REPLACES = {"bfs": f"{TPU_KERNELS}:171", "bfs_relax": f"{TPU_KERNELS}:171",
             "flood": f"{TPU_KERNELS}:230",
             "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480",
             "smooth": f"{TPU_KERNELS}:564", "shadow": f"{TPU_KERNELS}:619"}
+# smoothing calls of the default generate's climate stack, one launch each:
+# wind 2, ocean currents 2, precipitation 6 (west coast included),
+# temperature 2
+SMOOTH_CALLS = 12
 # c4k_s123 (tests/test_reference_parity.py:45-55)
 SNAPSHOT_C4K = dict(
     land_fraction=0.31042,
@@ -127,7 +137,7 @@ def bound_ms(nbytes: float, nops: float):
 
 # ── phase 2: kernels against their plain versions ────────────────────
 
-def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
+def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
     """One record per kernel: loop bit-identity, launches the loop took,
     per-launch times and bound at each of the path's shapes."""
     from planet_heightmap_generation_torch.ops import banded, sweep_cuda
@@ -270,8 +280,8 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
         ref = plain_loop(lambda: sweep_cuda.bfs_relax_plain(
             c, k, bits, g.band_off, ptr, nbr, cap))
         return dict(label=label, run=run, ref=ref,
-                    cost=relax_bytes_ops(c.shape[0]),
-                    want=cap if must_bind else None)
+                    cost=relax_bytes_ops(c.shape[0]), cap=cap,
+                    binds=True if must_bind else None)
 
     records["bfs_relax"] = relax_record("bfs_relax", [
         bfs_config(f"F=4 cap {hops}", cur, cost_t, hops, True),
@@ -280,24 +290,48 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
         bfs_config(f"F=1 cap {min(hops, 28)}", cur1, cost1, min(hops, 28),
                    False)])
 
-    # 3. stress over one same-plate gate of the noise-blob plates
-    rgate = banded.rem_gate_eq(plate, g.rem_src, g.rem_dst)
-    st0 = torch.as_tensor(np.where(rng.random(npad) < 0.01, rng.random(npad),
-                                   0.0).astype(np.float32), device=dev)
-    sf0 = torch.as_tensor(rng.random(npad).astype(np.float32), device=dev)
-    ocean = torch.as_tensor(rng.random(npad) < 0.3, device=dev)
+    # 3. stress: the default generate's joint loop of two layers (the
+    # noise-blob plates, and super plates that join them in pairs; whole
+    # plates ocean at random, as on the path) at its cap of 68 sweeps,
+    # with start stress up to 2 so that the cap binds; and at a fast decay
+    # that reaches its fixpoint before the cap
+    rng3 = np.random.default_rng(SEED + 2)
     base_decay = 0.5 + 5.0 * 0.04
     decay = base_decay ** (1 / sf_res)
     sub_decay = (base_decay * 0.45) ** (1 / sf_res)
     passes = max(1, round(5.0 * 3 * sf_res))
-    state = torch.stack([st0, sf0, (st0 > 0.01).float(),
-                         ocean.float()]).contiguous()
-    gbits = banded.pack_band_bits(gate & g.band_mask)
-    record("stress", lambda: banded.propagate_stress_banded(
-        st0[:, None], sf0[:, None], (gate,), rgate[:, None], ocean[:, None],
-        *g.bands, decay, sub_decay, passes),
-        [("[4, NP] state", (state, gbits, g.band_off, decay, sub_decay),
-          9 * npad * 4, 4 * popcount(gbits) + 4 * npad)])
+    layers = (plate - plate.min(), torch.div(plate - plate.min(), 2,
+                                             rounding_mode="floor"))
+    ocean2 = torch.stack([torch.as_tensor(
+        rng3.random(int(p.max()) + 1) < 0.3, device=dev)[p.long()]
+        for p in layers], 1)
+    st2 = torch.as_tensor(np.where(
+        rng3.random((npad, 2)) < 0.01, rng3.random((npad, 2)) * 2.0,
+        0.0).astype(np.float32), device=dev)
+    sf2 = torch.as_tensor(rng3.random((npad, 2)).astype(np.float32),
+                          device=dev)
+    sgates = [banded.band_gate(p, g.band_off, g.band_mask) for p in layers]
+    srgates = torch.stack([banded.rem_gate_eq(p, g.rem_src, g.rem_dst)
+                           for p in layers], 1)
+    sins = banded.stress_planes(st2, sf2, sgates, srgates, ocean2,
+                                *g.bands[1:])
+    layer_edges = sum(popcount(b) for b in sins[2])
+    stress_cost = ((8 * 2) * npad * 4 + csr_bytes + 2 * m,
+                   4 * (layer_edges + 2 * m) + 2 * 4 * npad)
+
+    def stress_config(label, dk, sdk, binds):
+        def run():
+            return sweep_cuda.stress_relax(*sins[:3], g.band_off, *sins[3:],
+                                           dk, sdk, passes)
+        return dict(label=label, run=run, cost=stress_cost, cap=passes,
+                    binds=binds, ref=plain_loop(
+                        lambda: sweep_cuda.stress_relax_plain(
+                            *sins[:3], g.band_off, *sins[3:], dk, sdk,
+                            passes)))
+
+    records["stress"] = relax_record("stress", [
+        stress_config(f"G=2 cap {passes}", decay, sub_decay, True),
+        stress_config(f"G=2 cap {passes}, decay 0.6", 0.6, 0.5, False)])
 
     # 4. warp candidate propagation toward the default-slider targets
     w = warp.warp_targets(pos, tables(SEED + 9999.0, dev),
@@ -326,26 +360,64 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
         return lambda: sweep_cuda._flood_relax(*fill_in, k)
 
     records["flood"] = relax_record("flood", [
-        dict(label=f"k={k}", run=fill(k), ref=fill_ref, cost=fill_cost,
-             want=None) for k in (1, 4, 8)],
+        dict(label=f"k={k}", run=fill(k), ref=fill_ref, cost=fill_cost)
+        for k in (1, 4, 8)],
         primary=(1, 4, 8).index(sweep_cuda.FLOOD_INNER))
 
-    # 6. smoothing: the F=2 plain passes (convergence, 9 passes) and the
-    # F=4 masked passes (ocean currents, 3 passes) of the default generate
-    f2 = torch.as_tensor(rng.standard_normal((npad, 2)).astype(np.float32),
-                         device=dev)
-    f4 = torch.as_tensor(rng.standard_normal((npad, 4)).astype(np.float32),
-                         device=dev)
-    ocean_m = torch.as_tensor(rng.random(npad) < 0.7, device=dev) & g.valid
+    # 6. smoothing: one launch per call at every (fields, gate, update
+    # mask, passes) shape of the default generate's climate stack (pass
+    # counts from the climate modules' formulas at 204K cells): ocean
+    # warmth (F=2, frozen interiors pass through), ocean currents and
+    # their warmth (F=4 and F=2, masked), the west-coast signal (F=1,
+    # masked), plain F=2 passes (temperature: 1; convergence) and F=1
+    # (elevation). The row's numbers are those of the 1-pass launch, the
+    # shape one torch.sparse.mm call also computes.
+    avg_edge_km = math.pi * 6371 / math.sqrt(g.n_cells)
     deg = banded.banded_count(g.band_mask, g.rem_src, dtype=torch.float32)
-    c = (deg + 1).contiguous()
-    planes2 = f2.T.contiguous()
-    record("smooth", lambda: (
-        banded.smooth_field_banded(f2, *g.bands, 9),
-        banded.smooth_masked_banded(f4, ocean_m, *g.bands, 3)),
-        [("F=2", (planes2, c, bits, g.band_off, ptr, nbr),
-          (2 * 2 + 2) * npad * 4 + csr_bytes, 2 * (edges + m + 2 * npad))],
-        library=smooth_library(g, c, f2))
+    c_all = (deg + 1).contiguous()
+    ocean_m = (torch.as_tensor(rng.random(npad) < 0.7, device=dev)
+               & g.valid).float().contiguous()
+    land_m = ((1 - ocean_m) * g.valid).contiguous()
+    thaw = torch.as_tensor(rng.random(npad) < 0.9, device=dev).float()
+
+    def masked_c(mf):
+        return (1 + banded.banded_sum(mf, *g.bands)).contiguous()
+
+    def smooth_config(label, f, passes, c, gate=None, upd=None):
+        x = torch.as_tensor(rng.standard_normal((f, npad)).astype(np.float32),
+                            device=dev)
+        args = (x, c, bits, g.band_off, ptr, nbr, passes, gate, upd)
+        planes = (2 * f + 2 + (gate is not None) + (upd is not None))
+        ref = plain_loop(lambda: (sweep_cuda.smooth_relax_plain(*args),
+                                  passes))
+        return dict(label=label, ref=ref, field=x,
+                    run=lambda: (sweep_cuda.smooth_relax(*args), passes),
+                    cost=(planes * npad * 4 + csr_bytes,
+                          f * (edges + m + 2 * npad)))
+
+    smooth_cfgs = [
+        smooth_config("F=2, 1 pass", 2, 1, c_all),
+        smooth_config(f"F=2 upd, {max(4, round(1400 / avg_edge_km))} passes",
+                      2, max(4, round(1400 / avg_edge_km)), c_all, upd=thaw),
+        smooth_config(f"F=4 masked, {max(2, round(125 / avg_edge_km))} passes",
+                      4, max(2, round(125 / avg_edge_km)), masked_c(ocean_m),
+                      ocean_m, ocean_m),
+        smooth_config(f"F=2 masked, {max(3, round(900 / avg_edge_km))} passes",
+                      2, max(3, round(900 / avg_edge_km)), masked_c(ocean_m),
+                      ocean_m, ocean_m),
+        smooth_config(f"F=1 masked, {max(2, round(300 / avg_edge_km))} passes",
+                      1, max(2, round(300 / avg_edge_km)), masked_c(land_m),
+                      land_m, land_m),
+        smooth_config(f"F=2, {max(3, round(400 / avg_edge_km))} passes", 2,
+                      max(3, round(400 / avg_edge_km)), c_all),
+        smooth_config(f"F=1, {max(2, round(200 / avg_edge_km))} passes", 1,
+                      max(2, round(200 / avg_edge_km)), c_all)]
+    records["smooth"] = relax_record("smooth", smooth_cfgs)
+    f2 = smooth_cfgs[0]["field"].T.contiguous()
+    lib_ms = time_ms(smooth_library(g, c_all, f2), 200)
+    records["smooth"]["library_ms"] = lib_ms
+    print(f"kernel smooth library call (one pass, F=2) {lib_ms * 1e3:.2f} us",
+          flush=True)
 
     # 7. rain shadow: 56 hops (34 windward) of the default generate's
     # [4, NP] state over winds and slopes made from numpy seeds
@@ -374,7 +446,72 @@ def kernel_checks(g, dev, reps: int = 200, plain_reps: int = 10):
                             rs, rw),
           (4 + 9 + 1 + 1 + 4) * npad * 4 + csr_bytes,
           40 * land_edges + 8 * npad)])
+
+    # 8. the drivers of the stress and smoothing launches, and banded_sum,
+    # issue no host sync (the relax launches themselves are checked above)
+    no_host_sync("propagate_stress_banded",
+                 lambda: banded.propagate_stress_banded(
+                     st2, sf2, sgates, srgates, ocean2, *g.bands, decay,
+                     sub_decay, passes))
+    no_host_sync("smooth_masked_banded", lambda: banded.smooth_masked_banded(
+        smooth_cfgs[2]["field"].T, ocean_m > 0, *g.bands, 3))
+    no_host_sync("banded_sum", lambda: banded.banded_sum(
+        smooth_cfgs[2]["field"].T, *g.bands))
+    print("host syncs: none in propagate_stress_banded, "
+          "smooth_masked_banded, banded_sum or any relax launch", flush=True)
+
+    # 9. banded_sum's remainder rows: the same bits on the card as on CPU
+    # tensors, on the climate's coast-seed stack (wind.coast_bfs_seeds:
+    # main ocean, plate ocean, land, land·xyz) and on five standard-normal
+    # fields
+    main_ocean = flood.open_ocean_mask((elev <= 0) & g.valid, g.valid,
+                                       *g.bands)
+    land_f = ((elev > 0) & g.valid).float()
+    banded_sum_check(g, g_cpu, [
+        ("coast-seed stack", torch.cat([
+            main_ocean.float()[:, None],
+            plate_is_ocean[plate_ix].float()[:, None], land_f[:, None],
+            land_f[:, None] * g.pos], 1)),
+        ("5 normal fields", torch.as_tensor(
+            rng.standard_normal((npad, 5)).astype(np.float32), device=dev))])
     return records
+
+
+def banded_sum_check(g, g_cpu, stacks):
+    """Fail unless ``banded_sum`` on the card gives the bits of the same
+    call on CPU tensors, twice. The atomic scatter-add it replaced is run
+    beside it for the record: the cells where it differs from the CPU."""
+    from planet_heightmap_generation_torch.ops import banded
+
+    none = torch.zeros(0, dtype=torch.int64, device=g.rem_src.device)
+    for label, x in stacks:
+        on_card = banded.banded_sum(x, *g.bands)
+        again = banded.banded_sum(x, *g.bands)
+        on_cpu = banded.banded_sum(x.cpu(), *g_cpu.bands)
+        if not (torch.equal(on_card.cpu(), on_cpu)
+                and torch.equal(on_card, again)):
+            raise AssertionError(f"banded_sum ({label}): the card's sum "
+                                 "differs from the CPU's")
+        band = banded.banded_sum(x, g.band_off, g.band_mask, none, none)
+        scatter = band.scatter_reduce(
+            0, g.rem_src[:, None].expand(-1, x.shape[1]), x[g.rem_dst], "sum")
+        off = int((scatter.cpu() != on_cpu).any(1).sum())
+        print(f"banded_sum [{label}, {tuple(x.shape)}]: bit-identical to the "
+              f"CPU, twice; the atomic scatter-add it replaced differs from "
+              f"the CPU in {off} cells", flush=True)
+
+
+def no_host_sync(label: str, fn):
+    """``fn()``, failing if it makes the host wait for the device (CUDA
+    sync debug mode: a synchronizing torch call inside raises)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{label}: host sync: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def plain_loop(plain):
@@ -391,25 +528,29 @@ def plain_loop(plain):
 def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
     """Check and time a relax kernel. Each config's ``run()`` is one relax
     launch of the whole loop and must equal its plain loop (``ref``, from
-    :func:`plain_loop`) bit for bit, BFS also in its sweep count; where
-    ``want`` is set, the plain loop must have run that many sweeps (the
-    cap binds). ``cost`` is one sweep's (bytes, operations): the per-sweep
-    bound counts them once, the per-launch bound counts each byte once and
-    the operations of every sweep the plain loop needed. The row's numbers
-    are those of ``configs[primary]``."""
+    :func:`plain_loop`) bit for bit, BFS and stress also in their sweep
+    count; ``binds`` True says the plain loop must have run ``cap`` sweeps
+    (the cap binds), False fewer (a fixpoint before the cap). ``cost`` is
+    one sweep's (bytes, operations): the per-sweep bound counts them once,
+    the per-launch bound counts each byte once and the operations of every
+    sweep the plain loop needed. The row's numbers are those of
+    ``configs[primary]``."""
     from planet_heightmap_generation_torch.ops import sweep_cuda
 
-    unit = "sweeps" if name == "bfs_relax" else "rounds"
+    unit, one = {"flood": ("rounds", "round"),
+                 "smooth": ("passes", "pass")}.get(name, ("sweeps", "sweep"))
     out = []
     for cfg in configs:
         ref, ref_sweeps, plain_ms = cfg["ref"]
-        if cfg["want"] is not None and ref_sweeps != cfg["want"]:
-            raise AssertionError(f"{name} ({cfg['label']}): the plain loop "
-                                 f"ran {ref_sweeps} sweeps, not the cap "
-                                 f"{cfg['want']}")
+        binds = cfg.get("binds")
+        if binds is not None and (ref_sweeps == cfg["cap"]) != binds:
+            raise AssertionError(
+                f"{name} ({cfg['label']}): the plain loop ran {ref_sweeps} "
+                f"sweeps at cap {cfg['cap']}; the config needs the cap "
+                f"{'to bind' if binds else 'not to bind'}")
         run = cfg["run"]
         sweep_cuda.reset_launches()
-        state, swept = run()
+        state, swept = no_host_sync(f"{name} ({cfg['label']})", run)
         torch.cuda.synchronize()
         launches, swept = sweep_cuda.LAUNCHES[name], int(swept)
         err = max_abs_err(state, ref)
@@ -417,7 +558,7 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
             raise AssertionError(f"{name} ({cfg['label']}): relax launch "
                                  f"differs from the plain loop (max abs err "
                                  f"{err})")
-        if name == "bfs_relax" and swept != ref_sweeps:
+        if name in ("bfs_relax", "stress") and swept != ref_sweeps:
             raise AssertionError(f"{name} ({cfg['label']}): relax launch ran "
                                  f"{swept} sweeps, the plain loop "
                                  f"{ref_sweeps}")
@@ -435,11 +576,11 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
             bound_ms_per_sweep=s_ms, bound_by_per_sweep=s_by))
         dev_txt = ("not measured" if dev_ms is None else
                    f"{dev_ms * 1e3:.2f} us ({dev_ms * 1e3 / swept:.3f} us "
-                   f"per {unit[:-1]})")
+                   f"per {one})")
         print(f"kernel {name} [{cfg['label']}]: bit-identical to the plain "
-              f"loop ({ref_sweeps} sweeps, {plain_ms:.1f} ms) in {launches} "
+              f"loop ({ref_sweeps} {unit}, {plain_ms:.1f} ms) in {launches} "
               f"launch of {swept} {unit}; {ms * 1e3:9.2f} us/launch (device "
-              f"{dev_txt}); bound {s_ms * 1e3:.2f} us per sweep ({s_by}), "
+              f"{dev_txt}); bound {s_ms * 1e3:.2f} us per {one} ({s_by}), "
               f"{b_ms * 1e3:.2f} us per launch ({b_by})", flush=True)
     row = dict(out[primary])
     row.update(library_ms=None, configs=out,
@@ -478,7 +619,8 @@ def device_events(fn):
 
 # the device function of each kernel, as a trace names it
 KERNEL_FNS = {k: f"{k}_sweep_kernel" for k in REPLACES}
-KERNEL_FNS.update(bfs_relax="bfs_relax_kernel", flood="flood_relax_kernel")
+KERNEL_FNS.update(bfs_relax="bfs_relax_kernel", flood="flood_relax_kernel",
+                  stress="stress_relax_kernel", smooth="smooth_relax_kernel")
 
 
 def mean_device_ms(events, fn: str):
@@ -622,16 +764,22 @@ def main() -> int:
     report = sweep_cuda.build()
     sweep_cuda._kernel("bfs_sweep")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    kernel = "?"
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        named = re.search(r"Function properties for \S*?\d+([a-z_]+_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+        if named:
+            kernel = named.group(1) + (f"<{named.group(2)}>"
+                                       if named.group(2) else "")
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas [{kernel}]:", line.strip())
 
     # 2. kernels against their plain versions on the 204K mesh
     graph = build_sphere(N_CELLS, 0.75, rng=ParkMiller(SEED))
     g = to_device(graph, dev)
     print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
-    records = kernel_checks(g, dev)
+    records = kernel_checks(g, to_device(graph, "cpu"), dev)
 
     # 3. the main path: the default generate (204K, climate on), cold
     # then warm; then one warm terrain-only run
@@ -654,8 +802,10 @@ def main() -> int:
     assert not missing, f"kernels not launched on the main path: {missing}"
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f" | relax sweeps bfs_relax={swept['bfs_relax']} "
-          f"flood={swept['flood']} (rounds)")
+          f"stress={swept['stress']} flood={swept['flood']} (rounds)")
     assert launches["bfs"] + launches["bfs_relax"] <= 40, launches
+    assert launches["stress"] == 1, launches
+    assert launches["smooth"] == SMOOTH_CALLS, launches
     prof = profile_generate(dev, params)
     report_profile(prof, warm_s)
 

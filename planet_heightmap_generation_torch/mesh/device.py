@@ -7,6 +7,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.banded import rem_walk
 from .build import SphereGraph
 
 
@@ -113,15 +114,19 @@ def to_device(graph: SphereGraph, device="cuda") -> DeviceGraph:
     rem_src = np.asarray(rem_src, np.int64)
     rem_dst = np.asarray(rem_dst, np.int64)
     keep = rem_src < npd
-    return DeviceGraph(
+    rem_src, rem_dst = rem_src[keep], rem_dst[keep]
+    g = DeviceGraph(
         pos=torch.as_tensor(np.asarray(graph.pos, np.float32), device=device),
         nbr_idx=idx,
         nbr_mask=nbr_mask,
         valid=torch.as_tensor(graph.valid, device=device),
         band_mask=band_mask,
         band_bits=bits32,
-        rem_src=torch.as_tensor(rem_src[keep], device=device),
-        rem_dst=torch.as_tensor(rem_dst[keep], device=device),
+        rem_src=torch.as_tensor(rem_src, device=device),
+        rem_dst=torch.as_tensor(rem_dst, device=device),
         n_cells=int(graph.n_cells),
         band_off=tuple(int(o) for o in band_off),
     )
+    # banded_sum's remainder rows, built from the host copy (no sync)
+    rem_walk(g.rem_src, g.rem_dst, host=(rem_src, rem_dst))
+    return g

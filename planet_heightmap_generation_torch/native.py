@@ -26,18 +26,29 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 _SO = os.path.join(_BUILD_DIR, "coarse_fill.so")
 
 
-def _compile() -> bool:
+def _build(src: str, so: str, timeout: int) -> bool:
+    """Compile ``src`` into ``so``. The library is written under a name of
+    this process's own and renamed into place, so a process that loads it
+    while another compiles never reads a half-written file (processes that
+    start together, such as test workers, all compile on a fresh
+    checkout)."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
     for cc in ("g++", "c++", "clang++"):
         try:
             subprocess.run(
                 [cc, "-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
-                 "-o", _SO, _SRC],
-                check=True, capture_output=True, timeout=120)
+                 "-o", tmp, src],
+                check=True, capture_output=True, timeout=timeout)
+            os.replace(tmp, so)
             return True
         except (subprocess.SubprocessError, FileNotFoundError):
             continue
     return False
+
+
+def _compile() -> bool:
+    return _build(_SRC, _SO, 120)
 
 
 def get_coarse_fill():
@@ -88,17 +99,7 @@ _MESH_TRIED = False
 
 
 def _compile_mesh() -> bool:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    for cc in ("g++", "c++", "clang++"):
-        try:
-            subprocess.run(
-                [cc, "-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
-                 "-o", _MESH_SO, _MESH_SRC],
-                check=True, capture_output=True, timeout=180)
-            return True
-        except (subprocess.SubprocessError, FileNotFoundError):
-            continue
-    return False
+    return _build(_MESH_SRC, _MESH_SO, 180)
 
 
 def get_mesh_build():

@@ -13,20 +13,26 @@ mode) — normally splatted from ``g.bands``.
 
 The fixpoint loops follow the JAX jnp loops' semantics: iteration caps
 bound the number of sweeps, and a loop ends at the first sweep that changes
-nothing. The distance BFS runs its whole loop in one relax launch of the
-BFS kernel (ops/sweep_cuda.py, plain torch on CPU tensors), with no host
-sync. Stress propagation, the carry BFS, components and flood_assign run
-one synchronous sweep per step under :func:`relax`, which reads the change
-flag every ``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a
-fixpoint are no-ops and no loop runs past its cap.
+nothing. The distance BFS and the stress propagation run their whole loop
+in one relax launch of their kernel (ops/sweep_cuda.py, plain torch on CPU
+tensors), with no host sync. The carry BFS, components and flood_assign
+(and the terrain warp, erosion/warp.py) run one synchronous sweep per step
+under :func:`relax`, which reads the change flag every ``CHECK_EVERY``
+sweeps (a host sync); the extra sweeps past a fixpoint are no-ops and no
+loop runs past its cap.
 
-The climate's Laplacian smoothing runs a fixed number of passes through
-the smoothing kernel; it sums, so it takes the remainder edges as CSR
-rows in edge order (:func:`rem_csr`) instead of a scatter.
+The climate's Laplacian smoothing runs all the passes of a call in one
+launch of the smoothing kernel; it sums, so it takes the remainder edges
+as CSR rows in edge order (:func:`rem_csr`) instead of a scatter, and so
+does :func:`banded_sum` (:func:`rem_walk`): every neighbour sum keeps the
+jnp scatter-add's order and gives the same bits on every run.
 """
 
 from __future__ import annotations
 
+import weakref
+
+import numpy as np
 import torch
 
 from . import sweep_cuda
@@ -128,12 +134,61 @@ def banded_max(field, band_off, band_mask, rem_src, rem_dst, fill=-INF,
 
 
 def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
-    """Sum over neighbours (bands in order, then the remainder edges)."""
+    """Sum over neighbours: the bands in order, then each cell's remainder
+    edges in edge order (the order of the jnp scatter-add
+    ``.at[rem_src].add``), walked as rows (:func:`rem_walk`) with no
+    atomics, so a CUDA tensor gives the CPU's bits on every run."""
     out = torch.zeros_like(field)
     for d, off in enumerate(band_off):
         m = band_mask[:, d] if gate is None else gate[:, d]
         out = out + torch.where(_expand(m, field), band_shift(field, off), 0)
-    return _scatter(out, rem_src, field[rem_dst], "sum")
+    cells, nbrs = rem_walk(rem_src, rem_dst)
+    if not nbrs:
+        return out
+    acc = out[cells]
+    for nbr in nbrs:
+        acc[:nbr.shape[0]] += field[nbr]
+    return out.index_put((cells,), acc)
+
+
+# The remainder walk of each (rem_src, rem_dst) pair in use, keyed by the
+# tensors' identity; weak references check that a key still names them
+# and drop the entry with them.
+_REM_WALKS: dict = {}
+
+
+def rem_walk(rem_src, rem_dst, host=None):
+    """The remainder edges as rows of their receiving cell, in edge order:
+    (cells, nbrs). ``cells`` [U] int64 are the cells with remainder edges,
+    longest row first; ``nbrs[k]`` [U_k] int64 holds the k-th neighbour of
+    the first U_k of them (those with more than k edges). Built once per
+    pair of tensors, from ``host`` = (rem_src, rem_dst) numpy arrays where
+    the caller has them (mesh/device.py does), else from a copy to the host
+    (one sync)."""
+    key = (id(rem_src), id(rem_dst))
+    hit = _REM_WALKS.get(key)
+    if hit is not None and hit[0]() is rem_src and hit[1]() is rem_dst:
+        return hit[2]
+    src, dst = ((rem_src.cpu().numpy(), rem_dst.cpu().numpy()) if host is None
+                else (np.asarray(host[0]), np.asarray(host[1])))
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    cells, first, count = np.unique(src, return_index=True,
+                                    return_counts=True)
+    rows = np.argsort(-count, kind="stable")
+    nbrs = tuple(
+        torch.as_tensor(dst[first[rows[:int((count > k).sum())]] + k],
+                        dtype=torch.int64, device=rem_src.device)
+        for k in range(int(count.max()) if count.size else 0))
+    walk = (torch.as_tensor(cells[rows], dtype=torch.int64,
+                            device=rem_src.device), nbrs)
+
+    def drop(_):
+        _REM_WALKS.pop(key, None)
+
+    _REM_WALKS[key] = (weakref.ref(rem_src, drop), weakref.ref(rem_dst, drop),
+                       walk)
+    return walk
 
 
 def banded_count(band_mask, rem_src, gate=None, dtype=torch.int32):
@@ -225,46 +280,38 @@ def propagate_stress_banded(stress, subduct, gate_stack, rem_gate,
                             ocean_cell, band_off, band_mask, rem_src,
                             rem_dst, decay, subduct_decay, num_passes):
     """G stress layers ([N,G] stress / subduct / ocean_cell, G [N,D] gates,
-    [M,G] remainder gates), each relaxed to its fixpoint or
-    ``num_passes`` sweeps. Per sweep each cell adopts the strongest
-    propagated stress among gated (same-plate) neighbours, the subduct
-    factor riding along — one iteration of ``_propagate_stress_jnp``:
-    the kernel takes the band argmax (strict ``>`` in band order) and
-    adopts it, then the remainder edges' two-phase scatter-argmax, read
-    from the pre-sweep state, is adopted on strict improvement."""
-    decay, subduct_decay = float(decay), float(subduct_decay)
-    sts, sfs = [], []
-    for g in range(stress.shape[1]):
-        st0 = stress[:, g].to(torch.float32)
-        state = torch.stack([st0, subduct[:, g].to(torch.float32),
-                             (st0 > 0.01).to(torch.float32),
-                             ocean_cell[:, g].to(torch.float32)]).contiguous()
-        bits = pack_band_bits(gate_stack[g] & band_mask)
-        rg = rem_gate[:, g]
+    [M,G] remainder gates) relaxed together until no layer changes or
+    ``num_passes`` sweeps ran — the loop of ``_propagate_stress_jnp``. Per
+    sweep each cell adopts the strongest propagated stress among gated
+    (same-plate) neighbours, the subduct factor riding along: the band
+    argmax (strict ``>`` in band order), then the remainder edges' max
+    (ties to the largest subduct factor) on strict improvement. The whole
+    loop is one relax launch (ops/sweep_cuda.py ``stress_relax``), the
+    remainder edges walked as CSR rows inside it, with no host sync.
+    Returns (stress, subduct) [N,G] f32."""
+    state, ocean, bits, ptr, nbr, rgate = stress_planes(
+        stress, subduct, gate_stack, rem_gate, ocean_cell, band_mask,
+        rem_src, rem_dst)
+    state, _ = sweep_cuda.stress_relax(
+        state, ocean, bits, band_off, ptr, nbr, rgate, float(decay),
+        float(subduct_decay), int(num_passes))
+    return state[:, 0].T, state[:, 1].T
 
-        def step(state, flag, bits=bits, rg=rg):
-            new = sweep_cuda.stress_sweep(state, bits, band_off, decay,
-                                          subduct_decay, flag)
-            st_s, sf_s = state[0, rem_dst], state[1, rem_dst]
-            prop = st_s * torch.where(sf_s > 0.5, subduct_decay, decay)
-            ok = (rg & (state[2, rem_dst] > 0) & (state[3, rem_dst] <= 0)
-                  & (prop >= 0.005))
-            key = torch.where(ok, prop, -INF)
-            w = _scatter(torch.full_like(st0, -INF), rem_src, key, "amax")
-            is_win = ok & (key == w[rem_src])
-            wsf = _scatter(torch.full_like(st0, -INF), rem_src,
-                           torch.where(is_win, sf_s, -INF), "amax")
-            upd = w > new[0]
-            if flag is not None:
-                flag |= upd.any().to(torch.int32)
-            return torch.stack([torch.where(upd, w, new[0]),
-                                torch.where(upd, wsf, new[1]),
-                                torch.where(upd, 1.0, new[2]), new[3]])
 
-        state, _ = relax(step, state, cap=int(num_passes))
-        sts.append(state[0])
-        sfs.append(state[1])
-    return torch.stack(sts, 1), torch.stack(sfs, 1)
+def stress_planes(stress, subduct, gate_stack, rem_gate, ocean_cell,
+                  band_mask, rem_src, rem_dst):
+    """The inputs of ``sweep_cuda.stress_relax`` for the layers of
+    :func:`propagate_stress_banded`: (state [G,3,NP] = st, sf, act = st >
+    0.01; ocean [G,NP] f32; bits [G,NP] of gate & band_mask; rem_ptr,
+    rem_nbr; remainder gates [G,M] uint8 in CSR order)."""
+    st0 = stress.T.to(torch.float32)
+    state = torch.stack([st0, subduct.T.to(torch.float32),
+                         (st0 > 0.01).to(torch.float32)], 1).contiguous()
+    bits = torch.stack([pack_band_bits(gs & band_mask)
+                        for gs in gate_stack]).contiguous()
+    ptr, nbr, order = rem_csr_order(rem_src, rem_dst, band_mask.shape[0])
+    return (state, ocean_cell.T.to(torch.float32).contiguous(), bits, ptr,
+            nbr, rem_gate.T[:, order].to(torch.uint8).contiguous())
 
 
 # ── carry BFS (plain torch; it has no kernel) ────────────────────────
@@ -436,18 +483,26 @@ def rem_csr(rem_src, rem_dst, npad: int):
     reproduces the order in which the jnp scatter-add ``.at[rem_src].add``
     accumulates, with no atomics. Row starts come from a sorted search, so
     building the CSR issues no host sync."""
+    return rem_csr_order(rem_src, rem_dst, npad)[:2]
+
+
+def rem_csr_order(rem_src, rem_dst, npad: int):
+    """:func:`rem_csr` and the stable sort's ``order`` [M] int64: edge
+    ``order[k]`` of the remainder list is CSR entry k, so a per-edge array
+    ``a`` lines up with ``rem_nbr`` as ``a[order]``."""
     key, order = torch.sort(rem_src, stable=True)
     ptr = torch.searchsorted(key, torch.arange(
         npad + 1, dtype=key.dtype, device=rem_src.device))
     return (ptr.to(torch.int32).contiguous(),
-            rem_dst[order].to(torch.int32).contiguous())
+            rem_dst[order].to(torch.int32).contiguous(), order)
 
 
 def smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
                   passes: int, gate=None, upd=None):
-    """``passes`` smoothing passes through the smoothing kernel of
-    ops/sweep_cuda.py over a [N] or [N,F] field (see ``smooth_sweep`` for
-    ``c``, ``gate`` and ``upd``). Returns f32 of the field's shape."""
+    """``passes`` smoothing passes, all in one launch of the smoothing
+    kernel of ops/sweep_cuda.py (``smooth_relax``), over a [N] or [N,F]
+    field (see ``smooth_relax`` for ``c``, ``gate`` and ``upd``). Returns
+    f32 of the field's shape."""
     one_d = field.dim() == 1
     planes = (field[None] if one_d else field.T).to(torch.float32)
     planes = planes.contiguous()
@@ -456,9 +511,8 @@ def smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
     c = c.to(torch.float32).contiguous()
     gate = None if gate is None else gate.to(torch.float32).contiguous()
     upd = None if upd is None else upd.to(torch.float32).contiguous()
-    for _ in range(passes):
-        planes = sweep_cuda.smooth_sweep(planes, c, bits, band_off, ptr, nbr,
-                                         gate, upd)
+    planes = sweep_cuda.smooth_relax(planes, c, bits, band_off, ptr, nbr,
+                                     passes, gate, upd)
     return planes[0] if one_d else planes.T
 
 

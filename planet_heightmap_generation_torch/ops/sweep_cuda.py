@@ -8,17 +8,19 @@ Six kernels (csrc/sweeps.cu):
 ``stress`` gated argmax stress propagation with an sf payload
 ``warp``   nearest-candidate propagation of the terrain domain warp
 ``flood``  priority-flood ε-fill surface relaxation
-``smooth`` one Laplacian smoothing pass (plain, masked, frozen cells)
+``smooth`` Laplacian smoothing passes (plain, masked, frozen cells)
 ``shadow`` one rain-shadow hop (wind-aligned weighted min / max)
 =========  ==========================================================
 
-``bfs`` and ``flood`` have a relax entry (``bfs_relax``, ``flood_relax``):
-ONE cooperative launch runs the whole fixpoint loop on the device (grid
-barrier between sweeps, change flag and sweep count in device memory) and
-returns ``(state, sweeps)`` with ``sweeps`` an int32 [1] device tensor;
-nothing is read back to the host. The others, and ``bfs`` for the
-components loop, have a one-sweep entry (``<name>_sweep``); the ε-fill's
-one sweep exists only as its plain version, the relax loop's oracle.
+Four run their whole loop in ONE cooperative launch (grid barrier between
+sweeps, sweep count in device memory), nothing read back to the host:
+``bfs_relax``, ``flood_relax`` and ``stress_relax`` to their fixpoint or
+cap (device-side change flag) and return ``(state, sweeps)`` with
+``sweeps`` an int32 [1] device tensor; ``smooth_relax`` runs a fixed
+number of passes and returns the state. Warp, rain shadow and the
+components loop's BFS have a one-sweep entry (``<name>_sweep``). The
+ε-fill's and smoothing's one sweep exist only as plain versions, the
+relax loops' oracles.
 
 Every wrapper takes the state as [F, NP] float32 planes, the band bits as
 one int32 word per cell (bit d = band d present, the packed form of
@@ -30,17 +32,18 @@ fallback between the two.
 The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 ``_build/`` beside this package at first use, and rebuilt when the source
 is newer than the library. ``LAUNCHES`` counts launches per kernel
-(``bfs`` the one-sweep BFS, ``bfs_relax`` and ``flood`` the relax
-launches, one each), and :func:`sweeps_run` the sweeps (ε-fill: rounds)
-that the relax launches ran; the plain versions never count.
+(``bfs`` the one-sweep BFS, ``bfs_relax``, ``stress``, ``flood`` and
+``smooth`` the relax launches, one each), and :func:`sweeps_run` the
+sweeps (ε-fill: rounds) that the fixpoint relax launches ran; the plain
+versions never count.
 
 Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
 receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
-[M], from ops/banded.py ``rem_csr``). The relax, smoothing and rain-shadow
-kernels walk them in-kernel after the bands (a sum keeps the jnp order;
-a min is order-free); their plain versions walk the same rows. The
-one-sweep stress, warp and BFS entries take no CSR: their drivers apply
-the remainder edges as torch scatters after each launch.
+[M], from ops/banded.py ``rem_csr``). The relax and rain-shadow kernels
+walk them in-kernel after the bands (a sum keeps the jnp order; a min is
+order-free; stress keeps the jnp's tie rule); their plain versions walk
+the same rows. The one-sweep warp and BFS entries take no CSR: their
+drivers apply the remainder edges as torch scatters after each launch.
 """
 
 from __future__ import annotations
@@ -75,8 +78,10 @@ _F = ctypes.c_float
 _ARGTYPES = {
     # cur, cost, bits, out, flag, np, nf, offs, n_offs, stream
     "bfs_sweep": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-    # state, bits, out, flag, np, offs, n_offs, decay, sub_decay, stream
-    "stress_sweep": [_P, _P, _P, _P, _I, _P, _I, _F, _F, _P],
+    # state, ocean, bits, rem_ptr, rem_nbr, rem_gate, m, out, tmp, ctl,
+    # total, np, ng, offs, n_offs, decay, sub_decay, cap, stream
+    "stress_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+                     _I, _F, _F, _I, _P],
     # state, w, bits, out, flag, np, offs, n_offs, stream
     "warp_sweep": [_P, _P, _P, _P, _P, _I, _P, _I, _P],
     # cur, cost, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, total, np, nf,
@@ -87,10 +92,10 @@ _ARGTYPES = {
     # total, np, offs, n_offs, big, eps, inner, stream
     "flood_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I,
                     _F, _F, _I, _P],
-    # field, c, gate, upd, bits, rem_ptr, rem_nbr, m, out, np, nf, offs,
-    # n_offs, stream
-    "smooth_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
-                     _P],
+    # field, c, gate, upd, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, np,
+    # nf, offs, n_offs, passes, stream
+    "smooth_relax": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P,
+                     _I, _I, _P],
     # state, aux, land, bits, rem_ptr, rem_nbr, m, out, np, offs, n_offs,
     # retain_s, retain_w, stream
     "shadow_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F,
@@ -98,10 +103,12 @@ _ARGTYPES = {
 }
 
 
-# per CUDA device: int32 [2] running sweep totals of the bfs / flood relax
-# launches, added to by the kernels themselves
+# per CUDA device: int32 [3] running sweep totals of the bfs / flood /
+# stress relax launches, added to by the kernels themselves
 _SWEEP_TOTALS: dict = {}
-_RELAX_SLOT = {"bfs_relax": 0, "flood": 1}
+_RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2}
+# the most fields one smoothing launch carries (csrc kMaxSmoothFields)
+SMOOTH_MAX_FIELDS = 4
 
 
 def reset_launches() -> None:
@@ -125,7 +132,8 @@ def sweeps_run() -> dict:
 def _sweep_total(name: str, device):
     t = _SWEEP_TOTALS.get(device)
     if t is None:
-        t = torch.zeros(2, dtype=torch.int32, device=device)
+        t = torch.zeros(len(_RELAX_SLOT), dtype=torch.int32,
+                        device=device)
         _SWEEP_TOTALS[device] = t
     return t[_RELAX_SLOT[name]:]
 
@@ -186,19 +194,24 @@ def _on_cpu(x) -> bool:
     raise ValueError(f"sweep kernels take cpu or cuda tensors, not {kind}")
 
 
-def _check(bits, flag, *planes):
+def _check(bits, flag, *planes, bit_rows=None):
     """Raise unless a kernel can read its inputs safely: ``bits`` is a
-    contiguous int32 [NP] with NP a multiple of 4, every (tensor, rows) of
-    ``planes`` a contiguous, 16-byte aligned float32 [rows, NP] ([NP] where
-    rows is None) on the same device (the staged kernels load planes as
-    float4 words), and ``flag`` None or an int32 tensor there."""
+    contiguous int32 [NP] ([bit_rows, NP] where given) with NP a multiple
+    of 4, every (tensor, rows) of ``planes`` a contiguous, 16-byte aligned
+    float32 [rows, NP] ([*rows, NP] for a tuple, [NP] where rows is None) on
+    the same device (the staged kernels load planes as float4 words), and
+    ``flag`` None or an int32 tensor there."""
     dev, npad = bits.device, bits.shape[-1]
-    if bits.dtype != torch.int32 or bits.dim() != 1 or not bits.is_contiguous():
-        raise ValueError("band bits must be a contiguous int32 [NP] tensor")
+    want_bits = (npad,) if bit_rows is None else (bit_rows, npad)
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != want_bits
+            or not bits.is_contiguous()):
+        raise ValueError(f"band bits must be a contiguous int32 {want_bits} "
+                         "tensor")
     if npad % 4:
         raise ValueError(f"NP must be a multiple of 4, got {npad}")
     for t, rows in planes:
-        want = (npad,) if rows is None else (rows, npad)
+        want = ((npad,) if rows is None else (*rows, npad)
+                if isinstance(rows, tuple) else (rows, npad))
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != want or not t.is_contiguous()
                 or t.data_ptr() % 16):
@@ -212,10 +225,11 @@ def _check(bits, flag, *planes):
                          "inputs' device")
 
 
-def _check_csr(bits, rem_ptr, rem_nbr):
+def _check_csr(bits, rem_ptr, rem_nbr, gate=None, gate_rows=None):
     """Raise unless the remainder CSR is contiguous int32 on the bits'
     device, ``rem_ptr`` [NP+1] and ``rem_nbr`` 1-D (the kernels clamp
-    row bounds to [0, M] and skip columns outside [0, NP))."""
+    row bounds to [0, M] and skip columns outside [0, NP)), and ``gate``
+    (where given) a contiguous uint8 [gate_rows, M] there."""
     dev, npad = bits.device, bits.shape[-1]
     for t, want in ((rem_ptr, (npad + 1,)), (rem_nbr, None)):
         if (t.device != dev or t.dtype != torch.int32 or t.dim() != 1
@@ -223,6 +237,12 @@ def _check_csr(bits, rem_ptr, rem_nbr):
                 or (want is not None and tuple(t.shape) != want)):
             raise ValueError("remainder CSR must be contiguous int32 "
                              f"rem_ptr [{npad + 1}] and rem_nbr [M] on {dev}")
+    if gate is not None:
+        want = (gate_rows, rem_nbr.shape[0])
+        if (gate.device != dev or gate.dtype != torch.uint8
+                or tuple(gate.shape) != want or not gate.is_contiguous()):
+            raise ValueError(f"remainder gate must be a contiguous uint8 "
+                             f"{want} tensor on {dev}")
 
 
 _OFFS_CACHE: dict = {}
@@ -294,39 +314,74 @@ def bfs_sweep(cur, cost, bits, band_off, flag=None):
 
 # ── 2. stress propagation ────────────────────────────────────────────
 
-def stress_sweep_plain(state, bits, band_off, decay, sub_decay, flag=None):
-    st, sf, act, oc = state
-    best = torch.full_like(st, float("-inf"))
-    bsf = torch.zeros_like(sf)
-    for d, off in enumerate(band_off):
-        nst, nsf = _shift(st, off), _shift(sf, off)
-        prop = nst * torch.where(nsf > 0.5, sub_decay, decay)
-        ok = (_bit(bits, d) & (_shift(act, off) > 0)
-              & (_shift(oc, off) <= 0) & (prop >= 0.005))
-        key = torch.where(ok, prop, float("-inf"))
-        u = key > best
-        best = torch.where(u, key, best)
-        bsf = torch.where(u, nsf, bsf)
-    upd = best > st
-    _or_flag(flag, upd.any())
-    return torch.stack([torch.where(upd, best, st), torch.where(upd, bsf, sf),
-                        torch.where(upd, 1.0, act), oc])
+def stress_relax_plain(state, ocean, bits, band_off, rem_ptr, rem_nbr,
+                       rem_gate, decay: float, sub_decay: float, cap: int):
+    """The joint loop of :func:`stress_relax` in plain torch."""
+    gate = rem_gate.bool()
+    slots = list(_rem_slots(rem_ptr, rem_nbr))
+
+    def step(x):
+        st, sf, act = x[:, 0], x[:, 1], x[:, 2]
+        prop = st * torch.where(sf > 0.5, sub_decay, decay)
+        key = torch.where((act > 0) & (ocean <= 0) & (prop >= 0.005), prop,
+                          float("-inf"))
+        best = torch.full_like(st, float("-inf"))
+        bsf = torch.zeros_like(sf)
+        for d, off in enumerate(band_off):
+            k = torch.where(_bit(bits, d), _shift(key, off), float("-inf"))
+            u = k > best
+            best = torch.where(u, k, best)
+            bsf = torch.where(u, _shift(sf, off), bsf)
+        w = torch.full_like(st, float("-inf"))
+        wsf = torch.full_like(sf, float("-inf"))
+        for has, e, j in slots:
+            ok = has & gate[:, e]
+            kj, sj = key[:, j], sf[:, j]
+            gt = ok & (kj > w)
+            tie = ok & (kj == w) & (sj > wsf)
+            w = torch.where(gt, kj, w)
+            wsf = torch.where(gt | tie, sj, wsf)
+        u = w > best
+        best = torch.where(u, w, best)
+        bsf = torch.where(u, wsf, bsf)
+        upd = best > st
+        return torch.stack([torch.where(upd, best, st),
+                            torch.where(upd, bsf, sf),
+                            torch.where(upd, 1.0, act)], 1)
+
+    return _relax_plain(step, state, int(cap))
 
 
-def stress_sweep(state, bits, band_off, decay: float, sub_decay: float,
-                 flag=None):
-    """One stress sweep over the [4, NP] state (st, sf, act, ocean)."""
+def stress_relax(state, ocean, bits, band_off, rem_ptr, rem_nbr, rem_gate,
+                 decay: float, sub_decay: float, cap: int):
+    """G stress layers relaxed together, one Jacobi sweep of every layer a
+    step, until no layer changed or ``cap`` sweeps ran (<= 0: no cap): the
+    loop of ``_propagate_stress_jnp``. ``state`` [G, 3, NP] holds st, sf
+    and act (0/1) per layer; ``ocean`` [G, NP] is 0/1, ``bits`` [G, NP]
+    the band bits of each layer's gate and ``rem_gate`` [G, M] uint8 the
+    remainder gates in CSR order (aligned with ``rem_nbr``). A cell sends
+    ``st · (sf > 0.5 ? sub_decay : decay)`` where it is active, not ocean
+    and that is >= 0.005. Per sweep a cell takes the first strict maximum
+    over its gated band neighbours (band order), then the largest key over
+    its gated remainder edges, the largest sf among the edges holding it,
+    if that is larger; it adopts the result (sf riding along, act = 1) if
+    it beats st. Returns (state, sweeps)."""
     if _on_cpu(state):
-        return stress_sweep_plain(state, bits, band_off, decay, sub_decay,
-                                  flag)
-    fn = _kernel("stress_sweep")
-    _check(bits, flag, (state, 4))
-    out = torch.empty_like(state)
+        return stress_relax_plain(state, ocean, bits, band_off, rem_ptr,
+                                  rem_nbr, rem_gate, decay, sub_decay, cap)
+    fn = _kernel("stress_relax")
+    g = state.shape[0]
+    _check(bits, None, (state, (g, 3)), (ocean, g), bit_rows=g)
+    _check_csr(bits, rem_ptr, rem_nbr, rem_gate, g)
+    out, tmp = torch.empty_like(state), torch.empty_like(state)
+    ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "stress", _ptr(state), _ptr(bits), _ptr(out),
-            _ptr(flag), state.shape[1], offs, nd, float(decay),
-            float(sub_decay))
-    return out
+    _launch(fn, "stress", _ptr(state), _ptr(ocean), _ptr(bits),
+            _ptr(rem_ptr), _ptr(rem_nbr), _ptr(rem_gate), rem_nbr.shape[0],
+            _ptr(out), _ptr(tmp), _ptr(ctl),
+            _ptr(_sweep_total("stress", state.device)), bits.shape[1], g,
+            offs, nd, float(decay), float(sub_decay), int(cap))
+    return out, ctl[3:]
 
 
 # ── 3. terrain warp ──────────────────────────────────────────────────
@@ -380,12 +435,13 @@ def flood_sweep_plain(surf, inland, elev_baked, bits, band_off, big: float,
     return out
 
 
-# ── remainder rows for the plain summing versions ───────────────────
+# ── remainder rows for the plain versions ───────────────────────────
 
-def _rem_rows(rem_ptr, rem_nbr):
-    """Yield (has, j) per slot k of the CSR rows: ``has`` [NP] bool says
-    whether a cell has a k-th remainder edge, ``j`` [NP] int64 is its
-    neighbour (0 where it has none). Slots come in edge order."""
+def _rem_slots(rem_ptr, rem_nbr):
+    """Yield (has, e, j) per slot of the CSR rows, in edge order: ``has``
+    [NP] bool says whether a cell has an edge in this slot, ``e`` [NP]
+    int64 is that edge's CSR index (clamped into [0, M) where it has
+    none), ``j`` [NP] int64 its neighbour (0 where it has none)."""
     start, end = rem_ptr[:-1].long(), rem_ptr[1:].long()
     m = rem_nbr.shape[0]
     if m == 0:
@@ -394,7 +450,14 @@ def _rem_rows(rem_ptr, rem_nbr):
     for k in range(int((end - start).max())):
         idx = start + k
         has = idx < end
-        yield has, torch.where(has, nbr[idx.clamp(max=m - 1)], 0)
+        e = idx.clamp(max=m - 1)
+        yield has, e, torch.where(has, nbr[e], 0)
+
+
+def _rem_rows(rem_ptr, rem_nbr):
+    """(has, j) of :func:`_rem_slots`."""
+    for has, _, j in _rem_slots(rem_ptr, rem_nbr):
+        yield has, j
 
 
 def rem_min_plain(x, rem_ptr, rem_nbr):
@@ -502,6 +565,7 @@ def _flood_relax(surf, inland, elev_baked, bits, band_off, rem_ptr, rem_nbr,
 
 def smooth_sweep_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
                        gate=None, upd=None):
+    """One pass of :func:`smooth_relax`."""
     gate_b = None if gate is None else gate > 0
     s = torch.zeros_like(field)
     for d, off in enumerate(band_off):
@@ -516,25 +580,43 @@ def smooth_sweep_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
     return out if upd is None else torch.where(upd > 0, out, field)
 
 
-def smooth_sweep(field, c, bits, band_off, rem_ptr, rem_nbr, gate=None,
-                 upd=None):
-    """One Laplacian pass over [F, NP] planes: ``(f + Σ_nbr f) / c``.
-    ``gate`` [NP] (0/1 f32): only neighbours with gate > 0 contribute;
-    ``upd`` [NP] (0/1 f32): only cells with upd > 0 update, the others
-    pass through. ``c`` [NP] is 1 + the (gated) neighbour count."""
+def smooth_relax_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
+                       passes: int, gate=None, upd=None):
+    for _ in range(int(passes)):
+        field = smooth_sweep_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
+                                   gate, upd)
+    return field
+
+
+def smooth_relax(field, c, bits, band_off, rem_ptr, rem_nbr, passes: int,
+                 gate=None, upd=None):
+    """``passes`` (>= 1) Laplacian passes over [F, NP] planes, each
+    ``(f + Σ_nbr f) / c``, in one launch (F <= ``SMOOTH_MAX_FIELDS`` on
+    the card). ``gate`` [NP] (0/1 f32): only neighbours with gate > 0
+    contribute; ``upd`` [NP] (0/1 f32): only cells with upd > 0 update,
+    the others pass through. ``c`` [NP] is 1 + the (gated) neighbour
+    count. Returns the planes."""
+    if int(passes) < 1:
+        raise ValueError(f"smoothing takes at least one pass, got {passes}")
     if _on_cpu(field):
-        return smooth_sweep_plain(field, c, bits, band_off, rem_ptr,
-                                  rem_nbr, gate, upd)
-    fn = _kernel("smooth_sweep")
-    f = field.shape[0] if field.dim() == 2 else -1
+        return smooth_relax_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
+                                  passes, gate, upd)
+    fn = _kernel("smooth_relax")
+    f = field.shape[0]
+    if field.dim() != 2 or not 1 <= f <= SMOOTH_MAX_FIELDS:
+        raise ValueError(f"smoothing takes [F, NP] planes with 1 <= F <= "
+                         f"{SMOOTH_MAX_FIELDS} on the card, got "
+                         f"{tuple(field.shape)}")
     _check(bits, None, (field, f), (c, None),
            *((t, None) for t in (gate, upd) if t is not None))
     _check_csr(bits, rem_ptr, rem_nbr)
-    out = torch.empty_like(field)
+    out, tmp = torch.empty_like(field), torch.empty_like(field)
+    ctl = torch.zeros(4, dtype=torch.int32, device=field.device)
     offs, nd = _offs(band_off)
     _launch(fn, "smooth", _ptr(field), _ptr(c), _ptr(gate), _ptr(upd),
             _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
-            _ptr(out), bits.shape[0], f, offs, nd)
+            _ptr(out), _ptr(tmp), _ptr(ctl), bits.shape[0], f, offs, nd,
+            int(passes))
     return out
 
 

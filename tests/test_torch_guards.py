@@ -109,11 +109,12 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
     x = _fake_cuda((4, 64))
     call = {
         "bfs": lambda: sweep_cuda.bfs_sweep(x, x, x, (1,)),
-        "stress": lambda: sweep_cuda.stress_sweep(x, x, (1,), 0.9, 0.8),
+        "stress": lambda: sweep_cuda.stress_relax(x, x, x, (1,), x, x, x,
+                                                  0.9, 0.8, 5),
         "warp": lambda: sweep_cuda.warp_sweep(x, x, x, (1,)),
         "flood": lambda: sweep_cuda.flood_relax(x, x, x, x, (1,), x, x, 1e9,
                                                 1e-6),
-        "smooth": lambda: sweep_cuda.smooth_sweep(x, x, x, (1,), x, x),
+        "smooth": lambda: sweep_cuda.smooth_relax(x, x, x, (1,), x, x, 3),
         "shadow": lambda: sweep_cuda.shadow_sweep(x, x, x, x, (1,), x, x,
                                                   0.9, 0.8),
         "bfs_relax": lambda: sweep_cuda.bfs_relax(x, x, x, (1,), x, x, 5),
@@ -132,19 +133,29 @@ def test_other_devices_refused():
 @pytest.mark.parametrize("bad", ["plane_shape", "plane_dtype", "bits_dtype",
                                  "strided", "flag_dtype", "csr_ptr_shape",
                                  "csr_nbr_dtype", "np_not_multiple_of_4",
-                                 "misaligned"])
+                                 "misaligned", "layer_planes_shape",
+                                 "layer_bits_shape", "rem_gate_dtype",
+                                 "rem_gate_shape", "no_smoothing_pass"])
 def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
     """The checks every wrapper runs before handing pointers to a kernel
     (``_check``; ``_check_csr`` for the kernels that walk remainder
-    rows). The staged kernels load planes as float4 words, so NP must be
-    a multiple of 4 and every plane 16-byte aligned."""
+    rows, with the stress relax's per-layer remainder gates). The staged
+    kernels load planes as float4 words, so NP must be a multiple of 4
+    and every plane 16-byte aligned; the stress relax takes [G, 3, NP]
+    state and [G, NP] bits; a smoothing launch runs at least one pass."""
     bits = torch.zeros(64, dtype=torch.int32)
     plane = torch.zeros((4, 64))
     flag = torch.zeros(1, dtype=torch.int32)
     ptr = torch.zeros(65, dtype=torch.int32)
     nbr = torch.zeros(3, dtype=torch.int32)
+    layers = torch.zeros((2, 3, 64))
+    lbits = torch.zeros((2, 64), dtype=torch.int32)
+    rgate = torch.zeros((2, 3), dtype=torch.uint8)
     sweep_cuda._check(bits, flag, (plane, 4), (plane[0].clone(), None))
     sweep_cuda._check_csr(bits, ptr, nbr)
+    sweep_cuda._check(lbits, None, (layers, (2, 3)), (plane[:2], 2),
+                      bit_rows=2)
+    sweep_cuda._check_csr(lbits, ptr, nbr, rgate, 2)
     call = {
         "plane_shape": lambda: sweep_cuda._check(
             bits, flag, (plane[:, :32].contiguous(), 4)),
@@ -163,6 +174,16 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
             bits[:62].clone(), flag, (plane[:, :62].contiguous(), 4)),
         "misaligned": lambda: sweep_cuda._check(
             bits, flag, (torch.zeros(65)[1:], None)),
+        "layer_planes_shape": lambda: sweep_cuda._check(
+            lbits, None, (layers[:, :2].contiguous(), (2, 3)), bit_rows=2),
+        "layer_bits_shape": lambda: sweep_cuda._check(
+            bits, None, (layers, (2, 3)), bit_rows=2),
+        "rem_gate_dtype": lambda: sweep_cuda._check_csr(
+            lbits, ptr, nbr, rgate.bool(), 2),
+        "rem_gate_shape": lambda: sweep_cuda._check_csr(
+            lbits, ptr, nbr, rgate[:1].contiguous(), 2),
+        "no_smoothing_pass": lambda: sweep_cuda.smooth_relax(
+            plane, plane[0] + 1, bits, (1,), ptr, nbr, 0),
     }[bad]
     with pytest.raises(ValueError):
         call()
@@ -179,6 +200,9 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
     rem_ptr = torch.zeros(n + 1, dtype=torch.int32)
     rem_ptr[6:] = 2
     rem_nbr = torch.tensor([9, 40], dtype=torch.int32)
+    layers = torch.stack([st[:3], st[[1, 0, 2]]]).contiguous()
+    lbits = torch.stack([bits, bits.flip(0)]).contiguous()
+    rgate = torch.tensor([[1, 0], [1, 1]], dtype=torch.uint8)
     before = dict(sweep_cuda.LAUNCHES)
     relaxed = [
         (sweep_cuda.bfs_relax(st, st + 0.5, bits, offs, rem_ptr, rem_nbr, 3),
@@ -188,18 +212,20 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
                                 rem_nbr, 1e9, 1e-6),
          sweep_cuda.flood_relax_plain(st[0], st[2], st[1], bits, offs,
                                       rem_ptr, rem_nbr, 1e9, 1e-6)),
+        (sweep_cuda.stress_relax(layers, st[2:], lbits, offs, rem_ptr,
+                                 rem_nbr, rgate, 0.9, 0.7, 4),
+         sweep_cuda.stress_relax_plain(layers, st[2:], lbits, offs, rem_ptr,
+                                       rem_nbr, rgate, 0.9, 0.7, 4)),
     ]
     pairs = [x for (a, b) in relaxed for x in zip(a, b)] + [
         (sweep_cuda.bfs_sweep(st, st, bits, offs),
          sweep_cuda.bfs_sweep_plain(st, st, bits, offs)),
-        (sweep_cuda.stress_sweep(st, bits, offs, 0.9, 0.7),
-         sweep_cuda.stress_sweep_plain(st, bits, offs, 0.9, 0.7)),
         (sweep_cuda.warp_sweep(st, w, bits, offs),
          sweep_cuda.warp_sweep_plain(st, w, bits, offs)),
-        (sweep_cuda.smooth_sweep(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
-                                 st[2], st[3]),
-         sweep_cuda.smooth_sweep_plain(st, st[0] + 2, bits, offs, rem_ptr,
-                                       rem_nbr, st[2], st[3])),
+        (sweep_cuda.smooth_relax(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
+                                 2, st[2], st[3]),
+         sweep_cuda.smooth_relax_plain(st, st[0] + 2, bits, offs, rem_ptr,
+                                       rem_nbr, 2, st[2], st[3])),
         (sweep_cuda.shadow_sweep(st - 0.5, aux, st[2], bits, offs, rem_ptr,
                                  rem_nbr, 0.9, 0.8),
          sweep_cuda.shadow_sweep_plain(st - 0.5, aux, st[2], bits, offs,

@@ -1,0 +1,58 @@
+"""The PyTorch port's default generate in several checkouts of this repo
+on one card, each in a process of its own, in the order given:
+
+    python3 tools/torch_compare_trees.py PARENT CHANGE CHANGE PARENT
+
+For each tree: build its kernels, run the default 204K generate
+(``GenerationParams(seed=42)``, climate on) cold, then three warm runs
+(wall seconds, and the kernel launches of the last), then one warm run of
+the default and one of the terrain-only generate under ``torch.profiler``
+(device busy ms and the number of device events). Prints one ``RESULT``
+JSON line per tree. Give the trees in turns, so that host drift falls on
+both sides. Needs one CUDA device; uses each tree's ``chip_smoke.py``.
+"""
+import subprocess
+import sys
+
+# run in a fresh interpreter per tree, TREE set first
+CODE = r'''
+import sys, json
+sys.path.insert(0, TREE)
+import torch
+import chip_smoke as cs
+from planet_heightmap_generation_torch.config import GenerationParams
+from planet_heightmap_generation_torch.ops import sweep_cuda
+sweep_cuda.build()
+sweep_cuda._kernel("bfs_sweep")
+dev = torch.device("cuda")
+p = GenerationParams(seed=42)
+cs.run_generate(dev, p)
+walls = []
+for _ in range(3):
+    sweep_cuda.reset_launches()
+    _, w = cs.run_generate(dev, p)
+    walls.append(w)
+launches = dict(sweep_cuda.LAUNCHES)
+prof = cs.profile_generate(dev, p)
+pt = cs.profile_generate(dev, GenerationParams(seed=42, skip_climate=True))
+print("RESULT " + json.dumps(dict(
+    tree=TREE, walls=walls, launches=launches, busy_ms=prof["busy_ms"],
+    events=prof["n_events"], terrain_busy_ms=pt["busy_ms"],
+    terrain_events=pt["n_events"])))
+'''
+
+
+def main(trees) -> int:
+    for tree in trees:
+        r = subprocess.run([sys.executable, "-c", f"TREE = {tree!r}\n" + CODE],
+                           capture_output=True, text=True, timeout=600)
+        line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
+        if r.returncode or not line:
+            print(r.stdout[-3000:], r.stderr[-3000:])
+            return 1
+        print(line[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
