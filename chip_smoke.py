@@ -15,18 +15,25 @@ Phases (any failure exits non-zero with its traceback):
    operations) and, where one PyTorch call computes the same function,
    that call. The one-sweep BFS runs the components loop (F=1 labels,
    zero cost, gated bits) and one F=4 distance sweep. A relax launch
-   (``bfs_relax``, ``stress``, ``flood``, ``smooth``) runs a whole loop
-   and must equal the plain loop bit for bit: the distance BFS at the
-   path's three shapes (F=4 at the generate's cap of 119 sweeps, which
-   must bind; the climate's F=5 coast fields at cap 70; F=1 at cap 28);
-   stress at the path's two layers and cap of 68 sweeps, where the cap
-   must bind, and at a decay that reaches its fixpoint before it (BFS and
-   stress also in their sweep count); the ε-fill at 1, 4 and 8 inner
-   sweeps per barrier round; smoothing at every (fields, gate, update
-   mask, passes) shape of the climate stack. The lines report sweeps
-   (ε-fill: rounds; smoothing: passes), device µs per launch and per
-   sweep, and the bound per sweep and per launch. ``banded_sum`` on the
-   card must equal the same call on CPU tensors bit for bit;
+   (``bfs_relax``, ``stress``, ``warp``, ``flood``, ``smooth``,
+   ``shadow``) runs a whole loop and must equal the plain loop bit for
+   bit: the distance BFS at the path's three shapes (F=4 at the
+   generate's cap of 119 sweeps, which must bind; the climate's F=5 coast
+   fields at cap 70; F=1 at cap 28); stress at the path's two layers and
+   cap of 68 sweeps, where the cap must bind, and at a decay that reaches
+   its fixpoint before it; warp toward the path's targets at its cap of 17
+   sweeps and at a cap that binds (BFS, stress and warp also in their
+   sweep count); the ε-fill at 1, 4 and 8 inner sweeps per barrier round;
+   smoothing at every (fields, gate, update mask, passes) shape of the
+   climate stack; the rain shadow at the path's 56 / 34 hops, with the
+   edge weights stored after the first hop and recomputed every hop, and
+   with the windward columns running longer. The lines report sweeps
+   (ε-fill: rounds; smoothing: passes; rain shadow: hops), device µs per
+   launch and per sweep, and the bound per sweep and per launch. The warp
+   and rain-shadow callers (``warp_sources``, ``_rain_shadow2``) must
+   equal themselves with the plain loop in the wrapper's place, in one
+   launch and with no host sync. ``banded_sum`` on the card must equal
+   the same call on CPU tensors bit for bit;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the relax
@@ -104,19 +111,18 @@ def max_abs_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def with_plain(name: str, fn):
-    """Run ``fn()`` with the ``name`` wrapper of ops/sweep_cuda replaced by
-    its plain-torch version, so the same driver loop runs on the card
-    without the kernel."""
+def with_plain(wrapper: str, fn):
+    """Run ``fn()`` with the ``wrapper`` of ops/sweep_cuda replaced by its
+    plain-torch version (``<wrapper>_plain``), so the same caller runs on
+    the card without the kernel."""
     from planet_heightmap_generation_torch.ops import sweep_cuda
 
-    wrapper = getattr(sweep_cuda, f"{name}_sweep")
-    setattr(sweep_cuda, f"{name}_sweep", getattr(sweep_cuda,
-                                                 f"{name}_sweep_plain"))
+    kern = getattr(sweep_cuda, wrapper)
+    setattr(sweep_cuda, wrapper, getattr(sweep_cuda, f"{wrapper}_plain"))
     try:
         return fn()
     finally:
-        setattr(sweep_cuda, f"{name}_sweep", wrapper)
+        setattr(sweep_cuda, wrapper, kern)
 
 
 def popcount(bits) -> int:
@@ -165,7 +171,7 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
         out_k = loop()
         torch.cuda.synchronize()
         launches = sweep_cuda.LAUNCHES[name]
-        out_p = with_plain(name, loop)
+        out_p = with_plain(f"{name}_sweep", loop)
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -333,16 +339,27 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
         stress_config(f"G=2 cap {passes}", decay, sub_decay, True),
         stress_config(f"G=2 cap {passes}, decay 0.6", 0.6, 0.5, False)])
 
-    # 4. warp candidate propagation toward the default-slider targets
+    # 4. warp candidate propagation toward the default-slider targets, at
+    # the path's cap (17 sweeps at 204K) and at a cap that binds
     w = warp.warp_targets(pos, tables(SEED + 9999.0, dev),
                           torch.tensor(0.5, device=dev))
+    wt = w.T.contiguous()
     steps = int(math.ceil(0.06 / (math.pi / math.sqrt(g.n_cells)))) + 8
     wstate = torch.cat([torch.arange(npad, dtype=torch.float32,
                                      device=dev)[None], pos.T]).contiguous()
-    record("warp", lambda: warp.warp_sources(
-        pos, w, *g.bands, max_steps=steps),
-        [("[4, NP] state", (wstate, w.T.contiguous(), bits, g.band_off),
-          12 * npad * 4, 9 * edges + 9 * npad)])
+    warp_cost = (12 * npad * 4 + csr_bytes, 9 * (edges + m) + 9 * npad)
+
+    def warp_config(cap, binds):
+        args = (wstate, wt, bits, g.band_off, ptr, nbr, cap)
+        return dict(label=f"cap {cap}", cap=cap, binds=binds,
+                    cost=warp_cost,
+                    run=lambda: sweep_cuda.warp_relax(*args),
+                    ref=plain_loop(lambda: sweep_cuda.warp_relax_plain(*args)))
+
+    records["warp"] = relax_record("warp", [warp_config(steps, None),
+                                            warp_config(3, True)])
+    caller_check("warp", "warp_relax", lambda: warp.warp_sources(
+        pos, w, *g.bands, max_steps=steps))
 
     # 5. ε-fill of the noise terrain with its inland seas, to its fixpoint,
     # at k = 1, 4 and 8 inner sweeps per barrier round
@@ -420,7 +437,10 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
           flush=True)
 
     # 7. rain shadow: 56 hops (34 windward) of the default generate's
-    # [4, NP] state over winds and slopes made from numpy seeds
+    # [4, NP] state over winds and slopes made from numpy seeds, with the
+    # edge weights stored after the first hop (the path's design) and
+    # recomputed every hop; with the windward columns running longer; and
+    # over the noise terrain's land, clustered as the path's is
     from planet_heightmap_generation_torch.climate import precipitation
     elev6 = torch.as_tensor((rng.standard_normal(npad) * 0.4)
                             .astype(np.float32), device=dev) * g.valid
@@ -430,25 +450,43 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
                               .astype(np.float32) * 0.3, device=dev)
     wdg2 = torch.as_tensor(rng.standard_normal((npad, 2))
                            .astype(np.float32) * 0.1, device=dev)
-    avg_edge_km = math.pi * 6371 / math.sqrt(g.n_cells)
     s_hops = max(8, round(2500 / avg_edge_km))
     w_hops = max(6, round(1500 / avg_edge_km))
-    seed2 = precipitation._shadow_seeds2(elev6, height_km, land, wdg2)
-    state = torch.cat([seed2, seed2], 1).T.contiguous()
     aux = torch.cat([g.pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T]).contiguous()
-    land_f = land.float().contiguous()
-    rs, rw = precipitation.shadow_retain(s_hops, w_hops)
-    land_edges = popcount(bits[land]) + int(land[g.rem_src].sum())
-    record("shadow", lambda: precipitation._rain_shadow2(
+
+    def shadow_config(label, sh, wh, terrain=elev6, stored=True):
+        is_land = (terrain > 0) & g.valid
+        seed2 = precipitation._shadow_seeds2(
+            terrain, torch.clamp(terrain, min=0.0) * 6.0, is_land, wdg2)
+        args = (torch.cat([seed2, seed2], 1).T.contiguous(), aux,
+                is_land.float().contiguous(), bits, g.band_off, ptr, nbr,
+                *precipitation.shadow_retain(sh, wh), sh, wh)
+        land_edges = popcount(bits[is_land]) + int(is_land[g.rem_src].sum())
+        hops = max(sh, wh)
+        return dict(label=label, cost=((4 + 9 + 1 + 1 + 4) * npad * 4
+                                       + csr_bytes,
+                                       40 * land_edges + 8 * npad),
+                    run=lambda: (sweep_cuda._shadow_relax(*args, stored),
+                                 hops),
+                    ref=plain_loop(lambda: (
+                        sweep_cuda.shadow_relax_plain(*args), hops)))
+
+    records["shadow"] = relax_record("shadow", [
+        shadow_config(f"{s_hops}/{w_hops} hops, weights stored", s_hops,
+                      w_hops),
+        shadow_config(f"{s_hops}/{w_hops} hops, weights recomputed", s_hops,
+                      w_hops, stored=False),
+        shadow_config(f"{w_hops}/{s_hops} hops, weights stored", w_hops,
+                      s_hops),
+        shadow_config(f"{s_hops}/{w_hops} hops, weights stored, noise-terrain "
+                      "land", s_hops, w_hops, terrain=elev)])
+    caller_check("shadow", "shadow_relax", lambda: precipitation._rain_shadow2(
         g.pos, elev6, height_km, land, wind3d2, wdg2, *g.bands, s_hops,
-        w_hops),
-        [("[4, NP] state", (state, aux, land_f, bits, g.band_off, ptr, nbr,
-                            rs, rw),
-          (4 + 9 + 1 + 1 + 4) * npad * 4 + csr_bytes,
-          40 * land_edges + 8 * npad)])
+        w_hops))
 
     # 8. the drivers of the stress and smoothing launches, and banded_sum,
-    # issue no host sync (the relax launches themselves are checked above)
+    # issue no host sync (the relax launches and the warp and rain-shadow
+    # callers are checked above)
     no_host_sync("propagate_stress_banded",
                  lambda: banded.propagate_stress_banded(
                      st2, sf2, sgates, srgates, ocean2, *g.bands, decay,
@@ -458,7 +496,8 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
     no_host_sync("banded_sum", lambda: banded.banded_sum(
         smooth_cfgs[2]["field"].T, *g.bands))
     print("host syncs: none in propagate_stress_banded, "
-          "smooth_masked_banded, banded_sum or any relax launch", flush=True)
+          "smooth_masked_banded, banded_sum, warp_sources, _rain_shadow2 or "
+          "any relax launch", flush=True)
 
     # 9. banded_sum's remainder rows: the same bits on the card as on CPU
     # tensors, on the climate's coast-seed stack (wind.coast_bfs_seeds:
@@ -501,6 +540,25 @@ def banded_sum_check(g, g_cpu, stacks):
               f"the CPU in {off} cells", flush=True)
 
 
+def caller_check(name: str, wrapper: str, fn):
+    """``fn()``, a caller of one relax launch, must launch its kernel once
+    with no host sync and give the bits it gives with the plain loop in
+    the wrapper's place."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    sweep_cuda.reset_launches()
+    out_k = no_host_sync(name, fn)
+    torch.cuda.synchronize()
+    launches = sweep_cuda.LAUNCHES[name]
+    out_p = with_plain(wrapper, fn)
+    if launches != 1 or not torch.equal(out_k, out_p):
+        raise AssertionError(f"{name} caller: {launches} launches, max abs "
+                             f"err {max_abs_err(out_k, out_p)} against the "
+                             "plain loop")
+    print(f"caller of {name}: one launch, no host sync, bit-identical to the "
+          "plain loop", flush=True)
+
+
 def no_host_sync(label: str, fn):
     """``fn()``, failing if it makes the host wait for the device (CUDA
     sync debug mode: a synchronizing torch call inside raises)."""
@@ -537,8 +595,8 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
     ``configs[primary]``."""
     from planet_heightmap_generation_torch.ops import sweep_cuda
 
-    unit, one = {"flood": ("rounds", "round"),
-                 "smooth": ("passes", "pass")}.get(name, ("sweeps", "sweep"))
+    unit, one = {"flood": ("rounds", "round"), "smooth": ("passes", "pass"),
+                 "shadow": ("hops", "hop")}.get(name, ("sweeps", "sweep"))
     out = []
     for cfg in configs:
         ref, ref_sweeps, plain_ms = cfg["ref"]
@@ -558,7 +616,7 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
             raise AssertionError(f"{name} ({cfg['label']}): relax launch "
                                  f"differs from the plain loop (max abs err "
                                  f"{err})")
-        if name in ("bfs_relax", "stress") and swept != ref_sweeps:
+        if name in ("bfs_relax", "stress", "warp") and swept != ref_sweeps:
             raise AssertionError(f"{name} ({cfg['label']}): relax launch ran "
                                  f"{swept} sweeps, the plain loop "
                                  f"{ref_sweeps}")
@@ -618,9 +676,10 @@ def device_events(fn):
 
 
 # the device function of each kernel, as a trace names it
-KERNEL_FNS = {k: f"{k}_sweep_kernel" for k in REPLACES}
-KERNEL_FNS.update(bfs_relax="bfs_relax_kernel", flood="flood_relax_kernel",
-                  stress="stress_relax_kernel", smooth="smooth_relax_kernel")
+KERNEL_FNS = dict(bfs="bfs_sweep_kernel", bfs_relax="bfs_relax_kernel",
+                  stress="stress_relax_kernel", warp="warp_relax_kernel",
+                  flood="flood_relax_kernel", smooth="smooth_relax_kernel",
+                  shadow="shadow_relax_kernel")
 
 
 def mean_device_ms(events, fn: str):
@@ -802,9 +861,12 @@ def main() -> int:
     assert not missing, f"kernels not launched on the main path: {missing}"
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f" | relax sweeps bfs_relax={swept['bfs_relax']} "
-          f"stress={swept['stress']} flood={swept['flood']} (rounds)")
+          f"stress={swept['stress']} warp={swept['warp']} "
+          f"flood={swept['flood']} (rounds)")
     assert launches["bfs"] + launches["bfs_relax"] <= 40, launches
     assert launches["stress"] == 1, launches
+    assert launches["warp"] == 1, launches
+    assert launches["shadow"] == 1, launches
     assert launches["smooth"] == SMOOTH_CALLS, launches
     prof = profile_generate(dev, params)
     report_profile(prof, warm_s)

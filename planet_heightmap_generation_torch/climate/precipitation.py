@@ -5,8 +5,9 @@ JAX package's climate/precipitation.py in torch.
 Both seasons run stacked ([N,2] fields). The advection loop is plain torch
 (20 hops of 32-band weighted sums; the JAX package has no kernel for it).
 The rain shadow stacks {shadow, windward} × {summer, winter} into one
-[4, N] state and runs one hop per launch of the rain-shadow kernel of
-ops/sweep_cuda.py, which recomputes the wind-aligned weights per band.
+[4, N] state and runs all its hops in one launch of the rain-shadow kernel
+of ops/sweep_cuda.py, which computes each edge's wind-aligned weights on
+the first hop and reads them back on the others.
 """
 
 from __future__ import annotations
@@ -251,9 +252,10 @@ def _rain_shadow2(pos, elev, height_km, is_land, wind3d2, wdg2, band_off,
                   windward_hops: int):
     """Rain-shadow diagnostic for both seasons (js/precipitation.js:
     496-607): seed on ≥ 0.8 km slopes, propagate shadow downwind and
-    windward rain upwind, one hop per launch of the rain-shadow kernel;
-    the windward columns stop after ``windward_hops`` hops (the JAX
-    per-column cap ``i < cap4``). Returns [N,2]."""
+    windward rain upwind, all hops in one launch of the rain-shadow kernel
+    (ops/sweep_cuda.py ``shadow_relax``); the windward columns stop after
+    ``windward_hops`` hops and the shadow columns after ``shadow_hops``
+    (the JAX per-column cap ``i < cap4``). Returns [N,2]."""
     seed2 = _shadow_seeds2(elev, height_km, is_land, wdg2)
     state = torch.cat([seed2, seed2], 1).T.contiguous()          # [4,N]
     aux = torch.cat([pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T],
@@ -262,16 +264,9 @@ def _rain_shadow2(pos, elev, height_km, is_land, wind3d2, wdg2, band_off,
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, pos.shape[0])
     retain_s, retain_w = shadow_retain(shadow_hops, windward_hops)
-    windward = torch.tensor([False, False, True, True],
-                            device=pos.device)[:, None]
-    for i in range(max(shadow_hops, windward_hops)):
-        new = sweep_cuda.shadow_sweep(state, aux, land, bits, band_off, ptr,
-                                      nbr, retain_s, retain_w)
-        if i >= windward_hops:
-            new = torch.where(windward, state, new)
-        if i >= shadow_hops:
-            new = torch.where(windward, new, state)
-        state = new
+    state = sweep_cuda.shadow_relax(state, aux, land, bits, band_off, ptr,
+                                    nbr, retain_s, retain_w, shadow_hops,
+                                    windward_hops)
     f = state.T
     shadow2 = torch.minimum(f[:, :2], seed2)
     windward2 = torch.maximum(f[:, 2:], seed2)

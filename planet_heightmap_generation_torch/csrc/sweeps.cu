@@ -8,41 +8,37 @@
 //
 // Two kinds of kernel:
 //
-// - One synchronous (Jacobi) sweep per launch (warp, rain shadow; and a
-//   single BFS sweep, for the components loop, whose driver does host-side
-//   work between sweeps): a sweep reads every neighbour from the INPUT
-//   buffer and writes to a separate OUTPUT buffer, so the result does not
-//   depend on the order in which blocks run and equals one iteration of the
-//   JAX jnp loop. Warp leaves its remainder edges to the Python driver
-//   (torch scatters after each launch); rain shadow sums, so it walks the
-//   CSR rows in-kernel in edge order, which reproduces the jnp order.
-// - A persistent relax kernel (BFS, ε-fill, stress, smoothing: "Staged-
-//   window relax" below): ONE cooperative launch runs the whole loop, sweep
-//   after sweep, with a grid barrier between sweeps, the remainder edges
-//   in-kernel and the sweep count written to device memory. The fixpoint
-//   loops (BFS, ε-fill, stress) keep a device-side change flag; smoothing
-//   runs its fixed number of passes. The host issues one launch and reads
-//   nothing back.
+// - One synchronous (Jacobi) BFS sweep per launch, for the components
+//   loop, which does host-side work between sweeps: a sweep reads
+//   every neighbour from the INPUT buffer and writes to a separate OUTPUT
+//   buffer, so the result does not depend on the order in which blocks
+//   run and equals one iteration of the JAX jnp loop.
+// - A persistent relax kernel for every other loop (BFS, ε-fill, stress,
+//   smoothing, terrain warp, rain shadow: "Staged-window relax" below): ONE
+//   cooperative launch runs the whole loop, sweep after sweep, with a grid
+//   barrier between sweeps, the remainder edges in-kernel and the sweep
+//   count written to device memory. The fixpoint loops (BFS, ε-fill,
+//   stress, warp) keep a device-side change flag; smoothing and the rain
+//   shadow run their fixed number of passes / hops. The host issues one
+//   launch and reads nothing back.
 //
 // What bounds these kernels on an H100: memory traffic, never arithmetic
 // for a single sweep. The least a sweep must move is its state and
 // auxiliary planes read once, the packed u32 band bits read once and the
 // state written once: at 204K cells ~10 MB for the 4-field BFS, ~3 us at
-// 3.35 TB/s. The one-sweep kernels read band neighbours straight from
-// L2 (the largest |off| is ~3.6*sqrt(N) cells), one bit test per band; a
-// warp issues a band's load whenever any of its 32 lanes has that bit,
-// so it touches up to D neighbour lines per field where a cell needs ~6.
-// The staged-window kernels load each chunk's band window into shared
-// memory with coalesced loads instead (PERF.md has the measured times).
+// 3.35 TB/s. Reading band neighbours straight from L2 costs a warp a
+// band's load whenever any of its 32 lanes has that bit, up to D
+// neighbour lines per field where a cell needs ~6; so every kernel loads
+// each chunk's band window into shared memory with coalesced loads instead
+// (PERF.md has the measured times).
 //
 // Reads off the mesh: a set band bit always points inside [0, NP), but
 // indices are still wrapped modulo NP (jnp.roll semantics) so no thread
 // can read out of bounds; CSR rows are clamped to [0, M] and columns
 // outside [0, NP) skipped.
 //
-// Change flag: the one-sweep min/argmin kernels OR "some cell changed"
-// into *flag (one atomicOr per block after a block-level OR) when flag is
-// not null; the rain-shadow pass runs a fixed count and has none.
+// Change flag: the one-sweep BFS ORs "some cell changed" into *flag (one
+// atomicOr per block after a block-level OR) when flag is not null.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps a*b+c as two rounded
@@ -63,7 +59,6 @@
 namespace {
 
 constexpr int kMaxBands = 32;
-constexpr int kThreads = 256;
 // Staged-window kernels: one 1024-thread block per SM, one work item each
 // per sweep. Of the block shapes timed on an H100 while this kernel was
 // brought up (256 to 1024 threads, 1 to 8 items per SM), the fewest and
@@ -73,6 +68,9 @@ constexpr int kRelaxThreads = 1024;
 constexpr long kItemsPerSm = 1;
 // The most fields one smoothing launch carries (one staged window each).
 constexpr int kMaxSmoothFields = 4;
+// Neighbour loads a warp or rain-shadow thread keeps in flight at once.
+constexpr int kWarpBatch = 2;
+constexpr int kShadowBatch = 2;
 
 struct Bands {
   int n;
@@ -87,47 +85,6 @@ __device__ __forceinline__ int wrap(int j, int np) {
 __device__ __forceinline__ void or_flag(int* flag, bool changed) {
   int any = __syncthreads_or(changed ? 1 : 0);
   if (flag != nullptr && threadIdx.x == 0 && any) atomicOr(flag, 1);
-}
-
-// ── 3. Terrain warp: nearest-candidate propagation ─────────────────────
-// Replaces _make_warp_kernel (sweep_pallas.py:480). State planes [4, NP]:
-// source index (f32), source position xyz; w [3, NP] is the cell's warped
-// target. The cell adopts the band neighbour's candidate that lies
-// strictly closer to its own target, first minimum in band order.
-__global__ void __launch_bounds__(kThreads)
-warp_sweep_kernel(const float* __restrict__ s, const float* __restrict__ w,
-                  const uint32_t* __restrict__ bits, float* __restrict__ out,
-                  int* flag, int np, Bands bands) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool changed = false;
-  if (i < np) {
-    const float* px = s + np;
-    const float* py = s + 2 * (size_t)np;
-    const float* pz = s + 3 * (size_t)np;
-    const float wx = w[i], wy = w[np + i], wz = w[2 * (size_t)np + i];
-    float dx = px[i] - wx, dy = py[i] - wy, dz = pz[i] - wz;
-    float best = dx * dx + dy * dy + dz * dz;
-    int src = i;
-    const uint32_t b = bits[i];
-    for (int d = 0; d < bands.n; ++d) {
-      if (!((b >> d) & 1u)) continue;
-      const int j = wrap(i + bands.off[d], np);
-      dx = px[j] - wx;
-      dy = py[j] - wy;
-      dz = pz[j] - wz;
-      const float cd = dx * dx + dy * dy + dz * dz;
-      if (cd < best) {
-        best = cd;
-        src = j;
-      }
-    }
-    out[i] = s[src];
-    out[np + i] = px[src];
-    out[2 * (size_t)np + i] = py[src];
-    out[3 * (size_t)np + i] = pz[src];
-    changed = src != i;
-  }
-  or_flag(flag, changed);
 }
 
 // ── Remainder edges as CSR rows ────────────────────────────────────────
@@ -149,16 +106,21 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
   return k < 0 ? 0 : (k > m ? m : k);
 }
 
-// ── 1, 2, 4, 5. Staged-window relax: BFS, stress, ε-fill, smoothing ────
+// ── Staged-window relax: all six kernels ──────────────────────────────
 // Replace _make_bfs_kernel (sweep_pallas.py:171), _make_stress_kernel
-// (:388), _make_flood_kernel (:230) and _make_smooth_kernel (:564). One
-// loop template, four rules:
+// (:388), _make_flood_kernel (:230), _make_warp_kernel (:480),
+// _make_smooth_kernel (:564) and _make_shadow_kernel (:619). One loop
+// template, six rules:
 //   BFS       out = min(cur, min_{nbr j} cur[f, j] + cost[f, i])
 //   ε-fill    out = min(surf, max(elev_baked, min_{nbr j} surf'[j] + eps)),
 //             surf'[j] = big at inland cells
 //   stress    gated argmax of the neighbours' propagated stress, with the
 //             sender's subduct factor as payload (StressRule below)
 //   smoothing out = (f[i] + sum_{gated nbr j} f[j]) / c[i] (SmoothRule)
+//   warp      nearest-candidate pick, then the remainder edges' two-phase
+//             pick (WarpRule)
+//   shadow    wind-weighted signed min / max hop with retention, per-column
+//             hop caps (ShadowRule)
 // Seeds, barriers and frozen cells are baked into cost / elev_baked. With
 // cost = 0 and cell-index labels the BFS rule is one min-label sweep of
 // the connected-components core. The remainder edges fold into the same
@@ -168,21 +130,27 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
 //
 // Inside a sweep, work items are (group, chunk of T consecutive cells): a
 // group is a field (BFS), the surface (ε-fill), a stress layer, or all the
-// fields of a smoothing call. A block stages the chunk's band window
-// [c0 - H, c0 + T + H) of each plane the rule reads at neighbours into
-// shared memory as coalesced, aligned float4 loads (H = max |off|, read
-// from the offsets; nw windows an item: one for BFS and ε-fill, two for
-// stress, one per field for smoothing), then each thread walks the set
+// planes of a smoothing call, a warp or a rain-shadow state. A block
+// stages the chunk's band window [c0 - H, c0 + T + H) of each plane the
+// rule reads at neighbours into shared memory as coalesced, aligned float4
+// loads (H = max |off|, read from the offsets; nw windows an item: one for
+// BFS and ε-fill, two for stress, one per field for smoothing, three
+// candidate coordinates for warp; the rain shadow, whose changing cells are
+// the land minority, stages none and keeps its land-cell list in one
+// window's space), then each thread walks the set
 // bits of its cell and reads those band neighbours from the windows: a
 // cell costs (T + 2H) / T global words per window instead of up to 32 line
 // loads per warp. T is chosen at launch for the windows an item holds (one
 // 1024-thread block per SM, one item each: at 204K cells T = 7168 for the
-// 4-field BFS, 2048 for one field, with H = 1597). On an H100 a sweep takes
-// a few times its byte bound and is not held by L2 latency: several loads
-// in flight per thread did not help, nor did a warp-uniform band walk
-// (conflict-free reads, but a warp's 32 cells use nearly all 32 bands); in
-// the relax kernel the grid barrier and the flag add about half a one-
-// sweep launch's time (PERF.md has the numbers).
+// 4-field BFS, 2048 for one field, with H = 1597; warp and the rain shadow
+// round T to 4 cells, not to the block, so that all 132 SMs get an item:
+// T = 1552). On an H100 a BFS sweep takes a few times its byte bound and
+// is not held by L2 latency: several loads in flight per thread did not
+// help, nor did a warp-uniform band walk (conflict-free reads, but a
+// warp's 32 cells use nearly all 32 bands); in the relax kernel the grid
+// barrier and the flag add about half a one-sweep launch's time (PERF.md
+// has the numbers). Warp and the rain shadow, whose remainder and land
+// work is L2 gathers, keep two neighbours' loads in flight per thread.
 //
 // The relax kernel runs the whole loop in one cooperative launch (grid =
 // co-resident blocks, cudaLaunchCooperativeKernel): sweep s reads only what
@@ -192,16 +160,19 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
 // barrier, slot (s + 1) % 3 is zeroed by block 0 before it, so no block
 // reads a slot that another is resetting, and every block takes the same
 // exit decision. A fixpoint loop stops at the first sweep that changes
-// nothing or after `cap` sweeps (0 = no cap); smoothing (`fixed`) runs
-// exactly `cap` passes. The sweep count goes to ctl[3]. Buffers written by
+// nothing or after `cap` sweeps (0 = no cap); smoothing and the rain
+// shadow (`fixed`) run exactly `cap` passes. The sweep count goes to
+// ctl[3]. Buffers written by
 // other blocks are read with __ldcg (L2, not the incoherent L1 or
 // read-only path).
 //
-// BFS, stress and smoothing run one Jacobi sweep per barrier: the BFS and
-// stress loops on the path end at their caps, where any more relaxation per
-// round would give other values than the jnp loop (and stress's payload
-// ties leave no unique fixpoint to reach by another schedule); a smoothing
-// pass is one term of a fixed sum. The ε-fill may run `inner` sweeps per
+// All but the ε-fill run one Jacobi sweep per barrier: the BFS and stress
+// loops on the path end at their caps, where any more relaxation per round
+// would give other values than the jnp loop (and stress's payload ties
+// leave no unique fixpoint to reach by another schedule); a smoothing pass
+// is one term of a fixed sum, a rain-shadow hop one step of a walk whose
+// length is part of the result, and the warp loop's cap sets how far a
+// candidate travels. The ε-fill may run `inner` sweeps per
 // barrier on its staged chunk (the TPU's stale-halo scheme,
 // sweep_pallas.py:230-260): the chunk's own cells update in shared memory,
 // the halo and the remainder neighbours stay as the round began. The fill
@@ -223,6 +194,7 @@ struct Geo {
   int ng;  // item groups: fields (BFS), 1 (ε-fill, smoothing), layers (stress)
   int nw;  // staged windows an item holds
   int T, H, m;
+  int tstep;  // T is a multiple of it
   const uint32_t* bits;
   const int* rptr;
   const int* rnbr;
@@ -334,6 +306,74 @@ struct SmoothRule {
   const float* c;
   const float* gate;  // or null
   const float* upd;   // or null
+};
+
+// Terrain warp, the port's synchronous sweep of erosion/warp.py (the
+// nearest-candidate search of _warp_terrain_jnp, without its band-
+// sequential update). State planes [4, NP]: each cell's candidate source
+// index (f32) and that candidate's position xyz; w [3, NP] is the cell's
+// warped target. One sweep:
+//   band phase       new_i = of the cell's own candidate and its band
+//                    neighbours' (band order), the first strictly nearest
+//                    to w_i;
+//   remainder phase  over the cell's remainder row (any order: a min and
+//                    maxima), wmin = the least dist2(new_j, w_i) and, among
+//                    the edges at wmin with a finite distance, the largest
+//                    value of each of the 4 planes SEPARATELY (the torch
+//                    step's four amax scatters); the cell takes that pick
+//                    where wmin < dist2(new_i, w_i).
+// dist2 sums x, y, z in that order (--fmad=false rounds as torch does).
+// The change flag: an index changed in the band phase, or a cell took a
+// remainder pick. The remainder phase reads new_j, which another block
+// writes in the same sweep: rather than a second grid barrier, the block
+// recomputes each remainder neighbour's band phase from the pre-sweep
+// buffer (its band walk, through L2), ~5K edges at 204K cells, one thread
+// an edge (warp_item). The windows hold the candidates' x, y, z; the index
+// is read only where a cell adopts a band neighbour's candidate. Bound:
+// bytes per sweep (state and targets read, state written); ~9 flops per
+// edge.
+struct WarpRule {
+  const float* w;  // [3, NP]
+  float4* rcand;   // [M]: each remainder edge's neighbour candidate
+};
+
+// Rain shadow, the jnp semantics of climate/precipitation.py
+// _rain_shadow2_jnp: every hop of one call. State [4, NP]: the columns
+// {shadow, windward} x {summer, winter}; aux [9, NP]: position, summer
+// wind, winter wind (xyz each). For a neighbour j of a LAND cell i, with
+// d = p_j - p_i:
+//   up   weight (shadow columns)   = w_j . (-d)   (wind at j toward i),
+//   down weight (windward columns) = w_i . d      (wind at i toward j),
+// each dot summed x, y, z in that order, as the jnp einsum. A neighbour
+// counts for a shadow column when its weight is > 0 and v_j < 0, for a
+// windward column when its weight is > 0 and v_j > 0; then
+//   wsum += w, wacc += w * v_j     (bands in order, then the remainder row);
+//   carried = wacc / max(wsum, 1e-20) * retain_c,
+//   out = min(v_i, carried) for shadow, max(v_i, carried) for windward,
+// and cells with wsum == 0 (and every non-land cell) keep their value.
+// Hop s updates the shadow columns while s < shadow_hops and the windward
+// columns while s < windward_hops; a frozen column keeps its value (the
+// Python loop's per-column torch.where). The state is not staged
+// (shadow_item says why).
+// The four weights of an edge depend on position and wind only: with a
+// weight store (wts != null) hop 0 computes them from aux and stores them,
+// slot-major ([slots, NP] float4: slot k of a cell is its k-th edge, bands
+// in order, then the row), and later hops read them back in place of 9
+// gathered aux values; a cell with more edges than slots (none on these
+// meshes: the degree is at most 8) recomputes its weights every hop, by
+// the same expressions, so the same bits. Without a store every hop
+// recomputes all weights.
+// Bound: bytes per hop (state, aux, land, bits and the CSR read once, the
+// state written once); ~40 flops per land edge per hop.
+struct ShadowRule {
+  const float* aux;   // [9, NP]
+  const float* land;  // [NP]
+  int* lands;         // [NP + 1]: the land cells as hop 0 lists them, then
+                      // their count (zeroed by the caller)
+  float4* wts;        // [slots, NP], or null
+  int slots;
+  float retain_s, retain_w;
+  int shadow_hops, windward_hops;
 };
 
 template <class R>
@@ -599,11 +639,356 @@ __device__ void smooth_item(const SmoothRule& r, const Geo& g,
   __syncthreads();  // the windows are restaged by the next item
 }
 
-// Work item `it` of a sweep (items = ng * chunks, group-major). Returns
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// The band phase of warp cell i from the pre-sweep state in global memory,
+// as (index, x, y, z): a remainder neighbour's candidate for this sweep.
+// The band neighbours load kWarpBatch at a time and compare in band order.
+__device__ float4 warp_band_global(const WarpRule& r, const Geo& g,
+                                   const float* src, int i, const int* offs,
+                                   uint32_t live) {
+  const size_t np = g.np;
+  const float tx = __ldg(r.w + i), ty = __ldg(r.w + np + i),
+              tz = __ldg(r.w + 2 * np + i);
+  uint32_t b = __ldg(g.bits + i) & live;
+  int jb = i;
+  float x = __ldcg(src + np + i), y = __ldcg(src + 2 * np + i),
+        z = __ldcg(src + 3 * np + i);
+  float best = dist2(x - tx, y - ty, z - tz);
+  while (b) {
+    int jj[kWarpBatch];
+    float xs[kWarpBatch], ys[kWarpBatch], zs[kWarpBatch];
+#pragma unroll
+    for (int u = 0; u < kWarpBatch; ++u) {
+      jj[u] = -1;
+      if (b) {
+        jj[u] = wrap(i + offs[__ffs(b) - 1], g.np);
+        b &= b - 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWarpBatch; ++u) {
+      if (jj[u] < 0) continue;
+      xs[u] = __ldcg(src + np + jj[u]);
+      ys[u] = __ldcg(src + 2 * np + jj[u]);
+      zs[u] = __ldcg(src + 3 * np + jj[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kWarpBatch; ++u) {
+      if (jj[u] < 0) continue;
+      const float cd = dist2(xs[u] - tx, ys[u] - ty, zs[u] - tz);
+      if (cd < best) {
+        best = cd;
+        x = xs[u];
+        y = ys[u];
+        z = zs[u];
+        jb = jj[u];
+      }
+    }
+  }
+  return make_float4(__ldcg(src + jb), x, y, z);
+}
+
+// One warp work item: cells [c0, c0 + T), one sweep, in three phases.
+// B: the block's threads share out the remainder edges of the chunk's
+//    rows (contiguous in the CSR) and recompute each edge's neighbour
+//    candidate into rcand[e], each a few L2 round trips at once, rather
+//    than one thread walking a row edge after edge; B reads only the
+//    pre-sweep state, so it runs while the windows stage.
+// A: the band phase of every cell from the staged windows, written to dst.
+// C: each cell with a row picks from rcand and patches its dst entry.
+__device__ bool warp_item(const WarpRule& r, const Geo& g, const float* src,
+                          float* dst, int c0, float* win, const int* offs) {
+  const size_t np = g.np;
+  const long wf = window_floats(g.T, g.H);
+  const Span sp = span_of(g, c0);
+  const uint32_t live = g.bands.n < 32 ? (1u << g.bands.n) - 1u : ~0u;
+  if (g.m > 0) {  // B; an edge off the mesh gets a candidate at +inf
+    const int e0 = row_begin(g.rptr, c0, g.m);
+    const int e1 = row_begin(g.rptr, sp.c1, g.m);
+    for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+      const int j = __ldg(g.rnbr + e);
+      r.rcand[e] = j >= 0 && j < g.np
+                       ? warp_band_global(r, g, src, j, offs, live)
+                       : make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+    }
+  }
+  for (int c = 0; c < 3; ++c) {
+    const float* sc = src + (c + 1) * np;
+    float4* w4 = reinterpret_cast<float4*>(win + c * wf);
+    stage<float4, kStageBatch>(
+        sp, g.np,
+        [&](int j) { return __ldcg(reinterpret_cast<const float4*>(sc + j)); },
+        [&](int q, float4 v) { w4[q] = v; });
+  }
+  __syncthreads();  // the windows and rcand are complete
+  const float* wx = win;
+  const float* wy = win + wf;
+  const float* wz = win + 2 * wf;
+  bool changed = false;
+  for (int i = c0 + threadIdx.x; i < sp.c1; i += blockDim.x) {
+    const int p = sp.base + (i - c0);
+    const float tx = __ldg(r.w + i), ty = __ldg(r.w + np + i),
+                tz = __ldg(r.w + 2 * np + i);
+    float best = dist2(wx[p] - tx, wy[p] - ty, wz[p] - tz);
+    int q = p;
+    for (uint32_t b = __ldg(g.bits + i) & live; b; b &= b - 1) {
+      const int qb = p + offs[__ffs(b) - 1];
+      const float cd = dist2(wx[qb] - tx, wy[qb] - ty, wz[qb] - tz);
+      if (cd < best) {
+        best = cd;
+        q = qb;
+      }
+    }
+    const float own = __ldcg(src + i);
+    float idx = own;
+    if (q != p) {
+      idx = __ldcg(src + wrap(i + (q - p), g.np));
+      changed |= idx != own;
+    }
+    dst[i] = idx;
+    dst[np + i] = wx[q];
+    dst[2 * np + i] = wy[q];
+    dst[3 * np + i] = wz[q];
+  }
+  if (g.m == 0) {
+    __syncthreads();  // the windows are restaged by the next item
+    return changed;
+  }
+  for (int i = c0 + threadIdx.x; i < sp.c1; i += blockDim.x) {
+    int e = row_begin(g.rptr, i, g.m);
+    const int k1 = row_end(g.rptr, i, g.m);
+    if (e >= k1) continue;
+    // min over the row (NaN-propagating, as torch.minimum), and the
+    // per-plane maxima of the candidates at the running min: those at
+    // the final min are the winners
+    const float tx = __ldg(r.w + i), ty = __ldg(r.w + np + i),
+                tz = __ldg(r.w + 2 * np + i);
+    const float best = dist2(dst[np + i] - tx, dst[2 * np + i] - ty,
+                             dst[3 * np + i] - tz);
+    float wmin = INFINITY;
+    float4 pk = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+#pragma unroll 4
+    for (; e < k1; ++e) {
+      const float4 c = __ldcg(r.rcand + e);
+      const float cd = dist2(c.y - tx, c.z - ty, c.w - tz);
+      if (cd < wmin || cd != cd) {
+        wmin = cd;
+        pk = c;
+      } else if (cd == wmin && isfinite(cd)) {
+        pk.x = c.x > pk.x ? c.x : pk.x;
+        pk.y = c.y > pk.y ? c.y : pk.y;
+        pk.z = c.z > pk.z ? c.z : pk.z;
+        pk.w = c.w > pk.w ? c.w : pk.w;
+      }
+    }
+    if (wmin < best) {
+      dst[i] = pk.x;
+      dst[np + i] = pk.y;
+      dst[2 * np + i] = pk.z;
+      dst[3 * np + i] = pk.w;
+      changed = true;
+    }
+  }
+  __syncthreads();  // the windows are restaged by the next item
+  return changed;
+}
+
+// A land cell's own position and winds, for the rain-shadow weights.
+struct ShadowOwn {
+  float px, py, pz, sx, sy, sz, wx, wy, wz;
+};
+
+// The four weights of the edge from neighbour j to the cell `o`.
+__device__ __forceinline__ float4 shadow_weights(const float* aux, size_t np,
+                                                 const ShadowOwn& o, int j) {
+  const float dx = __ldg(aux + j) - o.px, dy = __ldg(aux + np + j) - o.py,
+              dz = __ldg(aux + 2 * np + j) - o.pz;
+  const float nx = -dx, ny = -dy, nz = -dz;
+  float4 w;
+  w.x = __ldg(aux + 3 * np + j) * nx + __ldg(aux + 4 * np + j) * ny +
+        __ldg(aux + 5 * np + j) * nz;
+  w.y = __ldg(aux + 6 * np + j) * nx + __ldg(aux + 7 * np + j) * ny +
+        __ldg(aux + 8 * np + j) * nz;
+  w.z = o.sx * dx + o.sy * dy + o.sz * dz;
+  w.w = o.wx * dx + o.wy * dy + o.wz * dz;
+  return w;
+}
+
+__device__ __forceinline__ void shadow_add(float w, float v, bool counts,
+                                           float& wsum, float& wacc) {
+  if (counts && w > 0.0f) {
+    wsum += w;
+    wacc += w * v;
+  }
+}
+
+// One rain-shadow work item `it` of `items`, hop s. Only land cells
+// change, and land is clustered, so chunks hold very different numbers of
+// them: on hop 0 the block lists its chunk's land cells in cell order (in
+// the window's space), appends them to the global list r.lands (one
+// atomicAdd for the block) and relaxes them; from hop 1 on, item `it`
+// takes the it-th equal share of that list, one cell to a thread. The
+// other cells are copied on hops 0 and 1 (into both buffers) and on the
+// last. Between the first and the last hop the buffers hold the state
+// cell-major ([NP] float4: the 4 columns of a cell together), so a
+// neighbour is one 16-byte load through L2 (the land cells are a
+// minority, and staged windows read at random band offsets cost more than
+// they saved); hop 0 reads the [4, NP] input and the last hop writes
+// [4, NP]. A land cell takes its edges (slot k: the k-th set band bit,
+// then the k-th entry of its row) kShadowBatch at a time: their columns
+// and weights all load before any is added, in slot order. The stored
+// weights of slot k of the t-th listed cell sit at [k, t], so a warp's
+// loads are contiguous.
+__device__ __forceinline__ float4 load_cols(const float* buf, size_t np,
+                                            int i, bool planar) {
+  if (planar)
+    return make_float4(__ldcg(buf + i), __ldcg(buf + np + i),
+                       __ldcg(buf + 2 * np + i), __ldcg(buf + 3 * np + i));
+  return __ldcg(reinterpret_cast<const float4*>(buf) + i);
+}
+
+__device__ __forceinline__ void store_cols(float* buf, size_t np, int i,
+                                           bool planar, const float4& v) {
+  if (planar) {
+    buf[i] = v.x;
+    buf[np + i] = v.y;
+    buf[2 * np + i] = v.z;
+    buf[3 * np + i] = v.w;
+  } else {
+    reinterpret_cast<float4*>(buf)[i] = v;
+  }
+}
+
+__device__ void shadow_item(const ShadowRule& r, const Geo& g,
+                            const float* src, float* dst, int it, int items,
+                            float* win, const int* offs, int s) {
+  const size_t np = g.np;
+  const int c0 = it * g.T, c1 = min(c0 + g.T, g.np);
+  const int hops = max(r.shadow_hops, r.windward_hops);
+  const bool in_planar = s == 0, out_planar = s == hops - 1;
+  int* chunk_lands = reinterpret_cast<int*>(win);
+  int* count = r.lands + np;
+  __shared__ int wcount[kRelaxThreads / 32];
+  __shared__ int t_base;
+  int t0 = 0, t1 = 0;  // this item's share of the land list
+  if (s == 0) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    int nl = 0;
+    for (int base = c0; base < c1; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      const bool is_land = i < c1 && __ldg(r.land + i) > 0.0f;
+      if (i < c1 && !is_land)
+        store_cols(dst, np, i, out_planar, load_cols(src, np, i, true));
+      const unsigned ball = __ballot_sync(0xffffffffu, is_land);
+      if (lane == 0) wcount[wid] = __popc(ball);
+      __syncthreads();
+      int at = nl, total = nl;
+      for (int w = 0; w < (int)((blockDim.x + 31) >> 5); ++w) {
+        at += w < wid ? wcount[w] : 0;
+        total += wcount[w];
+      }
+      if (is_land) chunk_lands[at + __popc(ball & ((1u << lane) - 1u))] = i;
+      nl = total;
+      __syncthreads();  // wcount is rewritten next round
+    }
+    if (threadIdx.x == 0) t_base = atomicAdd(count, nl);
+    __syncthreads();
+    t0 = t_base;
+    t1 = t0 + nl;
+    for (int t = threadIdx.x; t < nl; t += blockDim.x)
+      r.lands[t0 + t] = chunk_lands[t];
+  } else {
+    if (s == 1 || out_planar) {
+      for (int i = c0 + threadIdx.x; i < c1; i += blockDim.x)
+        if (!(__ldg(r.land + i) > 0.0f))
+          store_cols(dst, np, i, out_planar, load_cols(src, np, i, false));
+    }
+    // complete: every block appended before hop 0's grid barrier
+    const long total = __ldcg(count);
+    t0 = (int)(total * it / items);
+    t1 = (int)(total * (it + 1) / items);
+  }
+  const bool act_s = s < r.shadow_hops, act_w = s < r.windward_hops;
+  const bool stored = r.wts != nullptr;
+  const uint32_t live = g.bands.n < 32 ? (1u << g.bands.n) - 1u : ~0u;
+  for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x) {
+    const int i = s == 0 ? chunk_lands[t - t0] : __ldcg(r.lands + t);
+    const float4 own_v = load_cols(src, np, i, in_planar);
+    float o[4] = {own_v.x, own_v.y, own_v.z, own_v.w};
+    uint32_t b = __ldg(g.bits + i) & live;
+    int e = g.m > 0 ? row_begin(g.rptr, i, g.m) : 0;
+    const int deg = __popc(b) + (g.m > 0 ? row_end(g.rptr, i, g.m) - e : 0);
+    // hops after the first read the stored weights; the first hop, a cell
+    // past the store's slots and the no-store design compute them
+    const bool from_store = stored && s > 0 && deg <= r.slots;
+    ShadowOwn own{};
+    if (!from_store) {
+      const float* a = r.aux + i;
+      own = ShadowOwn{__ldg(a), __ldg(a + np), __ldg(a + 2 * np),
+                      __ldg(a + 3 * np), __ldg(a + 4 * np),
+                      __ldg(a + 5 * np), __ldg(a + 6 * np),
+                      __ldg(a + 7 * np), __ldg(a + 8 * np)};
+    }
+    float wsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float wacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < deg; k0 += kShadowBatch) {
+      int jj[kShadowBatch];
+      float4 v[kShadowBatch], w[kShadowBatch];
+#pragma unroll
+      for (int u = 0; u < kShadowBatch; ++u) {
+        jj[u] = -1;
+        if (k0 + u >= deg) continue;
+        if (b) {
+          jj[u] = wrap(i + offs[__ffs(b) - 1], g.np);
+          b &= b - 1;
+        } else {
+          const int j = __ldg(g.rnbr + e++);
+          if (j >= 0 && j < g.np) jj[u] = j;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kShadowBatch; ++u) {
+        if (jj[u] < 0) continue;
+        v[u] = load_cols(src, np, jj[u], in_planar);
+        const size_t slot = (size_t)(k0 + u) * np + t;
+        if (from_store) {
+          w[u] = __ldcg(r.wts + slot);
+        } else {
+          w[u] = shadow_weights(r.aux, np, own, jj[u]);
+          if (stored && s == 0 && k0 + u < r.slots) r.wts[slot] = w[u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kShadowBatch; ++u) {
+        if (jj[u] < 0) continue;
+        shadow_add(w[u].x, v[u].x, act_s && v[u].x < 0.0f, wsum[0], wacc[0]);
+        shadow_add(w[u].y, v[u].y, act_s && v[u].y < 0.0f, wsum[1], wacc[1]);
+        shadow_add(w[u].z, v[u].z, act_w && v[u].z > 0.0f, wsum[2], wacc[2]);
+        shadow_add(w[u].w, v[u].w, act_w && v[u].w > 0.0f, wsum[3], wacc[3]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if ((c < 2 ? act_s : act_w) && wsum[c] > 0.0f) {
+        const float carried = wacc[c] / fmaxf(wsum[c], 1e-20f) *
+                              (c < 2 ? r.retain_s : r.retain_w);
+        o[c] = c < 2 ? fminf(o[c], carried) : fmaxf(o[c], carried);
+      }
+    }
+    store_cols(dst, np, i, out_planar, make_float4(o[0], o[1], o[2], o[3]));
+  }
+  __syncthreads();  // the window is reused by the next item
+}
+
+// Work item `it` of sweep s (items = ng * chunks, group-major). Returns
 // this thread's "some cell changed". All threads of the block call it.
 template <class R>
 __device__ bool run_item(const RelaxArgs<R>& a, const float* src, float* dst,
-                         int it, int chunks, float* win, const int* offs) {
+                         int it, int chunks, float* win, const int* offs,
+                         int) {
   const int f = it / chunks;
   return relax_item(a.rule, a.geo, src, dst, f, (it - f * chunks) * a.geo.T,
                     win, offs, a.inner);
@@ -611,7 +996,7 @@ __device__ bool run_item(const RelaxArgs<R>& a, const float* src, float* dst,
 
 __device__ bool run_item(const RelaxArgs<StressRule>& a, const float* src,
                          float* dst, int it, int chunks, float* win,
-                         const int* offs) {
+                         const int* offs, int) {
   const int l = it / chunks;
   return stress_item(a.rule, a.geo, src, dst, l, (it - l * chunks) * a.geo.T,
                      win, offs);
@@ -622,8 +1007,21 @@ struct SmoothArgs : RelaxArgs<SmoothRule> {};
 
 template <int F>
 __device__ bool run_item(const SmoothArgs<F>& a, const float* src, float* dst,
-                         int it, int, float* win, const int* offs) {
+                         int it, int, float* win, const int* offs, int) {
   smooth_item<F>(a.rule, a.geo, src, dst, it * a.geo.T, win, offs);
+  return false;
+}
+
+__device__ bool run_item(const RelaxArgs<WarpRule>& a, const float* src,
+                         float* dst, int it, int, float* win, const int* offs,
+                         int) {
+  return warp_item(a.rule, a.geo, src, dst, it * a.geo.T, win, offs);
+}
+
+__device__ bool run_item(const RelaxArgs<ShadowRule>& a, const float* src,
+                         float* dst, int it, int chunks, float* win,
+                         const int* offs, int s) {
+  shadow_item(a.rule, a.geo, src, dst, it, chunks, win, offs, s);
   return false;
 }
 
@@ -636,7 +1034,7 @@ __device__ void sweep_once(const A& a, int* flag) {
     offs[d] = g.bands.off[d];
   __syncthreads();
   const int chunks = (g.np + g.T - 1) / g.T;
-  or_flag(flag, run_item(a, a.in, a.out, blockIdx.x, chunks, win, offs));
+  or_flag(flag, run_item(a, a.in, a.out, blockIdx.x, chunks, win, offs, 0));
 }
 
 template <class A>
@@ -658,7 +1056,7 @@ __device__ void relax_loop(const A& a) {
     float* dst = (s & 1) ? a.tmp : a.out;
     bool changed = false;
     for (int it = blockIdx.x; it < items; it += gridDim.x)
-      changed |= run_item(a, src, dst, it, chunks, win, offs);
+      changed |= run_item(a, src, dst, it, chunks, win, offs, s);
     if (__syncthreads_or(changed) && threadIdx.x == 0)
       atomicOr(&a.ctl[s % 3], 1);
     if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[(s + 1) % 3] = 0;
@@ -699,94 +1097,11 @@ template <int F>
 __global__ void __launch_bounds__(kRelaxThreads)
 smooth_relax_kernel(SmoothArgs<F> a) { relax_loop(a); }
 
-// ── 6. Rain-shadow hop ─────────────────────────────────────────────────
-// Replaces _make_shadow_kernel (sweep_pallas.py:619); the jnp semantics of
-// climate/precipitation.py _rain_shadow2_jnp, one hop per launch. One
-// thread per cell carries all four columns of the state
-//   {shadow, windward} x {summer, winter}  (signs -1, -1, +1, +1).
-// aux planes: 0-2 position, 3-5 summer wind, 6-8 winter wind (xyz). For a
-// neighbour j of a LAND cell i, with d = p_j - p_i:
-//   up  weight (shadow columns)   = w_j . (-d)   (wind at j toward i),
-//   down weight (windward columns) = w_i . d      (wind at i toward j),
-// each dot summed x, y, z in that order, as the jnp einsum. A neighbour
-// counts for column c when its weight is > 0 and v_j * sign_c > 0; then
-//   wsum += w, wacc += w * v_j      (bands in order, then the remainder);
-//   carried = wacc / max(wsum, 1e-20) * retain_c,
-//   out = min(v_i, carried) for shadow, max(v_i, carried) for windward,
-// and cells with wsum == 0 (and every non-land cell) keep their value. The
-// per-column hop cap is the Python loop's. The weights are recomputed per band
-// from the position and wind planes instead of being read from a
-// materialized [D, 4, NP] stack (the jnp path at <= 400K cells): 9 aux
-// planes against 128. Bound: bytes — state, aux, land, bits and the CSR
-// read once, the state written once: 19 planes, ~16 MB at 204K, ~5 us at
-// 3.35 TB/s (about 40 flops per edge stay far below the f32 rate).
-__global__ void __launch_bounds__(kThreads)
-shadow_sweep_kernel(const float* __restrict__ s, const float* __restrict__ aux,
-                    const float* __restrict__ land,
-                    const uint32_t* __restrict__ bits,
-                    const int* __restrict__ rptr, const int* __restrict__ rnbr,
-                    int m, float* __restrict__ out, int np, Bands bands,
-                    float retain_s, float retain_w) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= np) return;
-  float v[4];
-  for (int c = 0; c < 4; ++c) v[c] = s[(size_t)c * np + i];
-  if (!(land[i] > 0.0f)) {
-    for (int c = 0; c < 4; ++c) out[(size_t)c * np + i] = v[c];
-    return;
-  }
-  const float* px = aux;
-  const float* py = aux + (size_t)np;
-  const float* pz = aux + 2 * (size_t)np;
-  const float* sx = aux + 3 * (size_t)np;
-  const float* sy = aux + 4 * (size_t)np;
-  const float* sz = aux + 5 * (size_t)np;
-  const float* wx = aux + 6 * (size_t)np;
-  const float* wy = aux + 7 * (size_t)np;
-  const float* wz = aux + 8 * (size_t)np;
-  const float pix = px[i], piy = py[i], piz = pz[i];
-  const float six = sx[i], siy = sy[i], siz = sz[i];
-  const float wix = wx[i], wiy = wy[i], wiz = wz[i];
-  const float sgn[4] = {-1.0f, -1.0f, 1.0f, 1.0f};
-  float wsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float wacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+__global__ void __launch_bounds__(kRelaxThreads)
+warp_relax_kernel(RelaxArgs<WarpRule> a) { relax_loop(a); }
 
-  auto visit = [&](int j) {
-    const float dx = px[j] - pix, dy = py[j] - piy, dz = pz[j] - piz;
-    const float nx = -dx, ny = -dy, nz = -dz;
-    float w[4];
-    w[0] = sx[j] * nx + sy[j] * ny + sz[j] * nz;
-    w[1] = wx[j] * nx + wy[j] * ny + wz[j] * nz;
-    w[2] = six * dx + siy * dy + siz * dz;
-    w[3] = wix * dx + wiy * dy + wiz * dz;
-    for (int c = 0; c < 4; ++c) {
-      const float vj = s[(size_t)c * np + j];
-      if (w[c] > 0.0f && vj * sgn[c] > 0.0f) {
-        wsum[c] += w[c];
-        wacc[c] += w[c] * vj;
-      }
-    }
-  };
-
-  const uint32_t b = bits[i];
-  for (int d = 0; d < bands.n; ++d) {
-    if ((b >> d) & 1u) visit(wrap(i + bands.off[d], np));
-  }
-  const int k1 = row_end(rptr, i, m);
-  for (int k = row_begin(rptr, i, m); k < k1; ++k) {
-    const int j = rnbr[k];
-    if (j >= 0 && j < np) visit(j);
-  }
-  for (int c = 0; c < 4; ++c) {
-    float o = v[c];
-    if (wsum[c] > 0.0f) {
-      const float carried = wacc[c] / fmaxf(wsum[c], 1e-20f)
-                            * (c < 2 ? retain_s : retain_w);
-      o = c < 2 ? fminf(v[c], carried) : fmaxf(v[c], carried);
-    }
-    out[(size_t)c * np + i] = o;
-  }
-}
+__global__ void __launch_bounds__(kRelaxThreads)
+shadow_relax_kernel(RelaxArgs<ShadowRule> a) { relax_loop(a); }
 
 Bands make_bands(const int* offs, int n_offs) {
   Bands b;
@@ -794,8 +1109,6 @@ Bands make_bands(const int* offs, int n_offs) {
   for (int d = 0; d < kMaxBands; ++d) b.off[d] = d < n_offs ? offs[d] : 0;
   return b;
 }
-
-int blocks_for(long total) { return (int)((total + kThreads - 1) / kThreads); }
 
 // The largest dynamic shared memory a block may take (227 KB), less room
 // for the static shared words.
@@ -809,6 +1122,7 @@ Geo make_geo(const uint32_t* bits, const int* rptr, const int* rnbr, int m,
   g.nw = nw;
   g.T = 0;
   g.H = 0;
+  g.tstep = kRelaxThreads;
   g.m = (rptr != nullptr && rnbr != nullptr && m > 0) ? m : 0;
   g.bits = bits;
   g.rptr = rptr;
@@ -848,7 +1162,8 @@ Plan g_plans[kPlanSlots];
 int g_plan_count = 0;
 std::mutex g_plan_mu;
 
-// T: kItemsPerSm work items per SM, a multiple of the block size, no
+// T: kItemsPerSm work items per SM, a multiple of g.tstep (the block size;
+// 4 for warp and the rain shadow, whose items then fill every SM), no
 // larger than the mesh or than what shared memory holds: nw windows of
 // T + 2H floats plus the float4 alignment slack. Grid: one block per item,
 // or for a cooperative launch the co-resident blocks (no more than there
@@ -873,10 +1188,11 @@ int get_plan(const void* kern, bool cooperative, const Geo& g, Plan* out) {
   if (e != 0) return e;
   const int threads = kRelaxThreads;
   const long per = kItemsPerSm * nsm;
+  const long step = g.tstep;
   long t = ((long)g.ng * g.np + per - 1) / per;
-  t = (t + threads - 1) / threads * threads;
-  t = std::max(t, (long)threads);
-  t = std::min(t, ((long)g.np + threads - 1) / threads * threads);
+  t = (t + step - 1) / step * step;
+  t = std::max(t, step);
+  t = std::min(t, ((long)g.np + step - 1) / step * step);
   t = std::min(t, kMaxWindowFloats / g.nw - 2L * h - 11);
   if (t < 1) return (int)cudaErrorInvalidValue;
   Plan p{kern, dev, g.np, g.ng, g.nw, h, (int)t, 0,
@@ -1009,13 +1325,29 @@ int stress_relax(const float* state, const float* ocean,
   return launch_relax(stress_relax_kernel, a, (cudaStream_t)stream);
 }
 
-int warp_sweep(const float* state, const float* w, const uint32_t* bits,
-               float* out, int* flag, int np, const int* offs, int n_offs,
-               void* stream) {
-  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
-  warp_sweep_kernel<<<blocks_for(np), kThreads, 0, (cudaStream_t)stream>>>(
-      state, w, bits, out, flag, np, make_bands(offs, n_offs));
-  return (int)cudaGetLastError();
+// state [4, NP] (index, xyz), w [3, NP]; at most `cap` >= 1 sweeps.
+// rcand: [M] float4 scratch, one per remainder edge (16-byte aligned).
+int warp_relax(const float* state, const float* w, const uint32_t* bits,
+               const int* rem_ptr, const int* rem_nbr, int m, float* rcand,
+               float* out, float* tmp, int* ctl, int* total, int np,
+               const int* offs, int n_offs, int cap, void* stream) {
+  if (bad_shape(np, 1, n_offs) || cap < 1 ||
+      !staged_ok(np, {state, out, tmp, rcand}))
+    return (int)cudaErrorInvalidValue;
+  RelaxArgs<WarpRule> a{};
+  a.rule.w = w;
+  a.rule.rcand = reinterpret_cast<float4*>(rcand);
+  a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, 1, 3, offs, n_offs);
+  a.geo.tstep = 4;
+  a.in = state;
+  a.out = out;
+  a.tmp = tmp;
+  a.ctl = ctl;
+  a.total = total;
+  a.cap = cap;
+  a.inner = 1;
+  a.planes = 4;
+  return launch_relax(warp_relax_kernel, a, (cudaStream_t)stream);
 }
 
 int flood_relax(const float* surf, const float* inland,
@@ -1069,15 +1401,37 @@ int smooth_relax(const float* field, const float* c, const float* gate,
   }
 }
 
-int shadow_sweep(const float* state, const float* aux, const float* land,
+// state [4, NP], aux [9, NP], land [NP]; exactly max(shadow_hops,
+// windward_hops) >= 1 hops. lands: [NP + 1] int32 scratch, zeroed. wts:
+// [slots, NP] float4 scratch for the edge weights, or null to recompute
+// them every hop.
+int shadow_relax(const float* state, const float* aux, const float* land,
                  const uint32_t* bits, const int* rem_ptr, const int* rem_nbr,
-                 int m, float* out, int np, const int* offs, int n_offs,
-                 float retain_s, float retain_w, void* stream) {
-  if (n_offs < 0 || n_offs > kMaxBands) return (int)cudaErrorInvalidValue;
-  shadow_sweep_kernel<<<blocks_for(np), kThreads, 0, (cudaStream_t)stream>>>(
-      state, aux, land, bits, rem_ptr, rem_nbr, m, out, np,
-      make_bands(offs, n_offs), retain_s, retain_w);
-  return (int)cudaGetLastError();
+                 int m, float* out, float* tmp, int* ctl, int* lands,
+                 float* wts, int slots, int np, const int* offs, int n_offs,
+                 float retain_s, float retain_w, int shadow_hops,
+                 int windward_hops, void* stream) {
+  const int hops = std::max(shadow_hops, windward_hops);
+  if (bad_shape(np, 1, n_offs) || hops < 1 || lands == nullptr ||
+      (wts != nullptr && (slots < 1 || !aligned16(wts))) ||
+      !staged_ok(np, {state, out, tmp}))
+    return (int)cudaErrorInvalidValue;
+  RelaxArgs<ShadowRule> a{};
+  a.rule = ShadowRule{aux, land, lands, reinterpret_cast<float4*>(wts),
+                      wts != nullptr ? slots : 0, retain_s, retain_w,
+                      shadow_hops, windward_hops};
+  // one window's space holds the chunk's land-cell list
+  a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, 1, 1, offs, n_offs);
+  a.geo.tstep = 4;
+  a.in = state;
+  a.out = out;
+  a.tmp = tmp;
+  a.ctl = ctl;
+  a.cap = hops;
+  a.inner = 1;
+  a.planes = 4;
+  a.fixed = true;
+  return launch_relax(shadow_relax_kernel, a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -4,11 +4,12 @@ nearest-cell search.
 Re-design of reference warpTerrain (js/terrain-post.js:233-309). Every
 cell carries its best "source cell" candidate (index + position); each
 sweep it adopts any neighbour's candidate that lies strictly closer to its
-own warped target point (the warp kernel, ops/sweep_cuda.py), then the
-remainder edges' two-phase scatter pick. After k sweeps cell i has
-considered every cell within k hops, so ``max_steps`` sweeps find the
-nearest cell in the displacement ball; one final gather fetches the warped
-elevation.
+own warped target point, then the remainder edges' two-phase pick. After
+k sweeps cell i has considered every cell within k hops, so ``max_steps``
+sweeps find the nearest cell in the displacement ball; one final gather
+fetches the warped elevation. The whole loop is one launch of the warp
+relax kernel (ops/sweep_cuda.py ``warp_relax``), which stops at the first
+sweep that changes nothing, with no host sync.
 
 The sweeps are synchronous. The JAX jnp loop (``_warp_terrain_jnp``)
 updates band by band within a step, so a later band sees the earlier
@@ -22,10 +23,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import sweep_cuda
-from ..ops.banded import pack_band_bits, relax
+from ..ops.banded import pack_band_bits, rem_csr
 from ..ops.noise import Tables, fbm
-
-INF = float("inf")
 
 
 def warp_targets(pos, noise_t: Tables, strength):
@@ -84,26 +83,9 @@ def warp_sources(pos, w, band_off, band_mask, rem_src, rem_dst,
                        pos.T]).contiguous()                      # [4, N]
     wt = w.T.contiguous()                                        # [3, N]
     bits = pack_band_bits(band_mask)
-    wr = wt[:, rem_src]                                          # [3, M]
-    idx4 = rem_src[None, :].expand(4, -1)
-
-    def step(state, flag):
-        new = sweep_cuda.warp_sweep(state, wt, bits, band_off, flag)
-        # remainder edges: candidate at rem_dst vs the best at rem_src
-        cp = new[1:4, rem_dst]
-        cd = sweep_cuda.dist2(cp, wr)
-        wmin = torch.full((n,), INF, device=pos.device).scatter_reduce(
-            0, rem_src, cd, "amin")
-        is_win = (cd == wmin[rem_src]) & torch.isfinite(cd)
-        picked = torch.cat([new[0, rem_dst][None], cp])          # [4, M]
-        pick = torch.full((4, n), -INF, device=pos.device).scatter_reduce(
-            1, idx4, torch.where(is_win, picked, -INF), "amax")
-        upd = wmin < sweep_cuda.dist2(new[1:4], wt)
-        if flag is not None:
-            flag |= upd.any().to(torch.int32)
-        return torch.where(upd, pick, new)
-
-    state, _ = relax(step, state, cap=max_steps)
+    ptr, nbr = rem_csr(rem_src, rem_dst, n)
+    state, _ = sweep_cuda.warp_relax(state, wt, bits, band_off, ptr, nbr,
+                                     max_steps)
     return state[0]
 
 

@@ -13,13 +13,13 @@ mode) — normally splatted from ``g.bands``.
 
 The fixpoint loops follow the JAX jnp loops' semantics: iteration caps
 bound the number of sweeps, and a loop ends at the first sweep that changes
-nothing. The distance BFS and the stress propagation run their whole loop
-in one relax launch of their kernel (ops/sweep_cuda.py, plain torch on CPU
-tensors), with no host sync. The carry BFS, components and flood_assign
-(and the terrain warp, erosion/warp.py) run one synchronous sweep per step
-under :func:`relax`, which reads the change flag every ``CHECK_EVERY``
-sweeps (a host sync); the extra sweeps past a fixpoint are no-ops and no
-loop runs past its cap.
+nothing. The distance BFS and the stress propagation (and the terrain warp
+and the ε-fill, in erosion/) run their whole loop in one relax launch of
+their kernel (ops/sweep_cuda.py, plain torch on CPU tensors), with no host
+sync. Only the carry BFS, components and flood_assign run one synchronous
+sweep per step under :func:`relax`, which reads the change flag every
+``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a fixpoint are
+no-ops and no loop runs past its cap.
 
 The climate's Laplacian smoothing runs all the passes of a call in one
 launch of the smoothing kernel; it sums, so it takes the remainder edges

@@ -9,18 +9,18 @@ Six kernels (csrc/sweeps.cu):
 ``warp``   nearest-candidate propagation of the terrain domain warp
 ``flood``  priority-flood ε-fill surface relaxation
 ``smooth`` Laplacian smoothing passes (plain, masked, frozen cells)
-``shadow`` one rain-shadow hop (wind-aligned weighted min / max)
+``shadow`` rain-shadow hops (wind-aligned weighted min / max)
 =========  ==========================================================
 
-Four run their whole loop in ONE cooperative launch (grid barrier between
+Each runs its whole loop in ONE cooperative launch (grid barrier between
 sweeps, sweep count in device memory), nothing read back to the host:
-``bfs_relax``, ``flood_relax`` and ``stress_relax`` to their fixpoint or
-cap (device-side change flag) and return ``(state, sweeps)`` with
-``sweeps`` an int32 [1] device tensor; ``smooth_relax`` runs a fixed
-number of passes and returns the state. Warp, rain shadow and the
-components loop's BFS have a one-sweep entry (``<name>_sweep``). The
-ε-fill's and smoothing's one sweep exist only as plain versions, the
-relax loops' oracles.
+``bfs_relax``, ``flood_relax``, ``stress_relax`` and ``warp_relax`` to
+their fixpoint or cap (device-side change flag) and return ``(state,
+sweeps)`` with ``sweeps`` an int32 [1] device tensor; ``smooth_relax``
+and ``shadow_relax`` run a fixed number of passes / hops and return the
+state. The components loop's BFS also has a one-sweep entry
+(``bfs_sweep``). The other kernels' one sweep exists only as a plain
+version (``<name>_sweep_plain``), the step of the relax loops' oracles.
 
 Every wrapper takes the state as [F, NP] float32 planes, the band bits as
 one int32 word per cell (bit d = band d present, the packed form of
@@ -32,18 +32,18 @@ fallback between the two.
 The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 ``_build/`` beside this package at first use, and rebuilt when the source
 is newer than the library. ``LAUNCHES`` counts launches per kernel
-(``bfs`` the one-sweep BFS, ``bfs_relax``, ``stress``, ``flood`` and
-``smooth`` the relax launches, one each), and :func:`sweeps_run` the
-sweeps (ε-fill: rounds) that the fixpoint relax launches ran; the plain
-versions never count.
+(``bfs`` the one-sweep BFS; ``bfs_relax``, ``stress``, ``warp``,
+``flood``, ``smooth`` and ``shadow`` the relax launches, one each), and
+:func:`sweeps_run` the sweeps (ε-fill: rounds) that the fixpoint relax
+launches ran; the plain versions never count.
 
 Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
 receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
-[M], from ops/banded.py ``rem_csr``). The relax and rain-shadow kernels
-walk them in-kernel after the bands (a sum keeps the jnp order; a min is
+[M], from ops/banded.py ``rem_csr``). The relax kernels walk them
+in-kernel after the bands (a sum keeps the jnp order; a min or max is
 order-free; stress keeps the jnp's tie rule); their plain versions walk
-the same rows. The one-sweep warp and BFS entries take no CSR: their
-drivers apply the remainder edges as torch scatters after each launch.
+the same rows. The one-sweep BFS entry takes no CSR: the components loop
+applies the remainder edges as torch scatters after each launch.
 """
 
 from __future__ import annotations
@@ -69,6 +69,8 @@ LAUNCHES = {"bfs": 0, "bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
 # ε-fill sweeps per barrier round on the staged chunk (BFS always runs 1)
 FLOOD_INNER = 4
 
+INF = float("inf")
+
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -82,8 +84,10 @@ _ARGTYPES = {
     # total, np, ng, offs, n_offs, decay, sub_decay, cap, stream
     "stress_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                      _I, _F, _F, _I, _P],
-    # state, w, bits, out, flag, np, offs, n_offs, stream
-    "warp_sweep": [_P, _P, _P, _P, _P, _I, _P, _I, _P],
+    # state, w, bits, rem_ptr, rem_nbr, m, rcand, out, tmp, ctl, total, np,
+    # offs, n_offs, cap, stream
+    "warp_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                   _I, _P],
     # cur, cost, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, total, np, nf,
     # offs, n_offs, cap, stream
     "bfs_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I,
@@ -96,19 +100,23 @@ _ARGTYPES = {
     # nf, offs, n_offs, passes, stream
     "smooth_relax": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P,
                      _I, _I, _P],
-    # state, aux, land, bits, rem_ptr, rem_nbr, m, out, np, offs, n_offs,
-    # retain_s, retain_w, stream
-    "shadow_sweep": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F,
-                     _P],
+    # state, aux, land, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, lands,
+    # wts, slots, np, offs, n_offs, retain_s, retain_w, shadow_hops,
+    # windward_hops, stream
+    "shadow_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                     _P, _I, _F, _F, _I, _I, _P],
 }
 
 
-# per CUDA device: int32 [3] running sweep totals of the bfs / flood /
-# stress relax launches, added to by the kernels themselves
+# per CUDA device: int32 [4] running sweep totals of the bfs / flood /
+# stress / warp relax launches, added to by the kernels themselves
 _SWEEP_TOTALS: dict = {}
-_RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2}
+_RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3}
 # the most fields one smoothing launch carries (csrc kMaxSmoothFields)
 SMOOTH_MAX_FIELDS = 4
+# rain-shadow edge weights stored per land cell (the mesh degree is at
+# most 8; a cell with more edges recomputes its weights every hop)
+SHADOW_SLOTS = 8
 
 
 def reset_launches() -> None:
@@ -406,18 +414,66 @@ def warp_sweep_plain(state, w, bits, band_off, flag=None):
     return out.clone() if out is state else out
 
 
-def warp_sweep(state, w, bits, band_off, flag=None):
-    """One nearest-candidate sweep over the [4, NP] state (source index,
-    source xyz) against the [3, NP] targets ``w``."""
+def warp_remainder_plain(new, w, rem_ptr, rem_nbr):
+    """The remainder phase of a warp sweep on the band phase's output
+    ``new``: per cell, ``wmin`` = the least ``dist2(new_j, w_i)`` over its
+    remainder row and, among the edges at ``wmin`` with a finite distance,
+    the largest value of each plane separately; the cell takes that pick
+    where ``wmin < dist2(new_i, w_i)``. Returns (state, taken [NP] bool)."""
+    rows = [(has, j, torch.where(has, dist2(new[1:4, j], w), INF))
+            for has, j in _rem_rows(rem_ptr, rem_nbr)]
+    wmin = torch.full_like(new[0], INF)
+    for _, _, cd in rows:
+        wmin = torch.minimum(wmin, cd)
+    pick = torch.full_like(new, -INF)
+    for has, j, cd in rows:
+        win = has & (cd == wmin) & torch.isfinite(cd)
+        pick = torch.where(win, torch.maximum(pick, new[:, j]), pick)
+    taken = wmin < dist2(new[1:4], w)
+    return torch.where(taken, pick, new), taken
+
+
+def warp_relax_plain(state, w, bits, band_off, rem_ptr, rem_nbr, cap: int):
+    """The loop of :func:`warp_relax` in plain torch."""
+    sweeps = 0
+    while sweeps < int(cap):
+        new = warp_sweep_plain(state, w, bits, band_off)
+        changed = bool((new[0] != state[0]).any())
+        state, taken = warp_remainder_plain(new, w, rem_ptr, rem_nbr)
+        sweeps += 1
+        if not (changed or bool(taken.any())):
+            break
+    return state, torch.tensor([sweeps], dtype=torch.int32)
+
+
+def warp_relax(state, w, bits, band_off, rem_ptr, rem_nbr, cap: int):
+    """Nearest-candidate sweeps over the [4, NP] state (source index,
+    source xyz) toward the [3, NP] targets ``w``, until a sweep changes
+    nothing or ``cap`` sweeps ran (< 1: none). A sweep is the band phase
+    (:func:`warp_sweep_plain`) and then the remainder phase
+    (:func:`warp_remainder_plain`) on its output; it changed something when
+    an index changed in the band phase or a cell took a remainder pick.
+    Returns (state, sweeps)."""
     if _on_cpu(state):
-        return warp_sweep_plain(state, w, bits, band_off, flag)
-    fn = _kernel("warp_sweep")
-    _check(bits, flag, (state, 4), (w, 3))
-    out = torch.empty_like(state)
+        return warp_relax_plain(state, w, bits, band_off, rem_ptr, rem_nbr,
+                                cap)
+    fn = _kernel("warp_relax")
+    _check(bits, None, (state, 4), (w, 3))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    if int(cap) < 1:
+        return state.clone(), torch.zeros(1, dtype=torch.int32,
+                                          device=state.device)
+    out, tmp = torch.empty_like(state), torch.empty_like(state)
+    # each remainder edge's neighbour candidate, recomputed every sweep
+    rcand = torch.empty((max(1, rem_nbr.shape[0]), 4), dtype=torch.float32,
+                        device=state.device)
+    ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "warp", _ptr(state), _ptr(w), _ptr(bits),
-            _ptr(out), _ptr(flag), state.shape[1], offs, nd)
-    return out
+    _launch(fn, "warp", _ptr(state), _ptr(w), _ptr(bits), _ptr(rem_ptr),
+            _ptr(rem_nbr), rem_nbr.shape[0], _ptr(rcand), _ptr(out),
+            _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("warp", state.device)),
+            state.shape[1], offs, nd, int(cap))
+    return out, ctl[3:]
 
 
 # ── 4. ε-fill (one sweep, plain: the relax loop's oracle) ──────────
@@ -657,20 +713,64 @@ def shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     return torch.where(wsum > 0, ext, state)
 
 
-def shadow_sweep(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
-                 retain_s: float, retain_w: float):
-    """One rain-shadow hop over the [4, NP] state {shadow, windward} ×
-    {summer, winter}; ``aux`` [9, NP] holds position, summer wind and
-    winter wind (xyz each), ``land`` [NP] 0/1 gates the receiving cell."""
+def shadow_relax_plain(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                       retain_s: float, retain_w: float, shadow_hops: int,
+                       windward_hops: int):
+    """The hops of :func:`shadow_relax` in plain torch."""
+    windward = torch.tensor([False, False, True, True],
+                            device=state.device)[:, None]
+    for i in range(max(int(shadow_hops), int(windward_hops))):
+        new = shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr,
+                                 rem_nbr, retain_s, retain_w)
+        if i >= windward_hops:
+            new = torch.where(windward, state, new)
+        if i >= shadow_hops:
+            new = torch.where(windward, new, state)
+        state = new
+    return state
+
+
+def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                 retain_s: float, retain_w: float, shadow_hops: int,
+                 windward_hops: int):
+    """``max(shadow_hops, windward_hops)`` rain-shadow hops over the
+    [4, NP] state {shadow, windward} × {summer, winter} in one launch; hop
+    i updates the shadow columns while i < ``shadow_hops`` and the windward
+    columns while i < ``windward_hops``. ``aux`` [9, NP] holds position,
+    summer wind and winter wind (xyz each), ``land`` [NP] 0/1 gates the
+    receiving cell. The kernel computes each edge's wind weights on the
+    first hop and reads them back on the others. Returns the state."""
+    return _shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                         retain_s, retain_w, shadow_hops, windward_hops, True)
+
+
+def _shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
+                  retain_s: float, retain_w: float, shadow_hops: int,
+                  windward_hops: int, stored: bool):
+    """:func:`shadow_relax`, with the edge weights stored after the first
+    hop (``stored``) or recomputed from ``aux`` every hop (the smoke script
+    times both)."""
     if _on_cpu(state):
-        return shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr,
-                                  rem_nbr, retain_s, retain_w)
-    fn = _kernel("shadow_sweep")
+        return shadow_relax_plain(state, aux, land, bits, band_off, rem_ptr,
+                                  rem_nbr, retain_s, retain_w, shadow_hops,
+                                  windward_hops)
+    fn = _kernel("shadow_relax")
     _check(bits, None, (state, 4), (aux, 9), (land, None))
     _check_csr(bits, rem_ptr, rem_nbr)
-    out = torch.empty_like(state)
+    if max(int(shadow_hops), int(windward_hops)) < 1:
+        return state.clone()
+    np_ = state.shape[1]
+    out, tmp = torch.empty_like(state), torch.empty_like(state)
+    ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
+    # the land cells as the first hop lists them, then their count
+    lands = torch.zeros(np_ + 1, dtype=torch.int32, device=state.device)
+    wts = (torch.empty((SHADOW_SLOTS, np_, 4), dtype=torch.float32,
+                       device=state.device) if stored else None)
     offs, nd = _offs(band_off)
     _launch(fn, "shadow", _ptr(state), _ptr(aux), _ptr(land), _ptr(bits),
             _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
-            state.shape[1], offs, nd, float(retain_s), float(retain_w))
+            _ptr(tmp), _ptr(ctl), _ptr(lands), _ptr(wts),
+            SHADOW_SLOTS if stored else 0,
+            np_, offs, nd, float(retain_s), float(retain_w),
+            int(shadow_hops), int(windward_hops))
     return out

@@ -111,12 +111,12 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
         "bfs": lambda: sweep_cuda.bfs_sweep(x, x, x, (1,)),
         "stress": lambda: sweep_cuda.stress_relax(x, x, x, (1,), x, x, x,
                                                   0.9, 0.8, 5),
-        "warp": lambda: sweep_cuda.warp_sweep(x, x, x, (1,)),
+        "warp": lambda: sweep_cuda.warp_relax(x, x, x, (1,), x, x, 5),
         "flood": lambda: sweep_cuda.flood_relax(x, x, x, x, (1,), x, x, 1e9,
                                                 1e-6),
         "smooth": lambda: sweep_cuda.smooth_relax(x, x, x, (1,), x, x, 3),
-        "shadow": lambda: sweep_cuda.shadow_sweep(x, x, x, x, (1,), x, x,
-                                                  0.9, 0.8),
+        "shadow": lambda: sweep_cuda.shadow_relax(x, x, x, x, (1,), x, x,
+                                                  0.9, 0.8, 3, 2),
         "bfs_relax": lambda: sweep_cuda.bfs_relax(x, x, x, (1,), x, x, 5),
     }[kernel]
     with pytest.raises(RuntimeError):
@@ -216,20 +216,21 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
                                  rem_nbr, rgate, 0.9, 0.7, 4),
          sweep_cuda.stress_relax_plain(layers, st[2:], lbits, offs, rem_ptr,
                                        rem_nbr, rgate, 0.9, 0.7, 4)),
+        (sweep_cuda.warp_relax(st, w, bits, offs, rem_ptr, rem_nbr, 3),
+         sweep_cuda.warp_relax_plain(st, w, bits, offs, rem_ptr, rem_nbr,
+                                     3)),
     ]
     pairs = [x for (a, b) in relaxed for x in zip(a, b)] + [
         (sweep_cuda.bfs_sweep(st, st, bits, offs),
          sweep_cuda.bfs_sweep_plain(st, st, bits, offs)),
-        (sweep_cuda.warp_sweep(st, w, bits, offs),
-         sweep_cuda.warp_sweep_plain(st, w, bits, offs)),
         (sweep_cuda.smooth_relax(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
                                  2, st[2], st[3]),
          sweep_cuda.smooth_relax_plain(st, st[0] + 2, bits, offs, rem_ptr,
                                        rem_nbr, 2, st[2], st[3])),
-        (sweep_cuda.shadow_sweep(st - 0.5, aux, st[2], bits, offs, rem_ptr,
-                                 rem_nbr, 0.9, 0.8),
-         sweep_cuda.shadow_sweep_plain(st - 0.5, aux, st[2], bits, offs,
-                                       rem_ptr, rem_nbr, 0.9, 0.8)),
+        (sweep_cuda.shadow_relax(st - 0.5, aux, st[2], bits, offs, rem_ptr,
+                                 rem_nbr, 0.9, 0.8, 3, 2),
+         sweep_cuda.shadow_relax_plain(st - 0.5, aux, st[2], bits, offs,
+                                       rem_ptr, rem_nbr, 0.9, 0.8, 3, 2)),
     ]
     for a, b in pairs:
         assert torch.equal(a, b)
