@@ -23,13 +23,14 @@ Phases (any failure exits non-zero with its traceback):
    cap of 68 sweeps, where the cap must bind, and at a decay that reaches
    its fixpoint before it; warp toward the path's targets at its cap of 17
    sweeps and at a cap that binds (BFS, stress and warp also in their
-   sweep count); the ε-fill at 1, 4 and 8 inner sweeps per barrier round;
-   smoothing at every (fields, gate, update mask, passes) shape of the
-   climate stack; the rain shadow at the path's 56 / 34 hops, with the
-   edge weights stored after the first hop and recomputed every hop, and
-   with the windward columns running longer. The lines report sweeps
-   (ε-fill: rounds; smoothing: passes; rain shadow: hops), device µs per
-   launch and per sweep, and the bound per sweep and per launch. The warp
+   sweep count, read from the device); the ε-fill at 1, 4 and 8 inner
+   sweeps per barrier round; smoothing at every (fields, gate, update
+   mask, passes) shape of the climate stack; the rain shadow at the
+   path's 56 / 34 hops, with the windward columns running longer, and
+   over clustered land (rain shadow also in its hop count, read from the
+   device). The lines report sweeps (ε-fill: rounds; smoothing: passes;
+   rain shadow: hops), device µs per launch and per sweep, and the bound
+   per sweep and per launch. The warp
    and rain-shadow callers (``warp_sources``, ``_rain_shadow2``) must
    equal themselves with the plain loop in the wrapper's place, in one
    launch and with no host sync. ``banded_sum`` on the card must equal
@@ -437,10 +438,9 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
           flush=True)
 
     # 7. rain shadow: 56 hops (34 windward) of the default generate's
-    # [4, NP] state over winds and slopes made from numpy seeds, with the
-    # edge weights stored after the first hop (the path's design) and
-    # recomputed every hop; with the windward columns running longer; and
-    # over the noise terrain's land, clustered as the path's is
+    # [4, NP] state over winds and slopes made from numpy seeds; with the
+    # windward columns running longer; and over the noise terrain's land,
+    # clustered as the path's is
     from planet_heightmap_generation_torch.climate import precipitation
     elev6 = torch.as_tensor((rng.standard_normal(npad) * 0.4)
                             .astype(np.float32), device=dev) * g.valid
@@ -454,32 +454,33 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
     w_hops = max(6, round(1500 / avg_edge_km))
     aux = torch.cat([g.pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T]).contiguous()
 
-    def shadow_config(label, sh, wh, terrain=elev6, stored=True):
+    def shadow_config(label, sh, wh, terrain=elev6):
         is_land = (terrain > 0) & g.valid
         seed2 = precipitation._shadow_seeds2(
             terrain, torch.clamp(terrain, min=0.0) * 6.0, is_land, wdg2)
         args = (torch.cat([seed2, seed2], 1).T.contiguous(), aux,
                 is_land.float().contiguous(), bits, g.band_off, ptr, nbr,
                 *precipitation.shadow_retain(sh, wh), sh, wh)
+        n_land = int(is_land.sum())
         land_edges = popcount(bits[is_land]) + int(is_land[g.rem_src].sum())
-        hops = max(sh, wh)
-        return dict(label=label, cost=((4 + 9 + 1 + 1 + 4) * npad * 4
-                                       + csr_bytes,
-                                       40 * land_edges + 8 * npad),
-                    run=lambda: (sweep_cuda._shadow_relax(*args, stored),
-                                 hops),
-                    ref=plain_loop(lambda: (
-                        sweep_cuda.shadow_relax_plain(*args), hops)))
+        # a column a hop updates: ~3 flops per land edge (w > 0 and a sign
+        # test gate wsum += w, wacc += w * v) and ~2 per land cell (divide,
+        # scale, min / max); the weights, ~23 flops per land edge (d, then
+        # four 3-term dots), once on the first hop
+        col_ops = 3 * land_edges + 2 * n_land
+        return dict(label=label, cap=max(sh, wh), binds=True,
+                    cost=((4 + 9 + 1 + 1 + 4) * npad * 4 + csr_bytes,
+                          4 * col_ops),
+                    launch_ops=23 * land_edges + 2 * (sh + wh) * col_ops,
+                    run=lambda: sweep_cuda.shadow_relax(*args),
+                    ref=plain_loop(
+                        lambda: sweep_cuda.shadow_relax_plain(*args)))
 
     records["shadow"] = relax_record("shadow", [
-        shadow_config(f"{s_hops}/{w_hops} hops, weights stored", s_hops,
-                      w_hops),
-        shadow_config(f"{s_hops}/{w_hops} hops, weights recomputed", s_hops,
-                      w_hops, stored=False),
-        shadow_config(f"{w_hops}/{s_hops} hops, weights stored", w_hops,
-                      s_hops),
-        shadow_config(f"{s_hops}/{w_hops} hops, weights stored, noise-terrain "
-                      "land", s_hops, w_hops, terrain=elev)])
+        shadow_config(f"{s_hops}/{w_hops} hops", s_hops, w_hops),
+        shadow_config(f"{w_hops}/{s_hops} hops", w_hops, s_hops),
+        shadow_config(f"{s_hops}/{w_hops} hops, noise-terrain land", s_hops,
+                      w_hops, terrain=elev)])
     caller_check("shadow", "shadow_relax", lambda: precipitation._rain_shadow2(
         g.pos, elev6, height_km, land, wind3d2, wdg2, *g.bands, s_hops,
         w_hops))
@@ -586,13 +587,14 @@ def plain_loop(plain):
 def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
     """Check and time a relax kernel. Each config's ``run()`` is one relax
     launch of the whole loop and must equal its plain loop (``ref``, from
-    :func:`plain_loop`) bit for bit, BFS and stress also in their sweep
-    count; ``binds`` True says the plain loop must have run ``cap`` sweeps
-    (the cap binds), False fewer (a fixpoint before the cap). ``cost`` is
-    one sweep's (bytes, operations): the per-sweep bound counts them once,
-    the per-launch bound counts each byte once and the operations of every
-    sweep the plain loop needed. The row's numbers are those of
-    ``configs[primary]``."""
+    :func:`plain_loop`) bit for bit, BFS, stress, warp and the rain shadow
+    also in their sweep count; ``binds`` True says the plain loop must
+    have run ``cap`` sweeps (the cap binds), False fewer (a fixpoint before
+    the cap). ``cost`` is one sweep's (bytes, operations): the per-sweep
+    bound counts them once, the per-launch bound counts each byte once and
+    the operations of every sweep the plain loop needed, or
+    ``launch_ops`` where the config gives the launch's operations itself.
+    The row's numbers are those of ``configs[primary]``."""
     from planet_heightmap_generation_torch.ops import sweep_cuda
 
     unit, one = {"flood": ("rounds", "round"), "smooth": ("passes", "pass"),
@@ -616,7 +618,8 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
             raise AssertionError(f"{name} ({cfg['label']}): relax launch "
                                  f"differs from the plain loop (max abs err "
                                  f"{err})")
-        if name in ("bfs_relax", "stress", "warp") and swept != ref_sweeps:
+        if (name in ("bfs_relax", "stress", "warp", "shadow")
+                and swept != ref_sweeps):
             raise AssertionError(f"{name} ({cfg['label']}): relax launch ran "
                                  f"{swept} sweeps, the plain loop "
                                  f"{ref_sweeps}")
@@ -624,7 +627,8 @@ def relax_record(name: str, configs, primary: int = 0, reps: int = 20):
         dev_ms = mean_device_ms(device_events(
             lambda: [run() for _ in range(5)]), KERNEL_FNS[name])
         s_ms, s_by = bound_ms(*cfg["cost"])
-        b_ms, b_by = bound_ms(cfg["cost"][0], cfg["cost"][1] * ref_sweeps)
+        b_ms, b_by = bound_ms(cfg["cost"][0], cfg.get(
+            "launch_ops", cfg["cost"][1] * ref_sweeps))
         out.append(dict(
             config=cfg["label"], loop_launches=launches, sweeps=swept,
             plain_sweeps=ref_sweeps, max_abs_err=err, ms=ms,
@@ -862,11 +866,15 @@ def main() -> int:
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f" | relax sweeps bfs_relax={swept['bfs_relax']} "
           f"stress={swept['stress']} warp={swept['warp']} "
-          f"flood={swept['flood']} (rounds)")
+          f"flood={swept['flood']} (rounds) shadow={swept['shadow']} (hops)")
     assert launches["bfs"] + launches["bfs_relax"] <= 40, launches
     assert launches["stress"] == 1, launches
     assert launches["warp"] == 1, launches
     assert launches["shadow"] == 1, launches
+    # one rain-shadow call: max(shadow_hops, windward_hops) hops
+    avg_edge_km = math.pi * 6371 / math.sqrt(N_CELLS)
+    assert swept["shadow"] == max(8, round(2500 / avg_edge_km),
+                                  round(1500 / avg_edge_km)), swept
     assert launches["smooth"] == SMOOTH_CALLS, launches
     prof = profile_generate(dev, params)
     report_profile(prof, warm_s)

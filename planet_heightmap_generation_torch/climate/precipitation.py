@@ -264,9 +264,9 @@ def _rain_shadow2(pos, elev, height_km, is_land, wind3d2, wdg2, band_off,
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, pos.shape[0])
     retain_s, retain_w = shadow_retain(shadow_hops, windward_hops)
-    state = sweep_cuda.shadow_relax(state, aux, land, bits, band_off, ptr,
-                                    nbr, retain_s, retain_w, shadow_hops,
-                                    windward_hops)
+    state, _ = sweep_cuda.shadow_relax(state, aux, land, bits, band_off,
+                                       ptr, nbr, retain_s, retain_w,
+                                       shadow_hops, windward_hops)
     f = state.T
     shadow2 = torch.minimum(f[:, :2], seed2)
     windward2 = torch.maximum(f[:, 2:], seed2)

@@ -355,22 +355,22 @@ struct WarpRule {
 // columns while s < windward_hops; a frozen column keeps its value (the
 // Python loop's per-column torch.where). The state is not staged
 // (shadow_item says why).
-// The four weights of an edge depend on position and wind only: with a
-// weight store (wts != null) hop 0 computes them from aux and stores them,
-// slot-major ([slots, NP] float4: slot k of a cell is its k-th edge, bands
-// in order, then the row), and later hops read them back in place of 9
-// gathered aux values; a cell with more edges than slots (none on these
-// meshes: the degree is at most 8) recomputes its weights every hop, by
-// the same expressions, so the same bits. Without a store every hop
-// recomputes all weights.
+// The four weights of an edge depend on position and wind only: hop 0
+// computes them from aux and stores them, slot-major ([slots, NP] float4:
+// slot k of a cell is its k-th edge, bands in order, then the row), and
+// later hops read them back in place of 9 gathered aux values; a cell with
+// more edges than slots (none on these meshes: the degree is at most 8)
+// recomputes its weights every hop, by the same expressions, so the same
+// bits.
 // Bound: bytes per hop (state, aux, land, bits and the CSR read once, the
-// state written once); ~40 flops per land edge per hop.
+// state written once); ~23 flops per land edge once (the weights), then
+// ~3 per land edge and ~2 per land cell for each column a hop updates.
 struct ShadowRule {
   const float* aux;   // [9, NP]
   const float* land;  // [NP]
   int* lands;         // [NP + 1]: the land cells as hop 0 lists them, then
                       // their count (zeroed by the caller)
-  float4* wts;        // [slots, NP], or null
+  float4* wts;        // [slots, NP]
   int slots;
   float retain_s, retain_w;
   int shadow_hops, windward_hops;
@@ -912,7 +912,6 @@ __device__ void shadow_item(const ShadowRule& r, const Geo& g,
     t1 = (int)(total * (it + 1) / items);
   }
   const bool act_s = s < r.shadow_hops, act_w = s < r.windward_hops;
-  const bool stored = r.wts != nullptr;
   const uint32_t live = g.bands.n < 32 ? (1u << g.bands.n) - 1u : ~0u;
   for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x) {
     const int i = s == 0 ? chunk_lands[t - t0] : __ldcg(r.lands + t);
@@ -921,9 +920,9 @@ __device__ void shadow_item(const ShadowRule& r, const Geo& g,
     uint32_t b = __ldg(g.bits + i) & live;
     int e = g.m > 0 ? row_begin(g.rptr, i, g.m) : 0;
     const int deg = __popc(b) + (g.m > 0 ? row_end(g.rptr, i, g.m) - e : 0);
-    // hops after the first read the stored weights; the first hop, a cell
-    // past the store's slots and the no-store design compute them
-    const bool from_store = stored && s > 0 && deg <= r.slots;
+    // hops after the first read the stored weights; the first hop and a
+    // cell past the store's slots compute them
+    const bool from_store = s > 0 && deg <= r.slots;
     ShadowOwn own{};
     if (!from_store) {
       const float* a = r.aux + i;
@@ -958,7 +957,7 @@ __device__ void shadow_item(const ShadowRule& r, const Geo& g,
           w[u] = __ldcg(r.wts + slot);
         } else {
           w[u] = shadow_weights(r.aux, np, own, jj[u]);
-          if (stored && s == 0 && k0 + u < r.slots) r.wts[slot] = w[u];
+          if (s == 0 && k0 + u < r.slots) r.wts[slot] = w[u];
         }
       }
 #pragma unroll
@@ -1403,23 +1402,21 @@ int smooth_relax(const float* field, const float* c, const float* gate,
 
 // state [4, NP], aux [9, NP], land [NP]; exactly max(shadow_hops,
 // windward_hops) >= 1 hops. lands: [NP + 1] int32 scratch, zeroed. wts:
-// [slots, NP] float4 scratch for the edge weights, or null to recompute
-// them every hop.
+// [slots >= 1, NP] float4 scratch for the edge weights.
 int shadow_relax(const float* state, const float* aux, const float* land,
                  const uint32_t* bits, const int* rem_ptr, const int* rem_nbr,
-                 int m, float* out, float* tmp, int* ctl, int* lands,
-                 float* wts, int slots, int np, const int* offs, int n_offs,
-                 float retain_s, float retain_w, int shadow_hops,
+                 int m, float* out, float* tmp, int* ctl, int* total,
+                 int* lands, float* wts, int slots, int np, const int* offs,
+                 int n_offs, float retain_s, float retain_w, int shadow_hops,
                  int windward_hops, void* stream) {
   const int hops = std::max(shadow_hops, windward_hops);
   if (bad_shape(np, 1, n_offs) || hops < 1 || lands == nullptr ||
-      (wts != nullptr && (slots < 1 || !aligned16(wts))) ||
+      wts == nullptr || slots < 1 || !aligned16(wts) ||
       !staged_ok(np, {state, out, tmp}))
     return (int)cudaErrorInvalidValue;
   RelaxArgs<ShadowRule> a{};
   a.rule = ShadowRule{aux, land, lands, reinterpret_cast<float4*>(wts),
-                      wts != nullptr ? slots : 0, retain_s, retain_w,
-                      shadow_hops, windward_hops};
+                      slots, retain_s, retain_w, shadow_hops, windward_hops};
   // one window's space holds the chunk's land-cell list
   a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, 1, 1, offs, n_offs);
   a.geo.tstep = 4;
@@ -1427,6 +1424,7 @@ int shadow_relax(const float* state, const float* aux, const float* land,
   a.out = out;
   a.tmp = tmp;
   a.ctl = ctl;
+  a.total = total;
   a.cap = hops;
   a.inner = 1;
   a.planes = 4;

@@ -15,12 +15,13 @@ Six kernels (csrc/sweeps.cu):
 Each runs its whole loop in ONE cooperative launch (grid barrier between
 sweeps, sweep count in device memory), nothing read back to the host:
 ``bfs_relax``, ``flood_relax``, ``stress_relax`` and ``warp_relax`` to
-their fixpoint or cap (device-side change flag) and return ``(state,
-sweeps)`` with ``sweeps`` an int32 [1] device tensor; ``smooth_relax``
-and ``shadow_relax`` run a fixed number of passes / hops and return the
-state. The components loop's BFS also has a one-sweep entry
-(``bfs_sweep``). The other kernels' one sweep exists only as a plain
-version (``<name>_sweep_plain``), the step of the relax loops' oracles.
+their fixpoint or cap (device-side change flag) and ``shadow_relax`` its
+fixed number of hops, each returning ``(state, sweeps)`` with ``sweeps``
+an int32 [1] device tensor; ``smooth_relax`` runs a fixed number of
+passes and returns the state. The components loop's BFS also has a
+one-sweep entry (``bfs_sweep``). The other kernels' one sweep exists only
+as a plain version (``<name>_sweep_plain``), the step of the relax loops'
+oracles.
 
 Every wrapper takes the state as [F, NP] float32 planes, the band bits as
 one int32 word per cell (bit d = band d present, the packed form of
@@ -34,8 +35,9 @@ The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 is newer than the library. ``LAUNCHES`` counts launches per kernel
 (``bfs`` the one-sweep BFS; ``bfs_relax``, ``stress``, ``warp``,
 ``flood``, ``smooth`` and ``shadow`` the relax launches, one each), and
-:func:`sweeps_run` the sweeps (ε-fill: rounds) that the fixpoint relax
-launches ran; the plain versions never count.
+:func:`sweeps_run` the sweeps (ε-fill: rounds; rain shadow: hops) that
+the relax launches other than smoothing ran; the plain versions never
+count.
 
 Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
 receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
@@ -100,18 +102,20 @@ _ARGTYPES = {
     # nf, offs, n_offs, passes, stream
     "smooth_relax": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P,
                      _I, _I, _P],
-    # state, aux, land, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, lands,
-    # wts, slots, np, offs, n_offs, retain_s, retain_w, shadow_hops,
+    # state, aux, land, bits, rem_ptr, rem_nbr, m, out, tmp, ctl, total,
+    # lands, wts, slots, np, offs, n_offs, retain_s, retain_w, shadow_hops,
     # windward_hops, stream
-    "shadow_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                     _P, _I, _F, _F, _I, _I, _P],
+    "shadow_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _P, _I, _F, _F, _I, _I, _P],
 }
 
 
-# per CUDA device: int32 [4] running sweep totals of the bfs / flood /
-# stress / warp relax launches, added to by the kernels themselves
+# per CUDA device: int32 [5] running sweep totals of the bfs / flood /
+# stress / warp / rain-shadow relax launches, added to by the kernels
+# themselves
 _SWEEP_TOTALS: dict = {}
-_RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3}
+_RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3,
+               "shadow": 4}
 # the most fields one smoothing launch carries (csrc kMaxSmoothFields)
 SMOOTH_MAX_FIELDS = 4
 # rain-shadow edge weights stored per land cell (the mesh degree is at
@@ -127,9 +131,10 @@ def reset_launches() -> None:
 
 
 def sweeps_run() -> dict:
-    """Sweeps (ε-fill: barrier rounds) run by the relax launches since the
-    last :func:`reset_launches`. Reads the device counters (a host sync):
-    for measurement, never on the path."""
+    """Sweeps (ε-fill: barrier rounds; rain shadow: hops) run by the relax
+    launches other than smoothing since the last :func:`reset_launches`.
+    Reads the device counters (a host sync): for measurement, never on the
+    path."""
     out = {k: 0 for k in _RELAX_SLOT}
     for t in _SWEEP_TOTALS.values():
         for k, slot in _RELAX_SLOT.items():
@@ -719,7 +724,8 @@ def shadow_relax_plain(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     """The hops of :func:`shadow_relax` in plain torch."""
     windward = torch.tensor([False, False, True, True],
                             device=state.device)[:, None]
-    for i in range(max(int(shadow_hops), int(windward_hops))):
+    hops = max(int(shadow_hops), int(windward_hops), 0)
+    for i in range(hops):
         new = shadow_sweep_plain(state, aux, land, bits, band_off, rem_ptr,
                                  rem_nbr, retain_s, retain_w)
         if i >= windward_hops:
@@ -727,7 +733,7 @@ def shadow_relax_plain(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
         if i >= shadow_hops:
             new = torch.where(windward, new, state)
         state = new
-    return state
+    return state, torch.tensor([hops], dtype=torch.int32)
 
 
 def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
@@ -739,17 +745,8 @@ def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     columns while i < ``windward_hops``. ``aux`` [9, NP] holds position,
     summer wind and winter wind (xyz each), ``land`` [NP] 0/1 gates the
     receiving cell. The kernel computes each edge's wind weights on the
-    first hop and reads them back on the others. Returns the state."""
-    return _shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
-                         retain_s, retain_w, shadow_hops, windward_hops, True)
-
-
-def _shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
-                  retain_s: float, retain_w: float, shadow_hops: int,
-                  windward_hops: int, stored: bool):
-    """:func:`shadow_relax`, with the edge weights stored after the first
-    hop (``stored``) or recomputed from ``aux`` every hop (the smoke script
-    times both)."""
+    first hop, stores them and reads them back on the others. Returns
+    (state, hops), ``hops`` the count the kernel ran (int32 [1])."""
     if _on_cpu(state):
         return shadow_relax_plain(state, aux, land, bits, band_off, rem_ptr,
                                   rem_nbr, retain_s, retain_w, shadow_hops,
@@ -758,19 +755,20 @@ def _shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     _check(bits, None, (state, 4), (aux, 9), (land, None))
     _check_csr(bits, rem_ptr, rem_nbr)
     if max(int(shadow_hops), int(windward_hops)) < 1:
-        return state.clone()
+        return state.clone(), torch.zeros(1, dtype=torch.int32,
+                                          device=state.device)
     np_ = state.shape[1]
     out, tmp = torch.empty_like(state), torch.empty_like(state)
     ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
     # the land cells as the first hop lists them, then their count
     lands = torch.zeros(np_ + 1, dtype=torch.int32, device=state.device)
-    wts = (torch.empty((SHADOW_SLOTS, np_, 4), dtype=torch.float32,
-                       device=state.device) if stored else None)
+    wts = torch.empty((SHADOW_SLOTS, np_, 4), dtype=torch.float32,
+                      device=state.device)
     offs, nd = _offs(band_off)
     _launch(fn, "shadow", _ptr(state), _ptr(aux), _ptr(land), _ptr(bits),
             _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
-            _ptr(tmp), _ptr(ctl), _ptr(lands), _ptr(wts),
-            SHADOW_SLOTS if stored else 0,
+            _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("shadow", state.device)),
+            _ptr(lands), _ptr(wts), SHADOW_SLOTS,
             np_, offs, nd, float(retain_s), float(retain_w),
             int(shadow_hops), int(windward_hops))
-    return out
+    return out, ctl[3:]

@@ -219,6 +219,10 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
         (sweep_cuda.warp_relax(st, w, bits, offs, rem_ptr, rem_nbr, 3),
          sweep_cuda.warp_relax_plain(st, w, bits, offs, rem_ptr, rem_nbr,
                                      3)),
+        (sweep_cuda.shadow_relax(st - 0.5, aux, st[2], bits, offs, rem_ptr,
+                                 rem_nbr, 0.9, 0.8, 3, 2),
+         sweep_cuda.shadow_relax_plain(st - 0.5, aux, st[2], bits, offs,
+                                       rem_ptr, rem_nbr, 0.9, 0.8, 3, 2)),
     ]
     pairs = [x for (a, b) in relaxed for x in zip(a, b)] + [
         (sweep_cuda.bfs_sweep(st, st, bits, offs),
@@ -227,10 +231,6 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
                                  2, st[2], st[3]),
          sweep_cuda.smooth_relax_plain(st, st[0] + 2, bits, offs, rem_ptr,
                                        rem_nbr, 2, st[2], st[3])),
-        (sweep_cuda.shadow_relax(st - 0.5, aux, st[2], bits, offs, rem_ptr,
-                                 rem_nbr, 0.9, 0.8, 3, 2),
-         sweep_cuda.shadow_relax_plain(st - 0.5, aux, st[2], bits, offs,
-                                       rem_ptr, rem_nbr, 0.9, 0.8, 3, 2)),
     ]
     for a, b in pairs:
         assert torch.equal(a, b)

@@ -5,16 +5,15 @@ CPU) against the loops they replaced and the JAX jnp functions, on the
 
 Contracts (each with its reason):
 
-- ``shadow_relax_plain``: EXACT against the hop loop the rain shadow ran
-  before it had one launch (one ``shadow_sweep_plain`` a hop, the windward
-  columns frozen after ``windward_hops`` and the shadow columns after
-  ``shadow_hops`` by two ``torch.where``), with more shadow hops, more
-  windward hops and as many of each: the same operations in the same order.
 - ``_rain_shadow2`` through ``shadow_relax``: rtol 1e-5 / atol 1e-6 and
   the same sign structure against ``_rain_shadow2_jnp``, the contract of
   tests/test_torch_climate_ops.py (the JAX package's own,
-  tests/test_sweep_pallas.py:205), here with the windward columns running
-  longer than the shadow columns.
+  tests/test_sweep_pallas.py:205), with more shadow hops, more windward
+  hops and as many of each; ``shadow_relax`` on CPU tensors is
+  ``shadow_relax_plain`` and both count ``max(shadow_hops,
+  windward_hops)`` hops.
+- ``shadow_relax_plain`` with one column pair's hop count at 0: those
+  columns keep their input EXACTLY (the per-column cap), the others move.
 - ``warp_relax_plain``: EXACT in state against the loop ``warp_sources``
   ran before it had one launch (``relax()`` driving a band sweep and the
   remainder edges' scatter pick, reading the change flag every 8 sweeps),
@@ -67,45 +66,23 @@ def _shadow_inputs(g, seed=11):
     return elev, height_km, is_land, wind3d2, wdg2
 
 
-def _hop_loop(state, aux, land, bits, band_off, ptr, nbr, retain_s,
-              retain_w, shadow_hops, windward_hops):
-    """The rain shadow's hop loop as it ran one launch a hop."""
-    windward = torch.tensor([False, False, True, True])[:, None]
-    for i in range(max(shadow_hops, windward_hops)):
-        new = sc.shadow_sweep_plain(state, aux, land, bits, band_off, ptr,
-                                    nbr, retain_s, retain_w)
-        if i >= windward_hops:
-            new = torch.where(windward, state, new)
-        if i >= shadow_hops:
-            new = torch.where(windward, new, state)
-        state = new
-    return state
+def _shadow_args(g, ins, hops):
+    """The CPU arguments of ``shadow_relax`` for ``_shadow_inputs``."""
+    from planet_heightmap_generation_torch.climate.precipitation import (
+        _shadow_seeds2, shadow_retain)
+
+    elev, height_km, is_land, wind3d2, wdg2 = map(_t, ins)
+    seed2 = _shadow_seeds2(elev, height_km, is_land, wdg2)
+    state = torch.cat([seed2, seed2], 1).T.contiguous()
+    aux = torch.cat([g.pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T]).contiguous()
+    ptr, nbr = tb.rem_csr(g.rem_src, g.rem_dst, g.n_padded)
+    return (state, aux, is_land.float().contiguous(), g.band_bits,
+            g.band_off, ptr, nbr, *shadow_retain(*hops), *hops)
 
 
 @pytest.mark.parametrize("hops", [(6, 4), (4, 6), (5, 5)],
                          ids=["shadow_longer", "windward_longer", "equal"])
-def test_shadow_relax_plain_equals_hop_loop(graphs, hops):
-    from planet_heightmap_generation_torch.climate.precipitation import (
-        _shadow_seeds2, shadow_retain)
-
-    _, g = graphs
-    elev, height_km, is_land, wind3d2, wdg2 = map(_t, _shadow_inputs(g))
-    seed2 = _shadow_seeds2(elev, height_km, is_land, wdg2)
-    state = torch.cat([seed2, seed2], 1).T.contiguous()
-    aux = torch.cat([g.pos.T, wind3d2[:, 0].T, wind3d2[:, 1].T]).contiguous()
-    land = is_land.float().contiguous()
-    ptr, nbr = tb.rem_csr(g.rem_src, g.rem_dst, g.n_padded)
-    args = (state, aux, land, g.band_bits, g.band_off, ptr, nbr,
-            *shadow_retain(*hops), *hops)
-    got = sc.shadow_relax_plain(*args)
-    want = _hop_loop(*args)
-    assert int((got != state).sum()) > 100
-    assert torch.equal(got, want)
-    # the wrapper, given CPU tensors, runs the same loop
-    assert torch.equal(sc.shadow_relax(*args), want)
-
-
-def test_rain_shadow_jnp_contract_windward_longer(graphs):
+def test_rain_shadow_jnp_contract(graphs, hops):
     from planet_heightmap_generation_tpu.climate.precipitation import (
         _rain_shadow2_jnp)
     from planet_heightmap_generation_torch.climate.precipitation import (
@@ -114,12 +91,32 @@ def test_rain_shadow_jnp_contract_windward_longer(graphs):
     jg, g = graphs
     ins = _shadow_inputs(g, seed=12)
     a = np.asarray(_rain_shadow2_jnp(jg.pos, *map(jnp.asarray, ins),
-                                     *jg.bands, 4, 6))
-    b = _rain_shadow2(g.pos, *map(_t, ins), *g.bands, 4, 6).numpy()
+                                     *jg.bands, *hops))
+    b = _rain_shadow2(g.pos, *map(_t, ins), *g.bands, *hops).numpy()
     assert (np.abs(a) > 0.01).mean() > 0.1
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.sign(np.round(a * 1e4)),
                                   np.sign(np.round(b * 1e4)))
+    # the wrapper, given CPU tensors, runs the plain loop and counts its hops
+    args = _shadow_args(g, ins, hops)
+    got, n = sc.shadow_relax(*args)
+    want, n_plain = sc.shadow_relax_plain(*args)
+    assert torch.equal(got, want)
+    assert int(n) == int(n_plain) == max(hops)
+
+
+@pytest.mark.parametrize("hops", [(5, 0), (0, 5)],
+                         ids=["windward_frozen", "shadow_frozen"])
+def test_shadow_relax_frozen_columns_keep_their_input(graphs, hops):
+    _, g = graphs
+    # the retention of 5 hops each; only the hop counts differ
+    args = _shadow_args(g, _shadow_inputs(g), (5, 5))[:-2] + hops
+    got, n = sc.shadow_relax_plain(*args)
+    frozen = slice(2, 4) if hops[1] == 0 else slice(0, 2)
+    live = slice(0, 2) if hops[1] == 0 else slice(2, 4)
+    assert int(n) == 5
+    assert torch.equal(got[frozen], args[0][frozen])
+    assert int((got[live] != args[0][live]).sum()) > 20
 
 
 def _old_warp_step(wt, bits, band_off, rem_src, rem_dst):
