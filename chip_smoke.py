@@ -34,7 +34,12 @@ Phases (any failure exits non-zero with its traceback):
    and rain-shadow callers (``warp_sources``, ``_rain_shadow2``) must
    equal themselves with the plain loop in the wrapper's place, in one
    launch and with no host sync. ``banded_sum`` on the card must equal
-   the same call on CPU tensors bit for bit;
+   the same call on CPU tensors bit for bit. The ordered scatter-sum
+   (``ordered_sum``, the port-only kernel that replaces the float
+   scatter-adds) must give the bits of its plain version on CPU copies,
+   twice, at the path's pointer-doubling and geo-bin shapes; its row
+   also times the stable sort alone and, as its yardstick, the atomic
+   ``index_add_`` it replaces;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the relax
@@ -44,11 +49,29 @@ Phases (any failure exits non-zero with its traceback):
    terrain-only run (``skip_climate=True``), timed and profiled the same
    way, so the terrain numbers stay comparable;
 4. check the 4K planet (seed 123) with climate against the reference's
-   pinned c4k_s123 snapshot: terrain distribution and Köppen shares.
+   pinned c4k_s123 snapshot: terrain distribution and Köppen shares;
+5. the glacial generate (``glacial_erosion=0.2``, 204K, climate on): a
+   first run records the arguments of every float-sum site (thermal,
+   smoothing, ``dep_sum``, ``downstream_accumulate``, the wind bins, the
+   moisture advection's ``wsum``, the ice flow), each replayed on the card
+   twice and on the CPU (bit for bit), beside the cells in which the
+   atomic form the site used before differs from the CPU; then a warm run,
+   counted (``ordered_sum`` must launch), timed, profiled and held to the
+   same gates as the default generate;
+6. the retained-state commands on the default planet: a no-change
+   ``reapply`` equals the generate's elevation bit for bit; a sculpted
+   ``reapply`` keeps the pre-post elevation; ``edit_recompute([0])``
+   flips plate 0 and passes the gates; ``compute_climate`` runs its
+   second call without wind or ocean stages; ``save_session`` →
+   ``load_session`` → no-change ``reapply`` equals the live engine's
+   retained elevation bit for bit; ``import_heightmap`` of a 1024×512
+   band image passes the band checks; one ``WorkerProtocol.dispatch`` of
+   each command returns its done type. Each command must launch the
+   kernels of its path, and its wall time is printed.
 
-Before the last line come a JSON object with one entry per kernel and the
-card's name and power limit; the last line is ``{"ok": true, "device":
-{...}}``. Without CUDA the script exits with code 1 before printing any
+Before the last line come a JSON object of the commands' wall times, a
+JSON object with one entry per kernel and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits with code 1 before printing any
 result.
 """
 
@@ -73,7 +96,25 @@ TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
 REPLACES = {"bfs": f"{TPU_KERNELS}:171", "bfs_relax": f"{TPU_KERNELS}:171",
             "flood": f"{TPU_KERNELS}:230",
             "stress": f"{TPU_KERNELS}:388", "warp": f"{TPU_KERNELS}:480",
-            "smooth": f"{TPU_KERNELS}:564", "shadow": f"{TPU_KERNELS}:619"}
+            "smooth": f"{TPU_KERNELS}:564", "shadow": f"{TPU_KERNELS}:619",
+            # port-only: no Pallas kernel; it replaces the XLA scatter-adds
+            # of the pointer-doubling sums, first of them the ice flow's
+            "ordered_sum":
+                "planet_heightmap_generation_tpu/erosion/glacial.py:72"}
+# the float sums routed through the ordered sum (ordered_index_sum) or the
+# remainder row walk (rem_add): (module, name it calls) → calls kept when
+# recorded (the ice flow keeps a whole 22-step loop; the glacial step's
+# valley widening and moraines are its two remainder sums)
+SUM_SITES = {
+    ("erosion.thermal", "rem_add"): 2,
+    ("erosion.smooth", "rem_add"): 2,
+    ("erosion.fluvial", "ordered_index_sum"): 1,
+    ("erosion.flood", "ordered_index_sum"): 1,
+    ("climate.wind", "ordered_index_sum"): 1,
+    ("climate.precipitation", "rem_add"): 1,
+    ("erosion.glacial", "ordered_index_sum"): 22,
+    ("erosion.glacial", "rem_add"): 2,
+}
 # smoothing calls of the default generate's climate stack, one launch each:
 # wind 2, ocean currents 2, precipitation 6 (west coast included),
 # temperature 2
@@ -666,6 +707,348 @@ def smooth_library(g, c, field):
     return lambda: torch.sparse.mm(adj, field)
 
 
+# ── the ordered scatter-sum (phase 2 row, and its sites) ─────────────
+
+def geo_bins(g):
+    """The wind stage's bin of each cell (36 × 72, padding → 2592)."""
+    from planet_heightmap_generation_torch.climate import wind
+
+    p = g.pos
+    lat = torch.asin(torch.clamp(p[:, 1], -1.0, 1.0))
+    lon = torch.atan2(p[:, 0], p[:, 2])
+    bi = torch.clamp(((lat + math.pi / 2) / math.pi * wind.LAT_BINS)
+                     .to(torch.int64), 0, wind.LAT_BINS - 1)
+    bj = torch.clamp(((lon + math.pi) / (2 * math.pi) * wind.LON_BINS)
+                     .to(torch.int64), 0, wind.LON_BINS - 1)
+    nb = wind.LAT_BINS * wind.LON_BINS
+    return torch.where(g.valid, bi * wind.LON_BINS + bj, nb), nb
+
+
+def longest_run(idx, n_out: int) -> int:
+    """The most entries any one target below ``n_out`` holds: the longest
+    run a thread of the ordered-sum kernel walks."""
+    keep = idx[idx < n_out]
+    return int(torch.bincount(keep).max()) if keep.numel() else 0
+
+
+def sum_bytes(n_out: int, k: int, f: int) -> int:
+    """The function's bytes: idx (int64) and vals read once, the output
+    written once."""
+    return k * (8 + 4 * f) + n_out * 4 * f
+
+
+def sort_bytes(k: int) -> int:
+    """The design's extra traffic, stated beside the bound: the sort's
+    int32 keys and int64 permutation, written once and read once by the
+    kernel."""
+    return 2 * k * (4 + 8)
+
+
+def ordered_sum_record(g, dev, reps: int = 200, plain_reps: int = 50):
+    """Phase-2 row of the ordered sum: at the path's two shapes (pointer
+    doubling with a sink over every cell, F=1; the 2592 geo bins with an
+    overflow slot, F=3) one wrapper call must give the bits of the plain
+    version on CPU copies, twice; time the wrapper (stable sort + kernel),
+    the kernel alone (device time), the sort alone, the plain version on
+    the card (an atomic index_add) and one ``index_add_`` call, against
+    the byte bound."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    npad = g.n_padded
+    rng = np.random.default_rng(SEED + 3)
+    # a forest over the cells (each points at most 64 cells back, a
+    # quarter into the sink), three pointer doublings deep, as the ice
+    # flow's and the flow sums' later steps see it
+    i = np.arange(npad)
+    p = np.where(rng.random(npad) < 0.25, npad,
+                 np.maximum(i - rng.integers(1, 64, npad), 0))
+    for _ in range(3):
+        p = np.append(p, npad)[p]
+    ptr = torch.as_tensor(p, device=dev)
+    flow = torch.as_tensor(rng.random(npad).astype(np.float32), device=dev)
+    bins, nb = geo_bins(g)
+    land = torch.as_tensor(rng.random(npad) < 0.3, device=dev)
+    stack = torch.stack([torch.ones(npad, device=dev), land.float(),
+                         torch.as_tensor(rng.random(npad).astype(np.float32),
+                                         device=dev)], 1).contiguous()
+    shapes = [("pointers with sink, F=1", npad, ptr, flow),
+              ("geo bins, F=3", nb, bins, stack)]
+    per_shape = []
+    for label, n_out, idx, vals in shapes:
+        out = sweep_cuda.ordered_sum(n_out, idx, vals)
+        again = sweep_cuda.ordered_sum(n_out, idx, vals)
+        cpu = sweep_cuda.ordered_sum_plain(n_out, idx.cpu(), vals.cpu())
+        err = max_abs_err(out.cpu(), cpu)
+        if not (torch.equal(out.cpu(), cpu) and torch.equal(out, again)):
+            raise AssertionError(f"ordered_sum ({label}): the card's sum "
+                                 f"differs from the CPU's ({err})")
+        atomic = sweep_cuda.ordered_sum_plain(n_out, idx, vals)
+        off = int((atomic.cpu() != cpu).reshape(n_out, -1).any(1).sum())
+        ms = time_ms(lambda: sweep_cuda.ordered_sum(n_out, idx, vals), reps)
+        idx32 = idx.to(torch.int32)
+        sort_ms = time_ms(lambda: torch.sort(idx32, stable=True), reps)
+        dev_ms = mean_device_ms(device_events(
+            lambda: [sweep_cuda.ordered_sum(n_out, idx, vals)
+                     for _ in range(20)]), KERNEL_FNS["ordered_sum"])
+        plain_ms = time_ms(lambda: sweep_cuda.ordered_sum_plain(
+            n_out, idx, vals), plain_reps)
+        acc = torch.zeros((n_out + 1, *vals.shape[1:]), device=dev)
+        lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals), reps)
+        f = 1 if vals.dim() == 1 else vals.shape[1]
+        b_ms, b_by = bound_ms(sum_bytes(n_out, idx.shape[0], f),
+                              idx.shape[0] * f)
+        sort_b_ms, _ = bound_ms(sort_bytes(idx.shape[0]), 0)
+        run = longest_run(idx, n_out)
+        per_shape.append(dict(shape=label, max_abs_err=err, ms=ms,
+                              device_ms=dev_ms, sort_ms=sort_ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              sort_bound_ms=sort_b_ms, longest_run=run,
+                              atomic_cells_off=off))
+        dev_txt = ("not measured" if dev_ms is None
+                   else f"{dev_ms * 1e3:.2f} us")
+        print(f"kernel ordered_sum [{label}] bit-identical to the CPU, "
+              f"twice (the atomic index_add differs from the CPU in {off} "
+              f"targets); {ms * 1e3:8.2f} us/call (sort {sort_ms * 1e3:.2f} "
+              f"us, kernel device {dev_txt}), longest run {run}; plain "
+              f"(atomic) {plain_ms * 1e3:.2f} us, index_add_ "
+              f"{lib_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us ({b_by}); "
+              f"the sort's keys and permutation add {sort_b_ms * 1e3:.2f} "
+              f"us of traffic at the memory rate", flush=True)
+    row = dict(per_shape[0])
+    row.update(max_abs_err=max(x["max_abs_err"] for x in per_shape),
+               shapes=per_shape, port_only=True)
+    return row
+
+
+def record_sum_calls(fn):
+    """``fn()`` with the sum of each site of ``SUM_SITES`` wrapped to keep
+    copies of the arguments of its first calls. Returns (fn(), calls)."""
+    import importlib
+
+    calls = {site: [] for site in SUM_SITES}
+    saved = []
+    for site, keep in SUM_SITES.items():
+        mod_name, name = site
+        mod = importlib.import_module(
+            f"planet_heightmap_generation_torch.{mod_name}")
+        orig = getattr(mod, name)
+
+        def wrapped(*a, _orig=orig, _kept=calls[site], _keep=keep, **k):
+            if len(_kept) < _keep:
+                _kept.append(([x.clone() if torch.is_tensor(x) else x
+                               for x in a], dict(k)))
+            return _orig(*a, **k)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, wrapped)
+    try:
+        return fn(), calls
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def sum_site_checks(calls):
+    """Each recorded call of each site, replayed: the card's result must
+    equal the same call on CPU copies bit for bit, twice. Beside it, the
+    cells in which the atomic form the site used before (``index_add``)
+    differs from the CPU. The ice flow replays the step of its loop with
+    the longest run, and times it."""
+    from planet_heightmap_generation_torch.ops import banded, sweep_cuda
+
+    out = {}
+    ice_flow = ("erosion.glacial", "ordered_index_sum")
+    for site, kept in calls.items():
+        name = site[1]
+        if not kept:
+            raise AssertionError(f"sum site {site}: no call recorded")
+        if site == ice_flow:
+            runs = [longest_run(a[1], a[0]) for a, _ in kept]
+            step = int(np.argmax(runs))
+            picks = [(step, kept[step])]
+        else:
+            picks = list(enumerate(kept))
+        for i, (args, kw) in picks:
+            fn = getattr(banded, name)
+            first, second = fn(*args, **kw), fn(*args, **kw)
+            cpu = fn(*[x.cpu() if torch.is_tensor(x) else x for x in args],
+                     **kw)
+            if not (torch.equal(first.cpu(), cpu)
+                    and torch.equal(first, second)):
+                raise AssertionError(
+                    f"sum site {site} (call {i}): the card's sum differs "
+                    f"from the CPU's (max abs err "
+                    f"{max_abs_err(first.cpu(), cpu)})")
+            if name == "rem_add":
+                old = args[0].index_add(0, args[2], args[1])
+            else:
+                old = sweep_cuda.ordered_sum_plain(*args, **kw)
+            off = int((old.cpu() != cpu).reshape(cpu.shape[0], -1)
+                      .any(1).sum())
+            extra = ""
+            if site == ice_flow:
+                ms = time_ms(lambda: fn(*args, **kw), 50)
+                out["ice_flow"] = dict(step=i, longest_run=runs[i],
+                                       runs=runs, ms=ms)
+                extra = (f"; step {i} of the loop, longest run {runs[i]} "
+                         f"(per step {runs}), {ms * 1e3:.2f} us a sum")
+            print(f"sum site {site[0]} [{name}, call {i}, "
+                  f"{tuple(first.shape)}]: bit-identical to the CPU, twice; "
+                  f"the atomic form it replaced differs from the CPU in "
+                  f"{off} cells{extra}", flush=True)
+            out[f"{site[0]}.{name}:{i}"] = off
+    return out
+
+
+# ── phase 5: the engine's retained-state commands ────────────────────
+
+def timed(fn):
+    """(fn(), wall seconds to a device synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def launched(fn, expect, label: str):
+    """``fn()`` with the kernel launches it made; fail unless every kernel
+    of ``expect`` was launched."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    sweep_cuda.reset_launches()
+    out, secs = timed(fn)
+    counts = dict(sweep_cuda.LAUNCHES)
+    missing = [k for k in expect if counts[k] == 0]
+    assert not missing, f"{label}: kernels not launched: {missing}"
+    print(f"{label}: {secs:.3f} s; launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items() if v), flush=True)
+    return out, secs
+
+
+def command_checks(dev, params, n_plates: int):
+    """The commands on the default planet: a no-change reapply equals the
+    generate's elevation bit for bit, a sculpted reapply keeps the pre-post
+    elevation, an edit flips plate 0 and passes the gates, compute_climate
+    reuses the cached wind and ocean on its second call, a session saved
+    and loaded reapplies to the live engine's retained elevation bit for
+    bit, an imported equirect band image passes the band checks, and one
+    WorkerProtocol dispatch of each command returns its done type. Returns
+    each command's wall seconds."""
+    import tempfile
+
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.pipeline import (PlanetEngine,
+                                                            WorkerProtocol)
+
+    walls = {}
+    eng = PlanetEngine(device=dev)
+    gen, walls["generate"] = timed(lambda: eng.generate(params))
+    assert gen.error is None, gen.error
+    post = ("warp", "flood", "bfs", "ordered_sum")
+    climate = ("bfs_relax", "bfs", "smooth", "shadow", "ordered_sum")
+
+    r, walls["reapply"] = launched(lambda: eng.reapply(skip_climate=True),
+                                   post, "reapply (no change, no climate)")
+    if not torch.equal(r.elevation, gen.elevation):
+        raise AssertionError(
+            "no-change reapply differs from the generate in "
+            f"{int((r.elevation != gen.elevation).sum())} cells (max abs "
+            f"err {max_abs_err(r.elevation, gen.elevation)})")
+    print("reapply (no change): bit-identical to the generate's elevation",
+          flush=True)
+    r2, walls["reapply_sculpted"] = launched(
+        lambda: eng.reapply(sculpt=dict(smoothing=1.0)),
+        post + climate, "reapply (smoothing 1.0, climate on)")
+    assert r2.error is None, r2.error
+    assert torch.equal(r2.pre_post_elevation, gen.pre_post_elevation)
+    assert not torch.equal(r2.elevation, gen.elevation)
+    print("climate: " + check_climate(r2), flush=True)
+
+    e, walls["edit_recompute"] = launched(
+        lambda: eng.edit_recompute([0]),
+        ("bfs_relax", "stress", "warp", "flood", "bfs", "smooth", "shadow",
+         "ordered_sum"), "edit_recompute([0])")
+    assert e.error is None
+    assert bool(e.plate_is_ocean[0]) != bool(eng._w["original_is_ocean"][0])
+    diag, plates = check_planet(e, n_plates)
+    print(f"edit_recompute: plate 0 flipped; diagnostics {diag}, plates "
+          f"{plates}; climate: {check_climate(e)}", flush=True)
+
+    # a terrain-only reapply drops the cached wind and ocean, as in the
+    # reference worker; the first compute_climate recomputes them
+    eng.reapply(skip_climate=True)
+    c0, walls["compute_climate"] = launched(
+        lambda: eng.compute_climate(), climate, "compute_climate()")
+    assert any("wind" in s for s, _ in c0["timing"].stages)
+    c1, walls["compute_climate_offset"] = launched(
+        lambda: eng.compute_climate(temperature_offset=5.0),
+        ("smooth", "shadow"), "compute_climate(temperature_offset=5.0)")
+    stages = [s for s, _ in c1["timing"].stages]
+    assert not any("wind" in s.lower() or "ocean" in s.lower()
+                   for s in stages), stages
+    assert c1["wind"] is c0["wind"]
+    print(f"compute_climate: the second call ran {stages} (no wind or "
+          "ocean stage)", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/session.npz"
+        _, walls["save_session"] = timed(lambda: eng.save_session(path))
+        eng2, walls["load_session"] = timed(
+            lambda: PlanetEngine.load_session(path, device=dev))
+    r3, walls["reapply_loaded"] = timed(
+        lambda: eng2.reapply(skip_climate=True))
+    if not torch.equal(r3.elevation, eng._w["elevation_final"]):
+        raise AssertionError(
+            "session reapply differs from the live engine in "
+            f"{int((r3.elevation != eng._w['elevation_final']).sum())} "
+            "cells")
+    print("session: save → load → no-change reapply bit-identical to the "
+          "live engine's retained elevation", flush=True)
+
+    h, w = 512, 1024
+    img = np.zeros((h, w), np.float32)
+    img[192:320, :] = 200.0     # an equatorial land band
+    imp, walls["import_heightmap"] = launched(
+        lambda: PlanetEngine(device=dev).import_heightmap(
+            img.ravel(), w, h, GenerationParams(seed=5, n_cells=N_CELLS,
+                                                skip_climate=True)),
+        ("warp", "flood", "bfs", "ordered_sum"), "import_heightmap 1024x512")
+    n = imp.graph.n_cells
+    e_np = imp.elevation[:n].cpu().numpy()
+    lat = np.degrees(np.arcsin(np.clip(imp.graph.pos[:n, 1], -1, 1)))
+    band = float((e_np[np.abs(lat) < 20] > 0).mean())
+    poles = float((e_np[np.abs(lat) > 60] <= 0).mean())
+    assert band > 0.8 and poles > 0.9, (band, poles)
+    assert imp.plate_is_ocean.size >= 2 and np.isfinite(e_np).all()
+    print(f"import_heightmap: land within 20 deg of the equator {band:.4f}, "
+          f"ocean beyond 60 deg {poles:.4f}, "
+          f"{imp.plate_is_ocean.size} synthetic plates", flush=True)
+
+    log = []
+    proto = WorkerProtocol(engine=PlanetEngine(device=dev),
+                           on_message=log.append)
+    for cmd, msg, want in [
+            ("generate", dict(params=params), "done"),
+            ("reapply", dict(sculpt=dict(smoothing=0.6), skipClimate=True),
+             "reapplyDone"),
+            ("editRecompute", dict(toggledIndices=(0,)), "editDone"),
+            ("computeClimate", dict(temperatureOffset=3.0), "climateDone"),
+            ("importHeightmap", dict(grayscale=img, width=w, height=h,
+                                     params=dict(seed=5, n_cells=N_CELLS,
+                                                 skip_climate=True)),
+             "done")]:
+        resp, secs = timed(lambda: proto.dispatch(dict(cmd=cmd, **msg)))
+        assert resp["type"] == want, (cmd, resp.get("message"),
+                                      resp.get("stack"))
+        assert "error" not in resp, resp["error"]
+        walls[f"protocol {cmd}"] = secs
+        print(f"protocol {cmd}: {want} in {secs:.3f} s", flush=True)
+    assert any(m.get("type") == "progress" for m in log)
+    return walls
+
+
 # ── phases 3 and 4 ───────────────────────────────────────────────────
 
 def device_events(fn):
@@ -683,7 +1066,8 @@ def device_events(fn):
 KERNEL_FNS = dict(bfs="bfs_sweep_kernel", bfs_relax="bfs_relax_kernel",
                   stress="stress_relax_kernel", warp="warp_relax_kernel",
                   flood="flood_relax_kernel", smooth="smooth_relax_kernel",
-                  shadow="shadow_relax_kernel")
+                  shadow="shadow_relax_kernel",
+                  ordered_sum="ordered_sum_kernel")
 
 
 def mean_device_ms(events, fn: str):
@@ -843,6 +1227,7 @@ def main() -> int:
     print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
     records = kernel_checks(g, to_device(graph, "cpu"), dev)
+    records["ordered_sum"] = ordered_sum_record(g, dev)
 
     # 3. the main path: the default generate (204K, climate on), cold
     # then warm; then one warm terrain-only run
@@ -876,6 +1261,7 @@ def main() -> int:
     assert swept["shadow"] == max(8, round(2500 / avg_edge_km),
                                   round(1500 / avg_edge_km)), swept
     assert launches["smooth"] == SMOOTH_CALLS, launches
+    assert res.error is None, res.error
     prof = profile_generate(dev, params)
     report_profile(prof, warm_s)
 
@@ -892,11 +1278,46 @@ def main() -> int:
         seed=123, n_cells=4000, n_plates=12, num_continents=2))
     snapshot_check(small)
 
+    # 5. the glacial generate (204K, glacial 0.2, climate on): a first run
+    # records the arguments of every float-sum site (thermal, smoothing,
+    # dep_sum, downstream_accumulate, the wind bins, wsum, the ice flow and
+    # the glacial step's remainder sums),
+    # which are then replayed against the CPU; a warm run is counted,
+    # timed and profiled
+    glacial = GenerationParams(seed=SEED, glacial_erosion=0.2)
+    (res_g, cold_g), calls = record_sum_calls(
+        lambda: run_generate(dev, glacial))
+    print(f"generate 204K glacial 0.2 (climate on) cold, sums recorded: "
+          f"{cold_g:.2f} s", flush=True)
+    sites = sum_site_checks(calls)
+    sweep_cuda.reset_launches()
+    res_g, warm_g = run_generate(dev, glacial)
+    launches_g = dict(sweep_cuda.LAUNCHES)
+    print(res_g.timing.table())
+    print(f"generate 204K glacial 0.2 (climate on) warm: {warm_g:.3f} s; "
+          "kernels " + " ".join(f"{k}={v}" for k, v in launches_g.items()),
+          flush=True)
+    assert launches_g["ordered_sum"] > 0, launches_g
+    assert res_g.error is None, res_g.error
+    diag_g, plates_g = check_planet(res_g, glacial.n_plates)
+    print(f"glacial diagnostics: {diag_g}, plates {plates_g}; climate: "
+          + check_climate(res_g), flush=True)
+    changed = int((res_g.elevation != res.elevation).sum())
+    assert changed > 0
+    print(f"glacial erosion moved {changed} cells against the default "
+          "generate", flush=True)
+    report_profile(profile_generate(dev, glacial), warm_g)
+
+    # 6. the retained-state commands on the default planet
+    walls = command_checks(dev, params, params.n_plates)
+
     # the row's times and bound are those of its phase-2 shape (configs /
     # shapes list the others); path_device_ms is the mean device time per
     # launch over the default generate's launches of the kernel
     top = {"name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    records["ordered_sum"]["ice_flow"] = sites.get("ice_flow")
+    records["ordered_sum"]["glacial_launches"] = launches_g["ordered_sum"]
     kernels = [dict(
         name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
         launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -906,6 +1327,8 @@ def main() -> int:
         **({"path_sweeps": swept[k]} if k in swept else {}),
         **{x: v for x, v in r.items() if x not in top})
         for k, r in records.items()]
+    print(json.dumps({"commands_wall_s": walls,
+                      "glacial_generate_wall_s": warm_g}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

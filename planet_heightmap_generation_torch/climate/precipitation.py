@@ -22,7 +22,7 @@ from ..mesh.device import DeviceGraph
 from ..ops import sweep_cuda
 from ..ops.banded import (banded_sum, banded_count, band_shift, dot3,
                           pack_band_bits, rem_csr, smooth_field_banded,
-                          compute_gradients_banded)
+                          compute_gradients_banded, rem_add)
 from .util import smoothstep, percentile, elev_to_height_km, itcz_lookup
 from .heuristic_precip import (heuristic_wind_field, heuristic_precip_raw,
                                west_coast_signal)
@@ -98,8 +98,7 @@ def _advect_moisture2(pos, height_km, is_land, wind3d2, warmth2,
         out = torch.zeros_like(field2)
         for d, off in enumerate(band_off):
             out = out + up_wb[d] * band_shift(field2, off)
-        idx = rem_src[:, None].expand(-1, field2.shape[1])
-        return out.scatter_reduce(0, idx, up_wr * field2[rem_dst], "sum")
+        return rem_add(out, up_wr * field2[rem_dst], rem_src, rem_dst)
 
     up_sum2 = wsum(torch.ones((n, 2), dtype=torch.float32,
                               device=pos.device))

@@ -26,7 +26,8 @@ import torch
 from ..mesh.device import DeviceGraph
 from ..ops.noise import Tables, fbm
 from ..ops.banded import (bfs_hops_multi_banded, smooth_field_banded,
-                          banded_sum, compute_gradients_banded, dot3)
+                          banded_sum, compute_gradients_banded, dot3,
+                          ordered_index_sum)
 from ..erosion.flood import open_ocean_mask, connected_components_banded
 from .util import (GeoFrame, geo_frame, smoothstep, percentile,
                    elev_to_height_km)
@@ -42,18 +43,19 @@ _SAMPLE_DEGS = np.array([5.0, 10.0, 15.0, 20.0], np.float32)
 
 def _bin_aggregates(lat, lon, elev, is_land, valid):
     """Scatter per-cell land/elev into the 36×72 geo bins
-    (js/wind.js:88-118). Returns (count, land count, elevation sum)."""
+    (js/wind.js:88-118), each bin's cells added in cell order
+    (ops.banded.ordered_index_sum; padding goes to a dropped slot).
+    Returns (count, land count, elevation sum)."""
     bi = torch.clamp(((lat + math.pi / 2) / math.pi * LAT_BINS)
                      .to(torch.int64), 0, LAT_BINS - 1)
     bj = torch.clamp(((lon + math.pi) / (2 * math.pi) * LON_BINS)
                      .to(torch.int64), 0, LON_BINS - 1)
     b = torch.where(valid, bi * LON_BINS + bj, LAT_BINS * LON_BINS)
-    nb = LAT_BINS * LON_BINS + 1
-    z = torch.zeros(nb, dtype=torch.float32, device=lat.device)
-    cnt = z.index_add(0, b, torch.ones_like(lat))
-    land = z.index_add(0, b, is_land.to(torch.float32))
-    esum = z.index_add(0, b, torch.clamp(elev, min=0.0))
-    return cnt[:-1], land[:-1], esum[:-1]
+    nb = LAT_BINS * LON_BINS
+    vals = torch.stack([torch.ones_like(lat), is_land.to(torch.float32),
+                        torch.clamp(elev, min=0.0)], 1)
+    s = ordered_index_sum(nb, b, vals)
+    return s[:, 0], s[:, 1], s[:, 2]
 
 
 def _elev_to_km_vec(e):

@@ -22,6 +22,10 @@
 //   shadow run their fixed number of passes / hops. The host issues one
 //   launch and reads nothing back.
 //
+// Besides the sweeps, one kernel that is not a sweep: the ordered
+// scatter-sum (end of the file), which the pointer-doubling and bin sums
+// use in place of an atomic float index_add.
+//
 // What bounds these kernels on an H100: memory traffic, never arithmetic
 // for a single sweep. The least a sweep must move is its state and
 // auxiliary planes read once, the packed u32 band bits read once and the
@@ -1256,6 +1260,55 @@ int launch_smooth(RelaxArgs<SmoothRule> a, cudaStream_t stream) {
   return launch_relax(smooth_relax_kernel<F>, s, stream);
 }
 
+// ── Ordered scatter-sum ──────────────────────────────────────────────
+//
+// out[t] = sum of vals[i] over the i with idx[i] == t, added from 0.0f in
+// ascending i: the order of the jnp scatter-add and of torch's CPU
+// index_add, so the result has the CPU's bits on every run (an atomic
+// index_add adds in whatever order the threads arrive). The caller sorts
+// idx stably (keys, with perm[k] the source of sorted entry k); thread t
+// finds its run [lo, hi) of the sorted keys by binary search and walks it.
+// Keys at or past n_out (a virtual sink, an overflow bin) fall in no
+// thread's run and are never walked, however many cells they hold.
+constexpr int kSumThreads = 256;
+constexpr int kMaxSumFields = 4;
+
+__device__ __forceinline__ long long first_at_least(const int* keys,
+                                                    long long k, int t) {
+  long long lo = 0, hi = k;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(keys + mid) < t)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kSumThreads)
+ordered_sum_kernel(const int* __restrict__ keys,
+                   const long long* __restrict__ perm,
+                   const float* __restrict__ vals, long long k, int n_out,
+                   int nf, float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_out) return;
+  const long long lo = first_at_least(keys, k, t);
+  const long long hi = first_at_least(keys, k, t + 1);
+  float acc[kMaxSumFields];
+#pragma unroll
+  for (int f = 0; f < kMaxSumFields; ++f) acc[f] = 0.0f;
+  for (long long i = lo; i < hi; ++i) {
+    const float* v = vals + __ldg(perm + i) * nf;
+#pragma unroll
+    for (int f = 0; f < kMaxSumFields; ++f)
+      if (f < nf) acc[f] += __ldg(v + f);
+  }
+#pragma unroll
+  for (int f = 0; f < kMaxSumFields; ++f)
+    if (f < nf) out[(long long)t * nf + f] = acc[f];
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
@@ -1430,6 +1483,21 @@ int shadow_relax(const float* state, const float* aux, const float* land,
   a.planes = 4;
   a.fixed = true;
   return launch_relax(shadow_relax_kernel, a, (cudaStream_t)stream);
+}
+
+// keys int32 [k] sorted (stably) and perm int64 [k] its source indices;
+// vals float32 [k, nf] row-major, 1 <= nf <= kMaxSumFields; out float32
+// [n_out, nf], every entry written (0 where a target has no entries).
+int ordered_sum(const int* keys, const long long* perm, const float* vals,
+                long long k, int n_out, int nf, float* out, void* stream) {
+  if (k < 0 || n_out < 1 || nf < 1 || nf > kMaxSumFields ||
+      (k > 0 && (keys == nullptr || perm == nullptr || vals == nullptr)) ||
+      out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (n_out + kSumThreads - 1) / kSumThreads;
+  ordered_sum_kernel<<<grid, kSumThreads, 0, (cudaStream_t)stream>>>(
+      keys, perm, vals, k, n_out, nf, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

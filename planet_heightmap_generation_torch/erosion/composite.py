@@ -1,13 +1,11 @@
 """Composite erosion loop and the full terrain post-processing stage.
 
 Re-design of reference erodeComposite (js/terrain-post.js:369-707) and
-runPostProcessing (js/planet-worker.js:40-102): hydraulic → thermal per
-iteration, with an initial priority-flood carve (0.5) before the loop and
-a mid-loop re-flood (0.85) at 75% of the iterations. Slider → parameter
-mapping matches js/planet-worker.js:58-93.
-
-Glacial erosion is not ported yet (ROADMAP, queue 1 item 6); it is off at
-the default sliders, and a request for it raises.
+runPostProcessing (js/planet-worker.js:40-102): glacial → hydraulic →
+thermal per iteration, with an initial priority-flood carve (0.5) before
+the loop, a mid-loop re-flood (0.85) at 75% of the iterations and the
+glacial Laplacian blend after it. Slider → parameter mapping matches
+js/planet-worker.js:58-93.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ from ..ops.banded import band_nbr_dist
 from .flood import priority_flood_carve, open_ocean_mask
 from .fluvial import steepest_receivers, flow_accumulation, stream_power_solve
 from .thermal import thermal_step
+from .glacial import glaciation_index, glacial_step, glacial_post_smooth
 from .smooth import smooth_elevation, sharpen_ridges, apply_soil_creep
 from .warp import warp_terrain
 
@@ -40,12 +39,24 @@ def _edge_lengths(g: DeviceGraph):
     return band_dist, rem_dist
 
 
+def mean_edge(g: DeviceGraph) -> float:
+    """The mean neighbour distance of the padded gather form, in float32:
+    Σ|p_j - p_i| over the masked slots / max(1, their count), as the JAX
+    ``run_post_processing`` takes it (one host read)."""
+    delta = g.pos[g.nbr_idx] - g.pos[:, None, :]
+    dist = torch.where(g.nbr_mask, torch.sqrt(torch.sum(delta * delta, -1)),
+                       0.0).to(torch.float32)
+    return float(dist.sum() / torch.clamp(g.nbr_mask.sum(), min=1))
+
+
 def erode_composite(g: DeviceGraph, elev, is_ocean,
                     h_iters: int, k_coeff: float, m_exp: float, dt: float,
-                    t_iters: int, talus_slope: float, k_thermal: float):
-    """The composite loop: per iteration a hydraulic step while
-    ``it < h_iters`` and a thermal step while ``it < t_iters``."""
-    total = max(h_iters, t_iters)
+                    t_iters: int, talus_slope: float, k_thermal: float,
+                    g_iters: int = 0, glacial_strength: float = 0.0):
+    """The composite loop: per iteration a glacial step while
+    ``it < g_iters``, a hydraulic step while ``it < h_iters`` and a
+    thermal step while ``it < t_iters``; the glacial blend after it."""
+    total = max(h_iters, t_iters, g_iters)
     if total <= 0:
         return elev
 
@@ -61,7 +72,19 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
         elev, _, _ = priority_flood_carve(elev, is_ocean, valid, *g.bands,
                                           _f32(0.5, g), open_ocean=open_ocean)
 
+    # the glaciation index of the carved elevation, fixed for the loop
+    glac_idx = None
+    if g_iters > 0 and glacial_strength > 0:
+        glac_idx = glaciation_index(g.pos, elev, is_ocean, valid,
+                                    _f32(glacial_strength, g))
+    g_scale = 1.0 / g_iters if g_iters > 0 else 0.0
+
     def step(elev, it: int):
+        if glac_idx is not None and it < g_iters:
+            elev = glacial_step(
+                elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
+                g.rem_src, g.rem_dst, rem_dist, glac_idx,
+                _f32(glacial_strength, g), _f32(g_scale, g))
         if it < h_iters:
             rcv, dist, is_pit = steepest_receivers(
                 elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
@@ -87,6 +110,8 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
                                           open_ocean=open_ocean)
         for it in range(mid, total):
             elev = step(elev, it)
+    if glac_idx is not None:
+        elev = glacial_post_smooth(elev, is_ocean, valid, *g.bands, glac_idx)
     return elev
 
 
@@ -96,25 +121,21 @@ def run_post_processing(g: DeviceGraph, elev, seed: int, params: dict,
     """Full post stage with the worker's slider mapping
     (js/planet-worker.js:40-102). ``params`` keys: smoothing,
     glacial_erosion, hydraulic_erosion, thermal_erosion, ridge_sharpening,
-    terrain_warp. ``avg_edge`` defaults to π/√N, the nominal neighbour
-    spacing; ``warp_t`` are the seed+9999 noise tables. Returns
-    (elevation, erosion_delta)."""
+    terrain_warp. ``avg_edge`` defaults to the mesh's mean neighbour
+    distance (:func:`mean_edge`; the engines pass π/√N); ``warp_t`` are
+    the seed+9999 noise tables. Returns (elevation, erosion_delta)."""
     smoothing = params.get("smoothing", 0.0)
     glacial = params.get("glacial_erosion", 0.0)
     hydraulic = params.get("hydraulic_erosion", 0.0)
     thermal = params.get("thermal_erosion", 0.0)
     ridge = params.get("ridge_sharpening", 0.0)
     tw = params.get("terrain_warp", 0.0)
-    if glacial > 0:
-        raise NotImplementedError(
-            "glacial erosion is not ported yet (ROADMAP queue 1, item 6: "
-            "erosion/glacial.py)")
 
     if tw > 0:
         from ..ops.noise import tables
         max_amp = 0.12 * tw
         if avg_edge is None:
-            avg_edge = math.pi / math.sqrt(g.n_cells)
+            avg_edge = mean_edge(g)
         max_steps = int(math.ceil(max_amp / max(avg_edge, 1e-6))) + 8
         hot = hotspot if hotspot is not None else torch.zeros_like(elev)
         elev = warp_terrain(elev, g.pos, g.valid, *g.bands,
@@ -132,13 +153,14 @@ def run_post_processing(g: DeviceGraph, elev, seed: int, params: dict,
                                 round(1 + smoothing * 4),
                                 _f32(0.2 + smoothing * 0.5, g))
 
-    if hydraulic > 0 or thermal > 0:
+    if glacial > 0 or hydraulic > 0 or thermal > 0:
         elev = erode_composite(
             g, elev, is_ocean,
             h_iters=round(hydraulic * 20), k_coeff=hydraulic * 0.0006,
             m_exp=0.5, dt=1.0,
             t_iters=round(thermal * 10), talus_slope=1.2 - thermal * 0.4,
-            k_thermal=thermal * 0.15)
+            k_thermal=thermal * 0.15,
+            g_iters=round(glacial * 10), glacial_strength=glacial)
 
     if ridge > 0:
         elev = sharpen_ridges(elev, is_ocean, g.valid, *g.bands,

@@ -27,7 +27,8 @@ import torch
 from ..ops import sweep_cuda
 from ..ops.graph import hash01
 from ..ops.banded import (banded_sum, banded_count, band_shift, band_gate,
-                          pack_band_bits, components_core, rem_csr)
+                          pack_band_bits, components_core, rem_csr,
+                          ordered_index_sum)
 from .fluvial import log_rounds
 
 EPS = 1e-6  # reference uses 1e-7; promoted one decade so the increment
@@ -188,8 +189,10 @@ def _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean, valid,
 def downstream_accumulate(values, pointers, sink_mask, rounds: int = 0):
     """For each cell, the sum of ``values`` over all upstream cells whose
     drain path passes through it (inclusive), via pointer doubling:
-    S ← S + scatter_add(S along P), P ← P[P]. Cells where ``sink_mask``
-    holds (and negative pointers) route to a virtual sink."""
+    S ← S + scatter_add(S along P), P ← P[P], each target's adds in source
+    order (ops.banded.ordered_index_sum). Cells where ``sink_mask`` holds
+    (and negative pointers) route to a virtual sink, which is never
+    summed."""
     n = values.shape[0]
     rounds = rounds if rounds > 0 else log_rounds(n)
     sink = n
@@ -199,8 +202,7 @@ def downstream_accumulate(values, pointers, sink_mask, rounds: int = 0):
     for _ in range(rounds):
         if not bool((p != sink).any()):
             break
-        added = torch.zeros(n + 1, dtype=s.dtype, device=s.device)
-        s = s + added.index_add(0, p, s)[:n]
+        s = s + ordered_index_sum(n, p, s)
         p = torch.cat([p, p.new_tensor([sink])])[p]
     return s
 

@@ -8,13 +8,13 @@ elevation, accumulates flow sequentially, then solves
 
 - receivers: one banded argmin (steepest drop; pits → no erosion).
 - flow accumulation: (S, P) pointer doubling — S ← S + scatter_add(S, P),
-  P ← P[P].
+  P ← P[P], on int32 counts.
 - implicit solve: h'_i = a_i + b_i·h'_rcv with a = h/(1+F), b = F/(1+F),
   composed associatively by pointer doubling: the exact sequential
   solution in O(log depth).
-- sediment deposition: eroded mass scatter-adds onto receivers with the
-  slope-dependent deposit fraction, capped at the donor's new height
-  (js/terrain-post.js:626-638).
+- sediment deposition: eroded mass adds onto receivers in donor order
+  (ops.banded.ordered_index_sum) with the slope-dependent deposit
+  fraction, capped at the donor's new height (js/terrain-post.js:626-638).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from ..ops.banded import banded_select
+from ..ops.banded import banded_select, ordered_index_sum
 
 
 def log_rounds(n: int) -> int:
@@ -57,18 +57,21 @@ def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
 
 def flow_accumulation(land, rcv, is_pit, rounds: int = 0):
     """Upstream drainage area (cell count), pointer-doubled. Pits route to
-    the sink so pointer cycles cannot inflate flow."""
+    the sink so pointer cycles cannot inflate flow. The counts add as
+    int32 (exact in any order: the JAX f32 counts are integers below
+    2^24) and return as float32."""
     n = land.shape[0]
     rounds = rounds if rounds > 0 else log_rounds(n)
     sink = n
     p = torch.where(land & (rcv >= 0) & (~is_pit), rcv, sink)
-    s = torch.where(land, 1.0, 0.0).to(torch.float32)
+    s = land.to(torch.int32)
     for _ in range(rounds):
         if not bool((p != sink).any()):
             break
-        s = s + torch.zeros(n + 1, device=s.device).index_add(0, p, s)[:n]
+        s = s + torch.zeros(n + 1, dtype=torch.int32,
+                            device=s.device).index_add(0, p, s)[:n]
         p = torch.cat([p, p.new_tensor([sink])])[p]
-    return s
+    return s.to(torch.float32)
 
 
 def stream_power_solve(elev, is_ocean, valid, rcv, dist, is_pit, flow,
@@ -134,7 +137,7 @@ def stream_power_solve(elev, is_ocean, valid, rcv, dist, is_pit, flow,
                           0.0)
 
     tgt = torch.where(has_rcv, rcv_c, n)
-    dep_sum = torch.zeros(n + 1, device=dev).index_add(0, tgt, deposit)[:n]
+    dep_sum = ordered_index_sum(n, tgt, deposit.contiguous())
     # cap: receiver must stay below the lowest donor's new height
     donor_min = torch.full((n + 1,), float("inf"), device=dev).scatter_reduce(
         0, torch.where(has_rcv & (deposit > 0), rcv_c, n),

@@ -1,0 +1,171 @@
+"""Glacial erosion — latitude/elevation glaciation, ice flow, U-valley
+carving, moraines, fjords.
+
+The glacial block of erodeComposite (js/terrain-post.js:404-557,
+689-706), as the JAX package re-designs it: the sequential
+descending-order ice flow becomes 22 steps of pointer doubling, each
+target's adds in source order (ops.banded.ordered_index_sum, so the card
+gives the CPU's bits); valley widening and moraine deposition are taken
+from the receiving cell's side over the Fibonacci roll bands, the
+remainder edges added in edge order (ops.banded.rem_add).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.banded import (banded_sum, band_shift, banded_select,
+                          ordered_index_sum, rem_add)
+
+G_FLOW_THRESHOLD = 0.1
+G_FJORD_THRESHOLD = 0.5
+# pointer-doubling steps of the ice flow (a fixed count, as in the JAX
+# package: ice paths are short, and the sink absorbs every finished path)
+ICE_FLOW_STEPS = 22
+
+
+def _smoothstep(x, e0, e1):
+    t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3 - 2 * t)
+
+
+def glaciation_index(pos, elev, is_ocean, valid, strength):
+    """Latitude/elevation glaciation index (js/terrain-post.js:416-427).
+    The reference reads r_xyz[3r+1] (its y axis) as the pole axis.
+    ``strength`` is a float32 scalar tensor."""
+    y = pos[:, 1]
+    polar = torch.abs(torch.asin(torch.clamp(y, -1.0, 1.0)))
+    threshold_lat = math.pi / 2 - strength * math.pi / 4.5
+    lat_factor = _smoothstep(polar, threshold_lat, math.pi / 2)
+    elev_factor = _smoothstep(elev, 0.5, 0.9)
+    lat_scale = _smoothstep(polar, math.pi / 8, math.pi / 3)
+    g = torch.maximum(lat_factor,
+                      elev_factor * 0.3 * (0.3 + 0.7 * lat_scale))
+    return torch.where((~is_ocean) & valid, g * strength,
+                       0.0).to(torch.float32)
+
+
+def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
+    """(ice_target [N] int32, -1 where none; ice flow [N] f32): each
+    glaciated land cell drains to its lowest neighbour when that is
+    strictly lower (banded argmin, ties by band order), and the flow is
+    ``glac_idx`` accumulated downstream by ``ICE_FLOW_STEPS`` pointer
+    doublings into a virtual sink that is never summed."""
+    n = band_mask.shape[0]
+    dev = elev.device
+    idx_f = torch.arange(n, dtype=torch.float32, device=dev)
+    band_idx = idx_f[:, None] + torch.tensor(band_off, dtype=torch.float32,
+                                             device=dev)[None, :]
+    min_elev, _, (tgt_f,) = banded_select(
+        elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,
+        edge_payloads=[band_idx],
+        rem_edge_payloads=[rem_dst.to(torch.float32)])
+    best_drop = elev - min_elev
+    has_target = (land & (glac_idx > 0) & (best_drop > 0)
+                  & torch.isfinite(min_elev))
+    ice_target = torch.where(has_target, tgt_f, -1.0).to(torch.int32)
+
+    sink = n
+    p = torch.where(has_target, torch.clamp(ice_target, 0, n - 1),
+                    sink).to(torch.int64)
+    s = glac_idx.to(torch.float32).contiguous()
+    for _ in range(ICE_FLOW_STEPS):
+        s = s + ordered_index_sum(n, p, s)
+        p = torch.cat([p, p.new_tensor([sink])])[p]
+    return ice_target, s
+
+
+def glacial_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                 rem_src, rem_dst, rem_dist, glac_idx, strength, g_scale):
+    """One glacial iteration (the JAX ``glacial_step``). ``strength`` and
+    ``g_scale`` = 1/gIters are float32 scalar tensors."""
+    n = band_mask.shape[0]
+    dev = elev.device
+    land = (~is_ocean) & valid
+    src = rem_src
+    ice_target, flow = ice_flow(elev, land, glac_idx, band_off, band_mask,
+                                rem_src, rem_dst)
+
+    carving = land & (flow > G_FLOW_THRESHOLD)
+    deepening = torch.where(
+        carving, 0.02 * g_scale * torch.pow(flow, 0.6) * strength, 0.0)
+    delta = -deepening
+
+    # valley widening + moraines + tributary count, one banded sweep set.
+    # points_at_me[edge j→i]: ice_target[j] == i.
+    cells = torch.arange(n, dtype=torch.int32, device=dev)
+    num_upstream = torch.zeros(n, dtype=torch.int32, device=dev)
+    widen = torch.zeros(n, dtype=torch.float32, device=dev)
+    deposit = torch.zeros(n, dtype=torch.float32, device=dev)
+    moraine_amt = 0.005 * g_scale * torch.pow(flow, 0.3)
+    flow_ok = flow > G_FLOW_THRESHOLD
+    for d, off in enumerate(band_off):
+        ok = band_mask[:, d]
+        nb_land = band_shift(land, off)
+        points_at_me = ok & (band_shift(ice_target, off) == cells)
+        num_upstream = num_upstream + points_at_me.to(torch.int32)
+        # widening: I receive from each carving neighbour
+        slope = torch.abs(elev - band_shift(elev, off)) / torch.clamp(
+            band_dist[:, d], min=1e-6)
+        widen = widen + torch.where(
+            ok & band_shift(carving, off) & land & nb_land,
+            band_shift(deepening, off) * 0.4
+            * torch.clamp(1 - slope, min=0.0), 0.0)
+        # moraine deposition at termini
+        dep_ok = (points_at_me & land & band_shift(flow_ok, off)
+                  & (glac_idx < band_shift(glac_idx, off) * 0.3))
+        deposit = deposit + torch.where(dep_ok, band_shift(moraine_amt, off),
+                                        0.0)
+    # remainder edges (receiver = rem_src, sender = rem_dst), in edge order
+    points_r = ice_target[rem_dst] == src
+    num_upstream = num_upstream.index_add(0, src,
+                                          points_r.to(torch.int32))
+    slope_r = torch.abs(elev[src] - elev[rem_dst]) / torch.clamp(rem_dist,
+                                                                 min=1e-6)
+    widen = rem_add(widen, torch.where(
+        carving[rem_dst] & land[src] & land[rem_dst],
+        deepening[rem_dst] * 0.4 * torch.clamp(1 - slope_r, min=0.0), 0.0),
+        rem_src, rem_dst)
+    dep_ok_r = (points_r & land[src] & flow_ok[rem_dst]
+                & (glac_idx[src] < glac_idx[rem_dst] * 0.3))
+    deposit = rem_add(deposit, torch.where(dep_ok_r, moraine_amt[rem_dst],
+                                           0.0), rem_src, rem_dst)
+
+    delta = delta - widen
+    delta = delta - torch.where(
+        carving & (num_upstream >= 2),
+        0.01 * g_scale * torch.pow(flow, 0.4), 0.0)
+    delta = delta + deposit
+
+    new = elev + torch.where(land, delta, 0.0)
+
+    # fjord carve on glaciated coastal cells
+    ocean_nb = banded_sum(is_ocean.to(torch.float32), band_off, band_mask,
+                          rem_src, rem_dst)
+    fjord = (land & (ocean_nb > 0) & (glac_idx > 0.2)
+             & (flow > G_FJORD_THRESHOLD))
+    new = torch.where(
+        fjord,
+        torch.clamp(new - 0.015 * g_scale * torch.pow(flow, 0.5), min=0.0),
+        new)
+
+    # clamp: land stays land
+    new = torch.where(land, torch.clamp(new, min=0.0), new)
+    return new.to(torch.float32)
+
+
+def glacial_post_smooth(elev, is_ocean, valid, band_off, band_mask,
+                        rem_src, rem_dst, glac_idx):
+    """Post-loop Laplacian blend on glaciated land
+    (js/terrain-post.js:689-706)."""
+    land = (~is_ocean) & valid
+    c = banded_sum(land.to(torch.float32), band_off, band_mask, rem_src,
+                   rem_dst)
+    s = banded_sum(torch.where(land, elev, 0.0), band_off, band_mask,
+                   rem_src, rem_dst)
+    avg = s / torch.clamp(c, min=1)
+    blended = elev + (avg - elev) * 0.3
+    return torch.where(land & (glac_idx > 0) & (c > 0), blended,
+                       elev).to(torch.float32)

@@ -2,15 +2,15 @@
 
 Re-designs of reference smoothElevation (js/terrain-post.js:317-354),
 sharpenRidges (:713-751) and applySoilCreep (:758-794). Each pass is D
-masked shifts over the Fibonacci spiral ordering plus the remainder-edge
-scatter (ops/banded).
+masked shifts over the Fibonacci spiral ordering plus the remainder edges,
+added in edge order (ops/banded).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.banded import banded_sum, banded_count, band_shift
+from ..ops.banded import banded_sum, banded_count, band_shift, rem_add
 
 
 def smooth_elevation(elev, is_ocean, valid, band_off, band_mask,
@@ -34,8 +34,8 @@ def smooth_elevation(elev, is_ocean, valid, band_off, band_mask,
             hw = hw + nh * w
         nh_r = elev[rem_dst]
         w_r = 1.0 / (1.0 + torch.abs(nh_r - elev[rem_src]) * 8.0)
-        w_sum = w_sum.index_add(0, rem_src, w_r)
-        hw = hw.index_add(0, rem_src, nh_r * w_r)
+        w_sum = rem_add(w_sum, w_r, rem_src, rem_dst)
+        hw = rem_add(hw, nh_r * w_r, rem_src, rem_dst)
         h_avg = hw / torch.clamp(w_sum, min=1e-20)
         new = elev + (h_avg - elev) * strength
         elev = torch.where(movable & (w_sum > 0), new, elev)

@@ -4,16 +4,17 @@ The reference (js/terrain-post.js:644-686) scatters slope-excess material
 from each cell to its lower neighbours through a delta buffer. Here the
 symmetric-edge form (shed = per-edge excess above the talus slope;
 received = the higher neighbour's transfer times this edge's share of its
-total excess) runs over the Fibonacci roll bands. ``band_dist`` is the
-[N,D] banded edge length (ops.banded.band_nbr_dist), computed once by the
-composite loop.
+total excess) runs over the Fibonacci roll bands; the remainder edges add
+in edge order (ops.banded.rem_add), as the jnp scatter-add does.
+``band_dist`` is the [N,D] banded edge length (ops.banded.band_nbr_dist),
+computed once by the composite loop.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.banded import band_shift
+from ..ops.banded import band_shift, rem_add
 
 
 def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
@@ -35,8 +36,9 @@ def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
         total_excess = total_excess + edge_excess(
             elev, band_shift(elev, off), band_dist[:, d], ok)
     ok_r = land[src] & land[rem_dst]
-    total_excess = total_excess.index_add(
-        0, src, edge_excess(elev[src], elev[rem_dst], rem_dist, ok_r))
+    total_excess = rem_add(
+        total_excess, edge_excess(elev[src], elev[rem_dst], rem_dist, ok_r),
+        rem_src, rem_dst)
 
     transfer = k_thermal * total_excess * 0.5
     shed = torch.where(total_excess > 0, transfer, 0.0)
@@ -55,7 +57,7 @@ def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
     # remainder: every directed edge appears exactly once across bands +
     # remainder, so one (src ← dst) pass covers all remaining flow
     excess_in_r = edge_excess(elev[rem_dst], elev[src], rem_dist, ok_r)
-    recv = recv.index_add(0, src, excess_in_r * nb_share[rem_dst])
+    recv = rem_add(recv, excess_in_r * nb_share[rem_dst], rem_src, rem_dst)
 
     out = elev + torch.where(land, recv - shed, 0.0)
     return out.to(torch.float32)

@@ -7,7 +7,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.banded import rem_walk
+from ..ops.banded import rem_walk_edges
 from .build import SphereGraph
 
 
@@ -127,6 +127,6 @@ def to_device(graph: SphereGraph, device="cuda") -> DeviceGraph:
         n_cells=int(graph.n_cells),
         band_off=tuple(int(o) for o in band_off),
     )
-    # banded_sum's remainder rows, built from the host copy (no sync)
-    rem_walk(g.rem_src, g.rem_dst, host=(rem_src, rem_dst))
+    # the remainder sums' rows, built from the host copy (no sync)
+    rem_walk_edges(g.rem_src, g.rem_dst, host=(rem_src, rem_dst))
     return g

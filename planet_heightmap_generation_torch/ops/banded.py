@@ -24,8 +24,11 @@ no-ops and no loop runs past its cap.
 The climate's Laplacian smoothing runs all the passes of a call in one
 launch of the smoothing kernel; it sums, so it takes the remainder edges
 as CSR rows in edge order (:func:`rem_csr`) instead of a scatter, and so
-does :func:`banded_sum` (:func:`rem_walk`): every neighbour sum keeps the
-jnp scatter-add's order and gives the same bits on every run.
+do :func:`banded_sum` and every other remainder-edge sum (:func:`rem_add`,
+walked as rows): every neighbour sum keeps the jnp scatter-add's order
+and gives the same bits on every run. The pointer-doubling and bin sums,
+whose targets change from call to call, go through
+:func:`ordered_index_sum` (a stable sort and the ordered-sum kernel).
 """
 
 from __future__ import annotations
@@ -136,19 +139,39 @@ def banded_max(field, band_off, band_mask, rem_src, rem_dst, fill=-INF,
 def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
     """Sum over neighbours: the bands in order, then each cell's remainder
     edges in edge order (the order of the jnp scatter-add
-    ``.at[rem_src].add``), walked as rows (:func:`rem_walk`) with no
+    ``.at[rem_src].add``), walked as rows (:func:`rem_add`) with no
     atomics, so a CUDA tensor gives the CPU's bits on every run."""
     out = torch.zeros_like(field)
     for d, off in enumerate(band_off):
         m = band_mask[:, d] if gate is None else gate[:, d]
         out = out + torch.where(_expand(m, field), band_shift(field, off), 0)
-    cells, nbrs = rem_walk(rem_src, rem_dst)
-    if not nbrs:
+    return rem_add(out, field[rem_dst], rem_src, rem_dst)
+
+
+def rem_add(out, edge_vals, rem_src, rem_dst):
+    """``out`` plus, at each cell, the values ``edge_vals`` [M] (or [M,F])
+    of the remainder edges it receives (``rem_src``), in edge order: the
+    jnp scatter-add ``out.at[rem_src].add(edge_vals)``, walked as rows
+    (:func:`rem_walk_edges`) with no atomics, so a CUDA tensor gives the
+    CPU's bits on every run."""
+    cells, edges = rem_walk_edges(rem_src, rem_dst)
+    if not edges:
         return out
     acc = out[cells]
-    for nbr in nbrs:
-        acc[:nbr.shape[0]] += field[nbr]
+    for e in edges:
+        acc[:e.shape[0]] += edge_vals[e]
     return out.index_put((cells,), acc)
+
+
+def ordered_index_sum(n_out: int, idx, vals):
+    """``out[t] = Σ vals[i]`` over the i with ``idx[i] == t``, added in
+    ascending i from 0 (the order of the jnp ``.at[idx].add`` and of
+    torch's CPU ``index_add``), for t < ``n_out``; entries with
+    ``idx >= n_out`` (a virtual sink or overflow slot) are skipped.
+    ``vals`` is [K] or [K, F] float32. On a CUDA tensor one stable sort of
+    ``idx`` and one launch of the ordered-sum kernel (ops/sweep_cuda.py
+    ``ordered_sum``), with no atomics: the CPU's bits on every run."""
+    return sweep_cuda.ordered_sum(n_out, idx, vals)
 
 
 # The remainder walk of each (rem_src, rem_dst) pair in use, keyed by the
@@ -157,31 +180,29 @@ def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
 _REM_WALKS: dict = {}
 
 
-def rem_walk(rem_src, rem_dst, host=None):
+def rem_walk_edges(rem_src, rem_dst, host=None):
     """The remainder edges as rows of their receiving cell, in edge order:
-    (cells, nbrs). ``cells`` [U] int64 are the cells with remainder edges,
-    longest row first; ``nbrs[k]`` [U_k] int64 holds the k-th neighbour of
-    the first U_k of them (those with more than k edges). Built once per
-    pair of tensors, from ``host`` = (rem_src, rem_dst) numpy arrays where
-    the caller has them (mesh/device.py does), else from a copy to the host
-    (one sync)."""
+    (cells, edges). ``cells`` [U] int64 are the cells with remainder
+    edges, longest row first; ``edges[k]`` [U_k] int64 holds the index
+    into the remainder list of the k-th edge of the first U_k of them
+    (those with more than k edges). Built once per pair of tensors, from
+    ``host`` = (rem_src, rem_dst) numpy arrays where the caller has them
+    (mesh/device.py does), else from a copy to the host (one sync)."""
     key = (id(rem_src), id(rem_dst))
     hit = _REM_WALKS.get(key)
     if hit is not None and hit[0]() is rem_src and hit[1]() is rem_dst:
         return hit[2]
-    src, dst = ((rem_src.cpu().numpy(), rem_dst.cpu().numpy()) if host is None
-                else (np.asarray(host[0]), np.asarray(host[1])))
+    src = rem_src.cpu().numpy() if host is None else np.asarray(host[0])
     order = np.argsort(src, kind="stable")
-    src, dst = src[order], dst[order]
-    cells, first, count = np.unique(src, return_index=True,
+    cells, first, count = np.unique(src[order], return_index=True,
                                     return_counts=True)
     rows = np.argsort(-count, kind="stable")
-    nbrs = tuple(
-        torch.as_tensor(dst[first[rows[:int((count > k).sum())]] + k],
-                        dtype=torch.int64, device=rem_src.device)
-        for k in range(int(count.max()) if count.size else 0))
     walk = (torch.as_tensor(cells[rows], dtype=torch.int64,
-                            device=rem_src.device), nbrs)
+                            device=rem_src.device),
+            tuple(torch.as_tensor(order[first[rows[:int((count > k).sum())]]
+                                        + k], dtype=torch.int64,
+                                  device=rem_src.device)
+                  for k in range(int(count.max()) if count.size else 0)))
 
     def drop(_):
         _REM_WALKS.pop(key, None)
@@ -192,11 +213,14 @@ def rem_walk(rem_src, rem_dst, host=None):
 
 
 def banded_count(band_mask, rem_src, gate=None, dtype=torch.int32):
-    """Neighbour degree [N]."""
+    """Neighbour degree [N], counted in int32 (exact, in any order) and
+    returned as ``dtype``."""
     m = band_mask if gate is None else gate
-    out = m.sum(1).to(dtype)
-    return _scatter(out, rem_src, torch.ones(rem_src.shape[0], dtype=dtype,
-                                             device=out.device), "sum")
+    out = m.sum(1).to(torch.int32)
+    out = _scatter(out, rem_src, torch.ones(rem_src.shape[0],
+                                            dtype=torch.int32,
+                                            device=out.device), "sum")
+    return out.to(dtype)
 
 
 def rem_gate_eq(cell_value, rem_src, rem_dst):

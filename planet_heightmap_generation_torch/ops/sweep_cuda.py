@@ -12,6 +12,11 @@ Six kernels (csrc/sweeps.cu):
 ``shadow`` rain-shadow hops (wind-aligned weighted min / max)
 =========  ==========================================================
 
+and one kernel that replaces scatter-adds, not a sweep:
+``ordered_sum`` (one thread per target adds its run of a stably sorted
+index list in source order: a float sum in a fixed order, with no
+atomics).
+
 Each runs its whole loop in ONE cooperative launch (grid barrier between
 sweeps, sweep count in device memory), nothing read back to the host:
 ``bfs_relax``, ``flood_relax``, ``stress_relax`` and ``warp_relax`` to
@@ -34,7 +39,8 @@ The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 ``_build/`` beside this package at first use, and rebuilt when the source
 is newer than the library. ``LAUNCHES`` counts launches per kernel
 (``bfs`` the one-sweep BFS; ``bfs_relax``, ``stress``, ``warp``,
-``flood``, ``smooth`` and ``shadow`` the relax launches, one each), and
+``flood``, ``smooth`` and ``shadow`` the relax launches, one each;
+``ordered_sum`` the ordered sums), and
 :func:`sweeps_run` the sweeps (ε-fill: rounds; rain shadow: hops) that
 the relax launches other than smoothing ran; the plain versions never
 count.
@@ -67,7 +73,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bfs": 0, "bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
-            "smooth": 0, "shadow": 0}
+            "smooth": 0, "shadow": 0, "ordered_sum": 0}
 # ε-fill sweeps per barrier round on the staged chunk (BFS always runs 1)
 FLOOD_INNER = 4
 
@@ -107,6 +113,8 @@ _ARGTYPES = {
     # windward_hops, stream
     "shadow_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                      _I, _P, _I, _F, _F, _I, _I, _P],
+    # keys, perm, vals, k, n_out, nf, out, stream
+    "ordered_sum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P],
 }
 
 
@@ -118,6 +126,8 @@ _RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3,
                "shadow": 4}
 # the most fields one smoothing launch carries (csrc kMaxSmoothFields)
 SMOOTH_MAX_FIELDS = 4
+# the most value columns one ordered sum carries (csrc kMaxSumFields)
+SUM_MAX_FIELDS = 4
 # rain-shadow edge weights stored per land cell (the mesh degree is at
 # most 8; a cell with more edges recomputes its weights every hop)
 SHADOW_SLOTS = 8
@@ -772,3 +782,60 @@ def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
             np_, offs, nd, float(retain_s), float(retain_w),
             int(shadow_hops), int(windward_hops))
     return out, ctl[3:]
+
+
+# ── ordered scatter-sum (replaces float scatter-adds) ───────────────
+
+def ordered_sum_plain(n_out: int, idx, vals):
+    """:func:`ordered_sum` in plain torch: ``index_add`` onto zeros, which
+    adds in ascending source index on the CPU; every index at or past
+    ``n_out`` goes to one spare slot that is cut off."""
+    idx = idx.long()
+    idx = torch.where(idx >= n_out, n_out, idx)
+    out = torch.zeros((n_out + 1, *vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add(0, idx, vals)[:n_out]
+
+
+def _check_sum(n_out: int, idx, vals):
+    """Raise unless the ordered-sum kernel can read its inputs: ``idx`` a
+    1-D int32 or int64 tensor of K entries on the values' device, ``vals``
+    a contiguous float32 [K] or [K, F] (F <= ``SUM_MAX_FIELDS``) and
+    ``n_out`` in [0, 2^31 - 1)."""
+    k = idx.shape[0] if idx.dim() == 1 else -1
+    if (idx.dtype not in (torch.int32, torch.int64) or idx.dim() != 1
+            or idx.device != vals.device):
+        raise ValueError("ordered sum: idx must be a 1-D int32 or int64 "
+                         f"tensor on {vals.device}")
+    if (vals.dtype != torch.float32 or not vals.is_contiguous()
+            or vals.shape[0] != k or vals.dim() not in (1, 2)
+            or (vals.dim() == 2 and not 1 <= vals.shape[1] <= SUM_MAX_FIELDS)):
+        raise ValueError(
+            f"ordered sum: vals must be a contiguous float32 [{k}] or "
+            f"[{k}, F <= {SUM_MAX_FIELDS}] tensor, got {vals.dtype} "
+            f"{tuple(vals.shape)}")
+    if not 0 <= int(n_out) < 2 ** 31 - 1:
+        raise ValueError(f"ordered sum: n_out {n_out} out of range")
+
+
+def ordered_sum(n_out: int, idx, vals):
+    """``out[t]`` = the sum of ``vals[i]`` over the i with ``idx[i] == t``,
+    added from 0 in ascending i, for t < ``n_out`` ([n_out] or [n_out, F]
+    like ``vals``); entries with ``idx >= n_out`` are skipped. On the card:
+    a stable sort of ``idx`` (int32 keys), then one thread per target
+    binary-searches its run of the sorted keys and adds the run's values in
+    order, so the sum has the CPU's bits and never walks the runs past
+    ``n_out``."""
+    if _on_cpu(vals):
+        return ordered_sum_plain(n_out, idx, vals)
+    fn = _kernel("ordered_sum")
+    _check_sum(n_out, idx, vals)
+    if int(n_out) == 0:
+        return vals.new_zeros((0, *vals.shape[1:]))
+    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
+    out = torch.empty((int(n_out), *vals.shape[1:]), dtype=torch.float32,
+                      device=vals.device)
+    nf = 1 if vals.dim() == 1 else vals.shape[1]
+    _launch(fn, "ordered_sum", _ptr(keys), _ptr(perm), _ptr(vals),
+            idx.shape[0], int(n_out), nf, _ptr(out))
+    return out

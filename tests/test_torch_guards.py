@@ -5,9 +5,11 @@
 - Entry points never fall back to the CPU on their own: the engine
   refuses to start without CUDA unless the caller asks for the CPU, and a
   sweep wrapper given a CUDA tensor launches its kernel or raises.
-- Requests the port does not cover yet (glacial erosion) raise, whatever
-  the climate setting; climate itself runs, on the CPU too.
+- Glacial erosion, which raised before it was ported, runs under every
+  climate setting; climate itself runs, on the CPU too.
 """
+
+import functools
 
 import os
 import pathlib
@@ -18,8 +20,11 @@ import types
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 — one torch thread per test process
+
 import planet_heightmap_generation_torch as port
 from planet_heightmap_generation_torch.ops import sweep_cuda
+from planet_heightmap_generation_torch.ops.banded import ordered_index_sum
 
 PKG = pathlib.Path(port.__file__).parent
 MODULES = sorted(
@@ -63,17 +68,33 @@ def test_engine_without_cuda_raises(monkeypatch):
     assert PlanetEngine(device="cpu").device.type == "cpu"
 
 
+@functools.lru_cache(maxsize=1)
+def _elevation_without_glacial():
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    return PlanetEngine(device="cpu").generate(GenerationParams(
+        seed=1, n_cells=2000, n_plates=8, skip_climate=True)).elevation
+
+
 @pytest.mark.parametrize("kw", [dict(skip_climate=False,
                                      glacial_erosion=0.5),
                                 dict(skip_climate=None, glacial_erosion=0.5),
                                 dict(skip_climate=True, glacial_erosion=0.5)])
 def test_uncovered_requests_raise(kw):
+    """Glacial erosion, the request this test once held to raise, is
+    ported: a glacial generate runs on the CPU under every climate setting
+    and carves the terrain (its elevation differs from glacial 0)."""
     from planet_heightmap_generation_torch.config import GenerationParams
     from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
 
-    with pytest.raises(NotImplementedError):
-        PlanetEngine(device="cpu").generate(
-            GenerationParams(seed=1, n_cells=2000, n_plates=8, **kw))
+    res = PlanetEngine(device="cpu").generate(
+        GenerationParams(seed=1, n_cells=2000, n_plates=8, **kw))
+    assert res.error is None
+    assert res.diagnostics()["nan_count"] == 0
+    assert (res.climate is None) == bool(kw["skip_climate"])
+    changed = res.elevation != _elevation_without_glacial()
+    assert bool(changed.any())
 
 
 @pytest.mark.parametrize("skip_climate", [False, None, True])
@@ -97,7 +118,8 @@ def _fake_cuda(shape):
 
 
 @pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood",
-                                    "smooth", "shadow", "bfs_relax"])
+                                    "smooth", "shadow", "bfs_relax",
+                                    "ordered_sum"])
 def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -118,6 +140,7 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
         "shadow": lambda: sweep_cuda.shadow_relax(x, x, x, x, (1,), x, x,
                                                   0.9, 0.8, 3, 2),
         "bfs_relax": lambda: sweep_cuda.bfs_relax(x, x, x, (1,), x, x, 5),
+        "ordered_sum": lambda: ordered_index_sum(4, x, x),
     }[kernel]
     with pytest.raises(RuntimeError):
         call()
@@ -135,14 +158,19 @@ def test_other_devices_refused():
                                  "csr_nbr_dtype", "np_not_multiple_of_4",
                                  "misaligned", "layer_planes_shape",
                                  "layer_bits_shape", "rem_gate_dtype",
-                                 "rem_gate_shape", "no_smoothing_pass"])
+                                 "rem_gate_shape", "no_smoothing_pass",
+                                 "sum_idx_dtype", "sum_vals_dtype",
+                                 "sum_vals_shape", "sum_n_out_range"])
 def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
     """The checks every wrapper runs before handing pointers to a kernel
     (``_check``; ``_check_csr`` for the kernels that walk remainder
-    rows, with the stress relax's per-layer remainder gates). The staged
-    kernels load planes as float4 words, so NP must be a multiple of 4
-    and every plane 16-byte aligned; the stress relax takes [G, 3, NP]
-    state and [G, NP] bits; a smoothing launch runs at least one pass."""
+    rows, with the stress relax's per-layer remainder gates; ``_check_sum``
+    for the ordered sum). The staged kernels load planes as float4 words,
+    so NP must be a multiple of 4 and every plane 16-byte aligned; the
+    stress relax takes [G, 3, NP] state and [G, NP] bits; a smoothing
+    launch runs at least one pass; the ordered sum takes integer indices,
+    contiguous float32 values of at most 4 columns and an output count in
+    int32 range."""
     bits = torch.zeros(64, dtype=torch.int32)
     plane = torch.zeros((4, 64))
     flag = torch.zeros(1, dtype=torch.int32)
@@ -156,6 +184,8 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
     sweep_cuda._check(lbits, None, (layers, (2, 3)), (plane[:2], 2),
                       bit_rows=2)
     sweep_cuda._check_csr(lbits, ptr, nbr, rgate, 2)
+    idx = torch.zeros(5, dtype=torch.int64)
+    sweep_cuda._check_sum(8, idx, plane[:, :5].T.contiguous())
     call = {
         "plane_shape": lambda: sweep_cuda._check(
             bits, flag, (plane[:, :32].contiguous(), 4)),
@@ -184,6 +214,14 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
             lbits, ptr, nbr, rgate[:1].contiguous(), 2),
         "no_smoothing_pass": lambda: sweep_cuda.smooth_relax(
             plane, plane[0] + 1, bits, (1,), ptr, nbr, 0),
+        "sum_idx_dtype": lambda: sweep_cuda._check_sum(
+            8, idx.float(), plane[0, :5].clone()),
+        "sum_vals_dtype": lambda: sweep_cuda._check_sum(
+            8, idx, plane[0, :5].double()),
+        "sum_vals_shape": lambda: sweep_cuda._check_sum(
+            8, idx, torch.zeros((5, 5))),
+        "sum_n_out_range": lambda: sweep_cuda._check_sum(
+            -1, idx, plane[0, :5].clone()),
     }[bad]
     with pytest.raises(ValueError):
         call()
@@ -231,6 +269,9 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
                                  2, st[2], st[3]),
          sweep_cuda.smooth_relax_plain(st, st[0] + 2, bits, offs, rem_ptr,
                                        rem_nbr, 2, st[2], st[3])),
+        (ordered_index_sum(40, bits.long() % 41, st[:3].T.contiguous()),
+         sweep_cuda.ordered_sum_plain(40, bits.long() % 41,
+                                      st[:3].T.contiguous())),
     ]
     for a, b in pairs:
         assert torch.equal(a, b)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 — one torch thread per test process
+
 from planet_heightmap_generation_tpu.mesh.build import build_sphere as jbuild
 from planet_heightmap_generation_tpu.mesh.device import to_device as jdevice
 from planet_heightmap_generation_torch.mesh.build import build_sphere

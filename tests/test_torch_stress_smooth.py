@@ -204,7 +204,7 @@ def test_smooth_relax_plain_matches_jnp(graphs, kind, f, passes):
 
 
 def test_banded_sum_rows_equal_the_edge_order_scatter(graphs):
-    """The row walk (tb.rem_walk) against the scatter-add it replaced, on
+    """The row walk (tb.rem_walk_edges) against the scatter-add it replaced, on
     the CPU, where that scatter adds the edges in edge order; on a walk
     built from the device tensors (host=None) as well as on the one
     to_device built from its host copy."""
@@ -212,7 +212,8 @@ def test_banded_sum_rows_equal_the_edge_order_scatter(graphs):
     n = g.n_padded
     rng = np.random.default_rng(41)
     field = _t(rng.standard_normal((n, 5)).astype(np.float32) * 100)
-    cells, nbrs = tb.rem_walk(g.rem_src, g.rem_dst)
+    cells, edges = tb.rem_walk_edges(g.rem_src, g.rem_dst)
+    nbrs = tuple(g.rem_dst[e] for e in edges)
     assert len(nbrs) >= 2 and cells.shape[0] == nbrs[0].shape[0]
     out = tb.banded_sum(field, *g.bands)
     band = torch.zeros_like(field)

@@ -10,6 +10,14 @@ import torch
 
 from planet_heightmap_generation_tpu.config import GenerationParams
 
+# One torch thread per test process. The port's tests run small tensors
+# (below torch's parallel grain) in several xdist workers at once; with a
+# pool per worker as wide as the machine, the idle OpenMP threads spin
+# between ops and take the cores the other workers need (the port's test
+# files ran ~2.5x slower under six workers). Every test_torch_* file
+# imports this module.
+torch.set_num_threads(1)
+
 PARAMS = GenerationParams(seed=123, n_cells=4000, n_plates=12,
                           num_continents=2, skip_climate=True)
 

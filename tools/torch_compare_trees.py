@@ -7,7 +7,10 @@ For each tree: build its kernels, run the default 204K generate
 (``GenerationParams(seed=42)``, climate on) cold, then three warm runs
 (wall seconds, and the kernel launches of the last), then one warm run of
 the default and one of the terrain-only generate under ``torch.profiler``
-(device busy ms and the number of device events). Prints one ``RESULT``
+(device busy ms and the number of device events), and one more default
+run traced for the device time and calls of the scatter-add kernels
+(``index_add``, an atomic add), the sorts and the ordered-sum kernel.
+Prints one ``RESULT``
 JSON line per tree. Give the trees in turns, so that host drift falls on
 both sides. Needs one CUDA device; uses each tree's ``chip_smoke.py``.
 """
@@ -35,10 +38,18 @@ for _ in range(3):
 launches = dict(sweep_cuda.LAUNCHES)
 prof = cs.profile_generate(dev, p)
 pt = cs.profile_generate(dev, GenerationParams(seed=42, skip_climate=True))
+kinds = {"index_add": ("indexFuncLargeIndex", "indexFuncSmallIndex"),
+         "sort": ("Sort", "sort"), "ordered_sum": ("ordered_sum_kernel",)}
+by_kind = {k: [0.0, 0] for k in kinds}
+for e in cs.device_events(lambda: cs.run_generate(dev, p)):
+    for k, names in kinds.items():
+        if any(n in e.name for n in names):
+            by_kind[k][0] += e.time_range.elapsed_us() / 1e3
+            by_kind[k][1] += 1
 print("RESULT " + json.dumps(dict(
     tree=TREE, walls=walls, launches=launches, busy_ms=prof["busy_ms"],
     events=prof["n_events"], terrain_busy_ms=pt["busy_ms"],
-    terrain_events=pt["n_events"])))
+    terrain_events=pt["n_events"], device_ms_calls=by_kind)))
 '''
 
 
