@@ -6,25 +6,21 @@
 // outside the bands (~0.5 % of edges) come as CSR rows of their receiving
 // cell, in edge order (ops/banded.py rem_csr).
 //
-// Two kinds of kernel:
+// Every loop runs in ONE cooperative launch ("Staged-window relax"
+// below): the BFS, ε-fill, stress, smoothing, terrain warp and rain-shadow
+// relax kernels sweep after sweep, with a grid barrier between sweeps, the
+// remainder edges in-kernel and the sweep count written to device memory;
+// the components kernel runs whole steps of the components loop (a gated
+// min-label sweep, hooking and two pointer jumps, a barrier between
+// phases). The fixpoint loops (BFS, ε-fill, stress, warp, components) keep
+// a device-side change flag; smoothing and the rain shadow run their fixed
+// number of passes / hops. The host issues one launch and reads nothing
+// back.
 //
-// - One synchronous (Jacobi) BFS sweep per launch, for the components
-//   loop, which does host-side work between sweeps: a sweep reads
-//   every neighbour from the INPUT buffer and writes to a separate OUTPUT
-//   buffer, so the result does not depend on the order in which blocks
-//   run and equals one iteration of the JAX jnp loop.
-// - A persistent relax kernel for every other loop (BFS, ε-fill, stress,
-//   smoothing, terrain warp, rain shadow: "Staged-window relax" below): ONE
-//   cooperative launch runs the whole loop, sweep after sweep, with a grid
-//   barrier between sweeps, the remainder edges in-kernel and the sweep
-//   count written to device memory. The fixpoint loops (BFS, ε-fill,
-//   stress, warp) keep a device-side change flag; smoothing and the rain
-//   shadow run their fixed number of passes / hops. The host issues one
-//   launch and reads nothing back.
-//
-// Besides the sweeps, one kernel that is not a sweep: the ordered
-// scatter-sum (end of the file), which the pointer-doubling and bin sums
-// use in place of an atomic float index_add.
+// Besides the sweeps, the pointer-doubling accumulate (end of the file):
+// one cooperative launch runs a whole S <- S + scatter_add(S along P),
+// P <- P[P] loop, each target's float adds in source order (the CPU
+// index_add's bits) with no sort and no host sync.
 //
 // What bounds these kernels on an H100: memory traffic, never arithmetic
 // for a single sweep. The least a sweep must move is its state and
@@ -40,9 +36,6 @@
 // indices are still wrapped modulo NP (jnp.roll semantics) so no thread
 // can read out of bounds; CSR rows are clamped to [0, M] and columns
 // outside [0, NP) skipped.
-//
-// Change flag: the one-sweep BFS ORs "some cell changed" into *flag (one
-// atomicOr per block after a block-level OR) when flag is not null.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps a*b+c as two rounded
@@ -85,12 +78,6 @@ __device__ __forceinline__ int wrap(int j, int np) {
   return j < 0 ? j + np : (j >= np ? j - np : j);
 }
 
-// All threads of the block must call this (it contains a barrier).
-__device__ __forceinline__ void or_flag(int* flag, bool changed) {
-  int any = __syncthreads_or(changed ? 1 : 0);
-  if (flag != nullptr && threadIdx.x == 0 && any) atomicOr(flag, 1);
-}
-
 // ── Remainder edges as CSR rows ────────────────────────────────────────
 // The smoothing and rain-shadow kernels SUM over neighbours, and a sum is
 // not order-free: the remainder edges (the ~0.5 % of edges outside the
@@ -126,8 +113,8 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
 //   shadow    wind-weighted signed min / max hop with retention, per-column
 //             hop caps (ShadowRule)
 // Seeds, barriers and frozen cells are baked into cost / elev_baked. With
-// cost = 0 and cell-index labels the BFS rule is one min-label sweep of
-// the connected-components core. The remainder edges fold into the same
+// cell-index labels and no cost the min-label rule (LabelRule) is the
+// sweep of a connected-components step. The remainder edges fold into the same
 // min before cost or eps is added: f32 addition rounds monotonically, so
 // min(a + c, b + c) == min(a, b) + c bit for bit, and the result equals the
 // kernel-then-torch-scatter step it replaces.
@@ -152,8 +139,7 @@ __device__ __forceinline__ int row_end(const int* ptr, int i, int m) {
 // is not held by L2 latency: several loads in flight per thread did not
 // help, nor did a warp-uniform band walk (conflict-free reads, but a
 // warp's 32 cells use nearly all 32 bands); in the relax kernel the grid
-// barrier and the flag add about half a one-sweep launch's time (PERF.md
-// has the numbers). Warp and the rain shadow, whose remainder and land
+// barrier and the flag add ~4.6 us a sweep (PERF.md has the numbers). Warp and the rain shadow, whose remainder and land
 // work is L2 gathers, keep two neighbours' loads in flight per thread.
 //
 // The relax kernel runs the whole loop in one cooperative launch (grid =
@@ -226,6 +212,22 @@ struct BfsRule {
   __device__ float aux(size_t t, int) const { return __ldg(cost + t); }
   __device__ float update(float c, float best, float cost_i) const {
     return fminf(c, best + cost_i);
+  }
+  __device__ float restage(float v, int) const { return v; }
+};
+
+// The components loop's min-label sweep: out = min(cur, min_{nbr j} cur[j])
+// over the gated band bits and the gated remainder rows (BfsRule at zero
+// cost, without a cost plane to read).
+struct LabelRule {
+  __device__ float stage(const float* sf, int j) const { return __ldcg(sf + j); }
+  __device__ float4 stage4(const float* sf, int j) const {
+    return __ldcg(reinterpret_cast<const float4*>(sf + j));
+  }
+  __device__ float own(float w, const float*, int) const { return w; }
+  __device__ float aux(size_t, int) const { return 0.0f; }
+  __device__ float update(float c, float best, float) const {
+    return fminf(c, best);
   }
   __device__ float restage(float v, int) const { return v; }
 };
@@ -1029,18 +1031,6 @@ __device__ bool run_item(const RelaxArgs<ShadowRule>& a, const float* src,
 }
 
 template <class A>
-__device__ void sweep_once(const A& a, int* flag) {
-  extern __shared__ __align__(16) float win[];
-  __shared__ int offs[kMaxBands];
-  const Geo& g = a.geo;
-  for (int d = threadIdx.x; d < kMaxBands; d += blockDim.x)
-    offs[d] = g.bands.off[d];
-  __syncthreads();
-  const int chunks = (g.np + g.T - 1) / g.T;
-  or_flag(flag, run_item(a, a.in, a.out, blockIdx.x, chunks, win, offs, 0));
-}
-
-template <class A>
 __device__ void relax_loop(const A& a) {
   extern __shared__ __align__(16) float win[];
   __shared__ int offs[kMaxBands];
@@ -1085,9 +1075,6 @@ __device__ void relax_loop(const A& a) {
 }
 
 __global__ void __launch_bounds__(kRelaxThreads)
-bfs_sweep_kernel(RelaxArgs<BfsRule> a, int* flag) { sweep_once(a, flag); }
-
-__global__ void __launch_bounds__(kRelaxThreads)
 bfs_relax_kernel(RelaxArgs<BfsRule> a) { relax_loop(a); }
 
 __global__ void __launch_bounds__(kRelaxThreads)
@@ -1105,6 +1092,104 @@ warp_relax_kernel(RelaxArgs<WarpRule> a) { relax_loop(a); }
 
 __global__ void __launch_bounds__(kRelaxThreads)
 shadow_relax_kernel(RelaxArgs<ShadowRule> a) { relax_loop(a); }
+
+// ── Connected components: the whole loop in one launch ────────────────
+// Replaces the components use of _make_bfs_kernel (sweep_pallas.py:171,
+// through BfsSweeper in the JAX _cc_core_pallas, ops/banded.py:877). One
+// step of the loop, as ops/banded.py components_core computes it:
+//   1. sweep   N = min(P, min over gated band and remainder nbrs j of P[j])
+//              (LabelRule on the staged windows; the gated remainder edges
+//              come as CSR rows, the ungated ones past rem_ptr[NP]);
+//   2. hook    H = N, then H[P[m]] = min(H[P[m]], N[m]) for every member m;
+//   3. jump    J[i] = H[clamp(H[i])] for members, H[i] for the others;
+//   4. jump    P'[i] = J[clamp(J[i])] likewise; the step changed something
+//              when P' != P anywhere.
+// Labels are non-negative integral floats (cell indices, NP at
+// non-members), so their int32 bit patterns order as their values do and
+// the hook is one atomicMin on the bits: exact in any order. Each phase
+// reads only what the phase before wrote (a grid barrier between phases,
+// H, J and N buffers of their own), so every step equals the plain loop's
+// and the step count is the plain loop's. The loop ends at the first step
+// that changes nothing (change flag in three rotating device slots, as
+// relax_loop keeps it); P' overwrites P in place in phase 4, where each
+// thread reads only its own cell of P.
+// Bound: bytes per step (labels read and written, bits, members and the
+// CSR read once); the min, the hook and the jumps are a few operations a
+// cell.
+struct CompArgs : RelaxArgs<LabelRule> {
+  const uint8_t* member;  // [NP] nonzero = member, or null: every cell
+  float* hook;            // [NP] H
+  float* jmp;             // [NP] J
+};
+
+__device__ __forceinline__ bool is_member(const CompArgs& a, int i) {
+  return a.member == nullptr || __ldg(a.member + i) != 0;
+}
+
+// lab[clamp(v, 0, np - 1)]: the jump through label v
+__device__ __forceinline__ float jump_label(const float* lab, float v,
+                                            int np) {
+  const int j = (int)v;
+  return __ldcg(lab + (j < 0 ? 0 : (j >= np ? np - 1 : j)));
+}
+
+__global__ void __launch_bounds__(kRelaxThreads)
+components_relax_kernel(CompArgs a) {
+  extern __shared__ __align__(16) float win[];
+  __shared__ int offs[kMaxBands];
+  __shared__ int stop;
+  const Geo& g = a.geo;
+  for (int d = threadIdx.x; d < kMaxBands; d += blockDim.x)
+    offs[d] = g.bands.off[d];
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  const int chunks = (g.np + g.T - 1) / g.T;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gstride = gridDim.x * blockDim.x;
+  int s = 0;
+  for (;; ++s) {
+    const float* prev = s == 0 ? a.in : a.out;
+    for (int it = blockIdx.x; it < chunks; it += gridDim.x) {
+      const int c0 = it * g.T;
+      relax_item(a.rule, g, prev, a.tmp, 0, c0, win, offs, 1);
+      for (int i = c0 + threadIdx.x; i < min(c0 + g.T, g.np); i += blockDim.x)
+        a.hook[i] = __ldcg(a.tmp + i);
+    }
+    grid.sync();
+    for (int i = gtid; i < g.np; i += gstride) {
+      if (!is_member(a, i)) continue;
+      const int par = (int)__ldcg(prev + i);
+      if (par < 0 || par >= g.np) continue;
+      const float v = __ldcg(a.tmp + i);
+      if (v < __ldcg(a.hook + par))
+        atomicMin(reinterpret_cast<int*>(a.hook) + par, __float_as_int(v));
+    }
+    grid.sync();
+    for (int i = gtid; i < g.np; i += gstride) {
+      const float h = __ldcg(a.hook + i);
+      a.jmp[i] = is_member(a, i) ? jump_label(a.hook, h, g.np) : h;
+    }
+    grid.sync();
+    bool changed = false;
+    for (int i = gtid; i < g.np; i += gstride) {
+      const float j = __ldcg(a.jmp + i);
+      const float v = is_member(a, i) ? jump_label(a.jmp, j, g.np) : j;
+      changed |= v != __ldcg(prev + i);
+      a.out[i] = v;
+    }
+    if (__syncthreads_or(changed) && threadIdx.x == 0)
+      atomicOr(&a.ctl[s % 3], 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[(s + 1) % 3] = 0;
+    grid.sync();
+    if (threadIdx.x == 0) stop = *(volatile int*)&a.ctl[s % 3] == 0;
+    __syncthreads();
+    if (stop) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.ctl[3] = s + 1;
+    if (a.total != nullptr) atomicAdd(a.total, s + 1);
+  }
+}
 
 Bands make_bands(const int* offs, int n_offs) {
   Bands b;
@@ -1152,8 +1237,7 @@ bool bad_shape(int np, int nf, int n_offs) {
 // size T, the windows' bytes of dynamic shared memory and the grid. Plans
 // are cached per kernel, device, NP, item groups, windows per item and H
 // (everything that sets T and the grid), so the SM-count, shared-memory-
-// attribute and occupancy calls run once per shape, not on each of the
-// components loop's one-sweep launches.
+// attribute and occupancy calls run once per shape, not on each launch.
 struct Plan {
   const void* kern;
   int dev, np, ng, nw, H;
@@ -1168,10 +1252,9 @@ std::mutex g_plan_mu;
 // T: kItemsPerSm work items per SM, a multiple of g.tstep (the block size;
 // 4 for warp and the rain shadow, whose items then fill every SM), no
 // larger than the mesh or than what shared memory holds: nw windows of
-// T + 2H floats plus the float4 alignment slack. Grid: one block per item,
-// or for a cooperative launch the co-resident blocks (no more than there
-// are items).
-int get_plan(const void* kern, bool cooperative, const Geo& g, Plan* out) {
+// T + 2H floats plus the float4 alignment slack. Grid: the co-resident
+// blocks of the cooperative launch, no more than there are items.
+int get_plan(const void* kern, const Geo& g, Plan* out) {
   int dev = 0;
   int e = (int)cudaGetDevice(&dev);
   if (e != 0) return e;
@@ -1189,7 +1272,6 @@ int get_plan(const void* kern, bool cooperative, const Geo& g, Plan* out) {
   int nsm = 0;
   e = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (e != 0) return e;
-  const int threads = kRelaxThreads;
   const long per = kItemsPerSm * nsm;
   const long step = g.tstep;
   long t = ((long)g.ng * g.np + per - 1) / per;
@@ -1206,31 +1288,15 @@ int get_plan(const void* kern, bool cooperative, const Geo& g, Plan* out) {
                                 (int)(kMaxWindowFloats * sizeof(float)));
   if (e != 0) return e;
   const long items = (long)g.ng * ((g.np + p.T - 1) / p.T);
-  if (cooperative) {
-    int per_sm = 0;
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, kRelaxThreads, p.smem);
-    if (e != 0) return e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    p.grid = (int)std::min((long)per_sm * nsm, items);
-  } else {
-    p.grid = (int)items;
-  }
+  int per_sm = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, kRelaxThreads, p.smem);
+  if (e != 0) return e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  p.grid = (int)std::min((long)per_sm * nsm, items);
   g_plans[g_plan_count++ % kPlanSlots] = p;
   *out = p;
   return 0;
-}
-
-// One sweep: one block per work item, a normal launch.
-template <class A>
-int launch_once(void (*kern)(A, int*), A a, int* flag, cudaStream_t stream) {
-  Plan p;
-  const int e = get_plan((const void*)kern, false, a.geo, &p);
-  if (e != 0) return e;
-  a.geo.T = p.T;
-  a.geo.H = p.H;
-  kern<<<p.grid, kRelaxThreads, p.smem, stream>>>(a, flag);
-  return (int)cudaGetLastError();
 }
 
 // The whole relax loop in one cooperative launch. A refused launch
@@ -1238,7 +1304,7 @@ int launch_once(void (*kern)(A, int*), A a, int* flag, cudaStream_t stream) {
 template <class A>
 int launch_relax(void (*kern)(A), A a, cudaStream_t stream) {
   Plan p;
-  int e = get_plan((const void*)kern, true, a.geo, &p);
+  int e = get_plan((const void*)kern, a.geo, &p);
   if (e != 0) return e;
   a.geo.T = p.T;
   a.geo.H = p.H;
@@ -1260,53 +1326,538 @@ int launch_smooth(RelaxArgs<SmoothRule> a, cudaStream_t stream) {
   return launch_relax(smooth_relax_kernel<F>, s, stream);
 }
 
-// ── Ordered scatter-sum ──────────────────────────────────────────────
+// ── Pointer-doubling accumulate: one cooperative launch per loop ───────
 //
-// out[t] = sum of vals[i] over the i with idx[i] == t, added from 0.0f in
-// ascending i: the order of the jnp scatter-add and of torch's CPU
-// index_add, so the result has the CPU's bits on every run (an atomic
-// index_add adds in whatever order the threads arrive). The caller sorts
-// idx stably (keys, with perm[k] the source of sorted entry k); thread t
-// finds its run [lo, hi) of the sorted keys by binary search and walks it.
-// Keys at or past n_out (a virtual sink, an overflow bin) fall in no
-// thread's run and are never walked, however many cells they hold.
-constexpr int kSumThreads = 256;
+// Replaces the XLA scatter-adds `.at[p].add` of the JAX pointer-doubling
+// loops (erosion/glacial.py:72 the ice flow, erosion/flood.py:333
+// downstream_accumulate, erosion/fluvial.py:84 flow_accumulation) and of
+// the wind stage's geo bins (climate/wind.py:50-52); the TPU ran them as
+// XLA scatters, not as a Pallas kernel. One round of a loop:
+//   added[t] = sum of s[i] over the i with p[i] == t, for t < n, added
+//              from +0.0f in ascending i (the order of torch's CPU
+//              index_add and of the jnp scatter-add, hence their bits);
+//   s <- s + added;   p <- p[p]   (targets outside [0, n) are the sink,
+//              which maps to itself and is never summed).
+// A loop stops before a round in which no pointer is off the sink
+// (stop_at_sink: the JAX while_loop's cond) or, otherwise, once at least
+// one round ran (then s has no -0.0, since added never is, and s + 0.0f ==
+// s: the remaining rounds would change nothing), and after `rounds`
+// rounds. The one-round form (loop = 0: the bins and dep_sum) writes added
+// alone for n_out targets of k entries.
+//
+// A float round, with a grid barrier after each phase:
+//   S  scan: each block takes an exclusive scan of its chunk of the
+//      per-target counts (chunk-local offsets, and the chunk total);
+//   P  place: every block scans the chunk totals itself (in shared
+//      memory: the grid's few hundred words), so a row starts at
+//      offl[t] + bpref[chunk(t)]; each source takes a slot of its target's
+//      row by an atomic cursor (rows in arbitrary order, no global sort);
+//   A  add: a row of at most kThreadRow entries is one thread's: it loads
+//      the indices, sorts them in registers (an insertion network of 4 or
+//      16 wide), loads all the values at once and adds them in order (a
+//      row of ~10 entries left to a warp cost ~20x as much: the block's
+//      warps took its long rows one at a time); a longer row goes to
+//      a warp, which ranks each entry by shuffles (the entries are distinct
+//      source indices; a row of up to 256 entries is held in registers),
+//      writes its values to their ranked slot, then loads 32 slots a time
+//      and adds them in order (every lane adds the same shuffled values;
+//      one writes). Loads are in flight together; only the adds are
+//      serial. A row longer than kRankRow (a star; none on the 204K path,
+//      whose rows hold at most ~90) is summed by a warp that walks every
+//      source in index order and adds those of the row: O(k), not
+//      O(len^2). With few targets (the 2592 bins) every row goes to a warp,
+//      spread over the grid. Then p <- p[p], and the next round's targets
+//      are counted with int32 atomics that skip the sink (no contention on
+//      the slot most cells point at).
+// The int32 flow counts add in any order exactly: their rounds take an
+// atomic add per source (again skipping the sink) and one pass that adds
+// and jumps. Nothing is read back: the round count goes to ctl[3].
+// Bound: bytes per round (s and p read, s and p written); the adds are
+// one operation per source and field.
+constexpr int kAccThreads = 512;
+constexpr int kMaxAccGrid = 1024;  // the chunk totals the scratch holds
 constexpr int kMaxSumFields = 4;
+constexpr int kThreadRow = 16;
+constexpr int kWarpChunks = 8;
+constexpr int kRankRow = 2048;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoIndex = 0x7fffffff;
 
-__device__ __forceinline__ long long first_at_least(const int* keys,
-                                                    long long k, int t) {
-  long long lo = 0, hi = k;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < t)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
+struct AccArgs {
+  const void* s_in;   // [k, nf] float32 values, or [k] int32 counts
+  const void* p_in;   // [k] int32 or int64 targets
+  int p64;            // p_in is int64
+  int k, n_out, nf;
+  int rounds;
+  int loop;          // 1: k == n_out, s <- s + added and p <- p[p]
+  int stop_at_sink;
+  void* out;         // [n_out, nf] sums, or the final [k, nf] state
+  void* tmp;         // [k, nf] second state buffer (loop)
+  int* pbuf;         // [2, k] pointer buffers (loop)
+  int* cnt;          // [2, n_out] per-target counts (int: [n_out] sums), zeroed
+  int* offl;         // [n_out] chunk-local row offsets
+  int* cur;          // [n_out] placement cursors, zeroed
+  int* list;         // [k] sources by target
+  float* vbuf;       // [k, nf] the long rows' values, in source order
+  int* bsum;         // [kMaxAccGrid] chunk totals
+  int* ctl;          // [4] three flag slots, then the rounds run; zeroed
+  int* total;        // running round total, or null
+};
+
+// target of entry i: p[i] if it is in [0, n), else the sink n
+__device__ __forceinline__ int target_of(const void* p, bool p64, int i,
+                                         int n) {
+  const long long v =
+      p64 ? __ldcg(static_cast<const long long*>(p) + i)
+          : (long long)__ldcg(static_cast<const int*>(p) + i);
+  return (v >= 0 && v < n) ? (int)v : n;
 }
 
-__global__ void __launch_bounds__(kSumThreads)
-ordered_sum_kernel(const int* __restrict__ keys,
-                   const long long* __restrict__ perm,
-                   const float* __restrict__ vals, long long k, int n_out,
-                   int nf, float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_out) return;
-  const long long lo = first_at_least(keys, k, t);
-  const long long hi = first_at_least(keys, k, t + 1);
-  float acc[kMaxSumFields];
-#pragma unroll
-  for (int f = 0; f < kMaxSumFields; ++f) acc[f] = 0.0f;
-  for (long long i = lo; i < hi; ++i) {
-    const float* v = vals + __ldg(perm + i) * nf;
-#pragma unroll
-    for (int f = 0; f < kMaxSumFields; ++f)
-      if (f < nf) acc[f] += __ldg(v + f);
+// Exclusive prefix sum of v over the block (all threads call it, blockDim
+// a multiple of 32); *sum gets the block's total.
+__device__ int block_scan(int v, int* sum) {
+  __shared__ int wsum[32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
   }
+  if (lane == 31) wsum[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int w = lane < nw ? wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    wsum[lane] = w;
+  }
+  __syncthreads();
+  const int excl = x - v + (wid > 0 ? wsum[wid - 1] : 0);
+  *sum = wsum[nw - 1];
+  __syncthreads();  // wsum is rewritten by the next call
+  return excl;
+}
+
+// Where a round's sums go: dst[t] = src[t] + added (loop) or added.
+template <int F>
+struct RowSum {
+  const float* src;  // the sources' values (and the targets', in a loop)
+  float* dst;
+  const int* list;
+  float* vbuf;
+  bool loop;
+  const void* p;     // the round's targets, for sum_row_scan
+  bool p64;
+  int k, n;
+  __device__ void put(int t, const float* acc) const {
 #pragma unroll
-  for (int f = 0; f < kMaxSumFields; ++f)
-    if (f < nf) out[(long long)t * nf + f] = acc[f];
+    for (int f = 0; f < F; ++f) {
+      const size_t q = (size_t)t * F + f;
+      dst[q] = loop ? __ldcg(src + q) + acc[f] : acc[f];
+    }
+  }
+};
+
+// A row of len <= R entries, one thread: the indices sorted in registers
+// (an insertion network of R(R-1)/2 compare-exchanges), all the values
+// loaded at once, then added in order.
+template <int F, int R>
+__device__ void sum_row_thread(const RowSum<F>& r, int t, int start,
+                               int len) {
+  int ix[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    ix[q] = q < len ? __ldcg(r.list + start + q) : kNoIndex;
+#pragma unroll
+  for (int q = 1; q < R; ++q)
+#pragma unroll
+    for (int j = q; j > 0; --j) {
+      const int lo = min(ix[j - 1], ix[j]), hi = max(ix[j - 1], ix[j]);
+      ix[j - 1] = lo;
+      ix[j] = hi;
+    }
+  float v[R][F];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[q][f] = q < len ? __ldcg(r.src + (size_t)ix[q] * F + f) : 0.0f;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (q < len)
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] += v[q][f];
+  r.put(t, acc);
+}
+
+// A row longer than kRankRow, one warp: walk every source in index order
+// and add those that target t, 32 at a time.
+template <int F>
+__device__ void sum_row_scan(const RowSum<F>& r, int t) {
+  const int lane = threadIdx.x & 31;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+  for (int i0 = 0; i0 < r.k; i0 += 32) {
+    const int i = i0 + lane;
+    const bool hit = i < r.k && target_of(r.p, r.p64, i, r.n) == t;
+    const unsigned ball = __ballot_sync(kFull, hit);
+    float v[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[f] = hit ? __ldcg(r.src + (size_t)i * F + f) : 0.0f;
+    for (unsigned q = ball; q; q &= q - 1) {
+      const int j = __ffs((int)q) - 1;
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] += __shfl_sync(kFull, v[f], j);
+    }
+  }
+  if (lane == 0) r.put(t, acc);
+}
+
+// The ordered sum of a row whose values sit in vbuf in source order.
+template <int F>
+__device__ void add_ranked(const RowSum<F>& r, int t, int start, int len) {
+  const int lane = threadIdx.x & 31;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+  for (int c0 = 0; c0 < len; c0 += 32) {
+    const int q = c0 + lane;
+    float v[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[f] = q < len ? __ldcg(r.vbuf + (size_t)(start + q) * F + f) : 0.0f;
+    const int m = min(32, len - c0);
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float x = __shfl_sync(kFull, v[f], j);
+        if (j < m) acc[f] += x;
+      }
+  }
+  if (lane == 0) r.put(t, acc);
+}
+
+// Ranks of a row of up to C * 32 entries held in registers (one load
+// latency), and each entry's values written to slot start + rank of vbuf.
+template <int F, int C>
+__device__ void rank_row_regs(const RowSum<F>& r, int start, int len) {
+  const int lane = threadIdx.x & 31;
+  int ix[C], rank[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int q = c * 32 + lane;
+    ix[c] = q < len ? __ldcg(r.list + start + q) : kNoIndex;
+    rank[c] = 0;
+  }
+  const int nch = (len + 31) >> 5;  // the chunks the row fills
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c >= nch) break;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      const int o = __shfl_sync(kFull, ix[c], j);
+#pragma unroll
+      for (int e = 0; e < C; ++e)
+        if (e < nch) rank[e] += o < ix[e] ? 1 : 0;
+    }
+  }
+  float v[C][F];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[c][f] = c * 32 + lane < len ? __ldcg(r.src + (size_t)ix[c] * F + f)
+                                    : 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c * 32 + lane < len)
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        r.vbuf[(size_t)(start + rank[c]) * F + f] = v[c][f];
+}
+
+// A row of any length, one warp (all 32 lanes call it with the same row):
+// each entry's rank among the row's (distinct source indices), its values
+// to slot start + rank of vbuf, then the ordered add. A row of up to
+// kWarpChunks * 32 entries is held in registers (rank_row_regs, at the
+// fewest 32-entry chunks, rounded up to a power of two, that hold it); a
+// longer one reloads the row's chunks from L2 for each chunk it ranks.
+template <int F>
+__device__ void sum_row_warp(const RowSum<F>& r, int t, int start, int len) {
+  if (len > kRankRow) {
+    sum_row_scan(r, t);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  if (len <= 32) {
+    rank_row_regs<F, 1>(r, start, len);
+  } else if (len <= 64) {
+    rank_row_regs<F, 2>(r, start, len);
+  } else if (len <= 128) {
+    rank_row_regs<F, 4>(r, start, len);
+  } else if (len <= kWarpChunks * 32) {
+    rank_row_regs<F, kWarpChunks>(r, start, len);
+  } else {
+    for (int e0 = 0; e0 < len; e0 += 32) {
+      const int q = e0 + lane;
+      const int mine = q < len ? __ldcg(r.list + start + q) : kNoIndex;
+      int rank = 0;
+      for (int c0 = 0; c0 < len; c0 += 32) {
+        const int other =
+            c0 + lane < len ? __ldcg(r.list + start + c0 + lane) : kNoIndex;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          rank += __shfl_sync(kFull, other, j) < mine ? 1 : 0;
+      }
+      if (q < len)
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          r.vbuf[(size_t)(start + rank) * F + f] =
+              __ldcg(r.src + (size_t)mine * F + f);
+    }
+  }
+  __syncwarp();
+  add_ranked(r, t, start, len);
+}
+
+// the state ends in `out`: copy it there from where the last round left it
+template <class V>
+__device__ void acc_finish(const AccArgs& a, int r, size_t words) {
+  const V* last = r == 0 ? static_cast<const V*>(a.s_in)
+                         : (((r - 1) & 1) ? static_cast<const V*>(a.tmp)
+                                          : static_cast<const V*>(a.out));
+  if (last != a.out) {
+    V* out = static_cast<V*>(a.out);
+    for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < words;
+         q += (size_t)gridDim.x * blockDim.x)
+      out[q] = __ldcg(last + q);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.ctl[3] = r;
+    if (a.total != nullptr) atomicAdd(a.total, r);
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kAccThreads)
+accumulate_relax_kernel(AccArgs a) {
+  __shared__ int bpref[kMaxAccGrid];
+  __shared__ int nlong;
+  __shared__ int longs[kAccThreads];
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x, b = blockIdx.x;
+  const int gtid = b * blockDim.x + threadIdx.x, gstride = G * blockDim.x;
+  const int k = a.k, n = a.n_out;
+  const int chunk = (n + G - 1) / G;
+  const float* s_in = static_cast<const float*>(a.s_in);
+  float* out = static_cast<float*>(a.out);
+  float* tmp = static_cast<float*>(a.tmp);
+  for (int i = gtid; i < k; i += gstride) {
+    const int t = target_of(a.p_in, a.p64, i, n);
+    if (t < n) atomicAdd(a.cnt + t, 1);
+  }
+  grid.sync();
+  int r = 0;
+  for (; r < a.rounds; ++r) {
+    int* cnt_cur = a.cnt + (size_t)(r & 1) * n;
+    int* cnt_nxt = a.cnt + (size_t)((r + 1) & 1) * n;
+    // S: this block's chunk of the counts
+    const int lo = min(b * chunk, n), hi = min(lo + chunk, n);
+    int carry = 0;
+    for (int base = lo; base < hi; base += blockDim.x) {
+      const int t = base + threadIdx.x;
+      int tot;
+      const int ex = block_scan(t < hi ? __ldcg(cnt_cur + t) : 0, &tot);
+      if (t < hi) {
+        a.offl[t] = carry + ex;
+        cnt_nxt[t] = 0;
+      }
+      carry += tot;
+    }
+    if (threadIdx.x == 0) a.bsum[b] = carry;
+    grid.sync();
+    // P: the chunks' starts, then place every source in its target's row
+    int total = 0;
+    for (int base = 0; base < G; base += blockDim.x) {
+      const int q = base + threadIdx.x;
+      int tot;
+      const int ex = block_scan(q < G ? __ldcg(a.bsum + q) : 0, &tot);
+      if (q < G) bpref[q] = total + ex;
+      total += tot;
+    }
+    __syncthreads();
+    if (total == 0 && (a.stop_at_sink || r > 0)) break;
+    const void* p_cur = r == 0 ? a.p_in : a.pbuf + (size_t)((r - 1) & 1) * k;
+    const bool p64 = r == 0 && a.p64;
+    for (int i = gtid; i < k; i += gstride) {
+      const int t = target_of(p_cur, p64, i, n);
+      if (t < n)
+        a.list[__ldcg(a.offl + t) + bpref[t / chunk] + atomicAdd(a.cur + t, 1)] =
+            i;
+    }
+    grid.sync();
+    // A: every row's ordered sum, then the jump and the next counts
+    auto row_start = [&](int t) { return __ldcg(a.offl + t) + bpref[t / chunk]; };
+    auto row_len = [&](int t, int st) {
+      return (t + 1 < n ? row_start(t + 1) : total) - st;
+    };
+    const RowSum<F> rs{r == 0 ? s_in : ((r & 1) ? out : tmp),
+                       (r & 1) ? tmp : out, a.list, a.vbuf, a.loop != 0,
+                       p_cur, p64, k, n};
+    if (n <= 4 * (gstride >> 5)) {
+      for (int t = gtid >> 5; t < n; t += gstride >> 5) {
+        const int st = row_start(t);
+        sum_row_warp(rs, t, st, row_len(t, st));
+      }
+    } else {
+      for (int base = b * blockDim.x; base < n; base += gstride) {
+        if (threadIdx.x == 0) nlong = 0;
+        __syncthreads();
+        const int t = base + threadIdx.x;
+        if (t < n) {
+          const int st = row_start(t), len = row_len(t, st);
+          if (len <= 4)
+            sum_row_thread<F, 4>(rs, t, st, len);
+          else if (len <= kThreadRow)
+            sum_row_thread<F, kThreadRow>(rs, t, st, len);
+          else
+            longs[atomicAdd(&nlong, 1)] = t;
+        }
+        __syncthreads();
+        for (int q = threadIdx.x >> 5; q < nlong; q += blockDim.x >> 5) {
+          const int tl = longs[q], st = row_start(tl);
+          sum_row_warp(rs, tl, st, row_len(tl, st));
+        }
+        __syncthreads();  // nlong and longs are reset next
+      }
+    }
+    for (int t = gtid; t < n; t += gstride) a.cur[t] = 0;
+    if (a.loop) {
+      int* p_nxt = a.pbuf + (size_t)(r & 1) * k;
+      for (int i = gtid; i < k; i += gstride) {
+        const int t = target_of(p_cur, p64, i, n);
+        const int tn = t < n ? target_of(p_cur, p64, t, n) : n;
+        p_nxt[i] = tn;
+        if (tn < n) atomicAdd(cnt_nxt + tn, 1);
+      }
+    }
+    grid.sync();
+    if (!a.loop) {
+      ++r;
+      break;
+    }
+  }
+  acc_finish<float>(a, r, a.loop ? (size_t)k * F : 0);
+}
+
+// The int32 loop (the flow counts): atomic adds, exact in any order.
+__global__ void __launch_bounds__(kAccThreads)
+accumulate_relax_count_kernel(AccArgs a) {
+  __shared__ int stop;
+  cg::grid_group grid = cg::this_grid();
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gstride = gridDim.x * blockDim.x;
+  const int n = a.n_out;
+  const int* s_in = static_cast<const int*>(a.s_in);
+  int* out = static_cast<int*>(a.out);
+  int* tmp = static_cast<int*>(a.tmp);
+  int* sums = a.cnt;
+  bool any = false;
+  for (int i = gtid; i < n; i += gstride)
+    any |= target_of(a.p_in, a.p64, i, n) < n;
+  if (__syncthreads_or(any) && threadIdx.x == 0) atomicOr(&a.ctl[0], 1);
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[1] = 0;
+  grid.sync();
+  int r = 0;
+  for (;; ++r) {
+    if (threadIdx.x == 0) {
+      const int off_sink = *(volatile int*)&a.ctl[r % 3];
+      stop = r >= a.rounds || (off_sink == 0 && (a.stop_at_sink || r > 0));
+    }
+    __syncthreads();
+    if (stop) break;
+    const void* p_cur = r == 0 ? a.p_in : a.pbuf + (size_t)((r - 1) & 1) * n;
+    const bool p64 = r == 0 && a.p64;
+    const int* src = r == 0 ? s_in : ((r & 1) ? out : tmp);
+    int* dst = (r & 1) ? tmp : out;
+    int* p_nxt = a.pbuf + (size_t)(r & 1) * n;
+    for (int i = gtid; i < n; i += gstride) {
+      const int t = target_of(p_cur, p64, i, n);
+      if (t < n) atomicAdd(sums + t, __ldcg(src + i));
+    }
+    grid.sync();
+    any = false;
+    for (int t = gtid; t < n; t += gstride) {
+      dst[t] = __ldcg(src + t) + __ldcg(sums + t);
+      sums[t] = 0;
+      const int tt = target_of(p_cur, p64, t, n);
+      const int tn = tt < n ? target_of(p_cur, p64, tt, n) : n;
+      p_nxt[t] = tn;
+      any |= tn < n;
+    }
+    if (__syncthreads_or(any) && threadIdx.x == 0)
+      atomicOr(&a.ctl[(r + 1) % 3], 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[(r + 2) % 3] = 0;
+    grid.sync();
+  }
+  acc_finish<int>(a, r, (size_t)n);
+}
+
+// Co-resident blocks of a cooperative launch of `kern` at `threads`
+// threads, at most two per SM (fewer blocks make a cheaper grid barrier),
+// cached per kernel and device.
+int coop_blocks(const void* kern, int threads, int* out) {
+  struct Slot {
+    const void* kern;
+    int dev, blocks;
+  };
+  static Slot slots[16];
+  static int used = 0;
+  int dev = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e != 0) return e;
+  std::lock_guard<std::mutex> lock(g_plan_mu);
+  for (int q = 0; q < used; ++q)
+    if (slots[q].kern == kern && slots[q].dev == dev) {
+      *out = slots[q].blocks;
+      return 0;
+    }
+  int nsm = 0, per_sm = 0;
+  e = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != 0) return e;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                         threads, 0);
+  if (e != 0) return e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *out = std::min(std::min(per_sm, 2) * nsm, kMaxAccGrid);
+  if (used < 16) slots[used++] = Slot{kern, dev, *out};
+  return 0;
+}
+
+int launch_accumulate(void (*kern)(AccArgs), AccArgs a, cudaStream_t stream) {
+  int blocks = 0;
+  int e = coop_blocks((const void*)kern, kAccThreads, &blocks);
+  if (e != 0) return e;
+  const long need =
+      ((long)std::max(a.k, a.n_out) + kAccThreads - 1) / kAccThreads;
+  const int grid = (int)std::max(1L, std::min((long)blocks, need));
+  void* args[] = {&a};
+  e = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
+                                       dim3(kAccThreads), args, 0, stream);
+  if (e != 0) {
+    cudaGetLastError();
+    return e;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1317,21 +1868,6 @@ ordered_sum_kernel(const int* __restrict__ keys,
 // sweep count), and total: an int32 counter the sweep count is added to,
 // or null.
 extern "C" {
-
-int bfs_sweep(const float* cur, const float* cost, const uint32_t* bits,
-              float* out, int* flag, int np, int nf, const int* offs,
-              int n_offs, void* stream) {
-  if (bad_shape(np, nf, n_offs) || !staged_ok(np, {cur, out}))
-    return (int)cudaErrorInvalidValue;
-  RelaxArgs<BfsRule> a{};
-  a.rule.cost = cost;
-  a.geo = make_geo(bits, nullptr, nullptr, 0, np, nf, 1, offs, n_offs);
-  a.in = cur;
-  a.out = out;
-  a.inner = 1;
-  a.planes = nf;
-  return launch_once(bfs_sweep_kernel, a, flag, (cudaStream_t)stream);
-}
 
 int bfs_relax(const float* cur, const float* cost, const uint32_t* bits,
               const int* rem_ptr, const int* rem_nbr, int m, float* out,
@@ -1485,19 +2021,64 @@ int shadow_relax(const float* state, const float* aux, const float* land,
   return launch_relax(shadow_relax_kernel, a, (cudaStream_t)stream);
 }
 
-// keys int32 [k] sorted (stably) and perm int64 [k] its source indices;
-// vals float32 [k, nf] row-major, 1 <= nf <= kMaxSumFields; out float32
-// [n_out, nf], every entry written (0 where a target has no entries).
-int ordered_sum(const int* keys, const long long* perm, const float* vals,
-                long long k, int n_out, int nf, float* out, void* stream) {
-  if (k < 0 || n_out < 1 || nf < 1 || nf > kMaxSumFields ||
-      (k > 0 && (keys == nullptr || perm == nullptr || vals == nullptr)) ||
-      out == nullptr)
+// lab [NP] f32 cell-index labels (NP at non-members); member [NP] uint8 or
+// null (every cell); bits [NP] the gated band bits; rem_ptr / rem_nbr the
+// gated remainder edges as CSR rows of their receiving cell (the ungated
+// ones may follow past rem_ptr[NP]); out, nxt, hook, jmp [NP] f32, out and
+// lab 16-byte aligned.
+int components_relax(const float* lab, const uint8_t* member,
+                     const uint32_t* bits, const int* rem_ptr,
+                     const int* rem_nbr, int m, float* out, float* nxt,
+                     float* hook, float* jmp, int* ctl, int* total, int np,
+                     const int* offs, int n_offs, void* stream) {
+  if (bad_shape(np, 1, n_offs) || hook == nullptr || jmp == nullptr ||
+      nxt == nullptr || !staged_ok(np, {lab, out}))
     return (int)cudaErrorInvalidValue;
-  const int grid = (n_out + kSumThreads - 1) / kSumThreads;
-  ordered_sum_kernel<<<grid, kSumThreads, 0, (cudaStream_t)stream>>>(
-      keys, perm, vals, k, n_out, nf, out);
-  return (int)cudaGetLastError();
+  CompArgs a{};
+  a.geo = make_geo(bits, rem_ptr, rem_nbr, m, np, 1, 1, offs, n_offs);
+  a.in = lab;
+  a.out = out;
+  a.tmp = nxt;
+  a.ctl = ctl;
+  a.total = total;
+  a.inner = 1;
+  a.planes = 1;
+  a.member = member;
+  a.hook = hook;
+  a.jmp = jmp;
+  return launch_relax(components_relax_kernel, a, (cudaStream_t)stream);
+}
+
+// s [k, nf] float32 (1 <= nf <= kMaxSumFields) or, with is_int, [k] int32;
+// p [k] int32 or (p64) int64 targets. loop = 1 runs up to `rounds` rounds
+// of s <- s + added, p <- p[p] over k == n_out cells into out [k, nf]
+// (tmp [k, nf] and pbuf [2k] scratch); loop = 0 writes one round's sums
+// for n_out targets into out [n_out, nf]. Scratch: cnt [2 n_out] and cur
+// [n_out] zeroed, offl [n_out], list [k], vbuf [k, nf] float32, bsum
+// [kMaxAccGrid];
+// ctl [4] zeroed.
+int accumulate(const void* s, const void* p, int p64, int k, int n_out,
+               int nf, int is_int, int rounds, int loop, int stop_at_sink,
+               void* out, void* tmp, int* pbuf, int* cnt, int* offl,
+               int* cur, int* list, float* vbuf, int* bsum, int* ctl,
+               int* total, void* stream) {
+  if (k < 0 || n_out < 1 || nf < 1 || nf > kMaxSumFields || rounds < 0 ||
+      (loop && (k != n_out || tmp == nullptr || pbuf == nullptr)) ||
+      (is_int && (nf != 1 || !loop)) || (k > 0 && (s == nullptr || p == nullptr)) ||
+      out == nullptr || cnt == nullptr || ctl == nullptr ||
+      (!is_int && (offl == nullptr || cur == nullptr || list == nullptr ||
+                   vbuf == nullptr || bsum == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  AccArgs a{s, p, p64, k, n_out, nf, rounds, loop, stop_at_sink, out, tmp,
+            pbuf, cnt, offl, cur, list, vbuf, bsum, ctl, total};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_int) return launch_accumulate(accumulate_relax_count_kernel, a, st);
+  switch (nf) {
+    case 1: return launch_accumulate(accumulate_relax_kernel<1>, a, st);
+    case 2: return launch_accumulate(accumulate_relax_kernel<2>, a, st);
+    case 3: return launch_accumulate(accumulate_relax_kernel<3>, a, st);
+    default: return launch_accumulate(accumulate_relax_kernel<4>, a, st);
+  }
 }
 
 }  // extern "C"

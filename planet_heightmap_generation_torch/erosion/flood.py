@@ -28,7 +28,7 @@ from ..ops import sweep_cuda
 from ..ops.graph import hash01
 from ..ops.banded import (banded_sum, banded_count, band_shift, band_gate,
                           pack_band_bits, components_core, rem_csr,
-                          ordered_index_sum)
+                          pointer_accumulate)
 from .fluvial import log_rounds
 
 EPS = 1e-6  # reference uses 1e-7; promoted one decade so the increment
@@ -189,22 +189,15 @@ def _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean, valid,
 def downstream_accumulate(values, pointers, sink_mask, rounds: int = 0):
     """For each cell, the sum of ``values`` over all upstream cells whose
     drain path passes through it (inclusive), via pointer doubling:
-    S ← S + scatter_add(S along P), P ← P[P], each target's adds in source
-    order (ops.banded.ordered_index_sum). Cells where ``sink_mask`` holds
-    (and negative pointers) route to a virtual sink, which is never
-    summed."""
+    S ← S + scatter_add(S along P), P ← P[P] until no pointer is off the
+    sink or ``rounds`` rounds ran, each target's adds in source order, the
+    whole loop one launch (ops.banded.pointer_accumulate). Cells where
+    ``sink_mask`` holds (and negative pointers) route to a virtual sink,
+    which is never summed."""
     n = values.shape[0]
     rounds = rounds if rounds > 0 else log_rounds(n)
-    sink = n
-    p = torch.where(sink_mask | (pointers < 0), sink,
-                    pointers.to(torch.int64))
-    s = values
-    for _ in range(rounds):
-        if not bool((p != sink).any()):
-            break
-        s = s + ordered_index_sum(n, p, s)
-        p = torch.cat([p, p.new_tensor([sink])])[p]
-    return s
+    p = torch.where(sink_mask | (pointers < 0), n, pointers.to(torch.int64))
+    return pointer_accumulate(values.contiguous(), p, rounds)
 
 
 def monotonic_enforce(elev, drain, is_ocean, valid, rounds: int = 0):

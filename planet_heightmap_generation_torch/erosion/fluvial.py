@@ -8,7 +8,8 @@ elevation, accumulates flow sequentially, then solves
 
 - receivers: one banded argmin (steepest drop; pits → no erosion).
 - flow accumulation: (S, P) pointer doubling — S ← S + scatter_add(S, P),
-  P ← P[P], on int32 counts.
+  P ← P[P], on int32 counts, the whole loop one launch
+  (ops.banded.pointer_accumulate).
 - implicit solve: h'_i = a_i + b_i·h'_rcv with a = h/(1+F), b = F/(1+F),
   composed associatively by pointer doubling: the exact sequential
   solution in O(log depth).
@@ -23,7 +24,8 @@ import math
 
 import torch
 
-from ..ops.banded import banded_select, ordered_index_sum
+from ..ops.banded import (banded_select, band_off_tensor, ordered_index_sum,
+                          pointer_accumulate)
 
 
 def log_rounds(n: int) -> int:
@@ -41,8 +43,7 @@ def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
     dev = elev.device
     land = (~is_ocean) & valid
     idx_f = torch.arange(n, dtype=torch.float32, device=dev)
-    band_idx = idx_f[:, None] + torch.tensor(band_off, dtype=torch.float32,
-                                             device=dev)[None, :]
+    band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f, dist_f) = banded_select(
         elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,
         edge_payloads=[band_idx, band_dist],
@@ -56,22 +57,16 @@ def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
 
 
 def flow_accumulation(land, rcv, is_pit, rounds: int = 0):
-    """Upstream drainage area (cell count), pointer-doubled. Pits route to
-    the sink so pointer cycles cannot inflate flow. The counts add as
-    int32 (exact in any order: the JAX f32 counts are integers below
-    2^24) and return as float32."""
+    """Upstream drainage area (cell count), pointer-doubled until no
+    pointer is off the sink or ``rounds`` rounds ran. Pits route to the
+    sink so pointer cycles cannot inflate flow. The counts add as int32
+    (exact in any order: the JAX f32 counts are integers below 2^24) and
+    return as float32."""
     n = land.shape[0]
     rounds = rounds if rounds > 0 else log_rounds(n)
-    sink = n
-    p = torch.where(land & (rcv >= 0) & (~is_pit), rcv, sink)
-    s = land.to(torch.int32)
-    for _ in range(rounds):
-        if not bool((p != sink).any()):
-            break
-        s = s + torch.zeros(n + 1, dtype=torch.int32,
-                            device=s.device).index_add(0, p, s)[:n]
-        p = torch.cat([p, p.new_tensor([sink])])[p]
-    return s.to(torch.float32)
+    p = torch.where(land & (rcv >= 0) & (~is_pit), rcv, n)
+    return pointer_accumulate(land.to(torch.int32), p,
+                              rounds).to(torch.float32)
 
 
 def stream_power_solve(elev, is_ocean, valid, rcv, dist, is_pit, flow,

@@ -4,10 +4,11 @@ carving, moraines, fjords.
 The glacial block of erodeComposite (js/terrain-post.js:404-557,
 689-706), as the JAX package re-designs it: the sequential
 descending-order ice flow becomes 22 steps of pointer doubling, each
-target's adds in source order (ops.banded.ordered_index_sum, so the card
-gives the CPU's bits); valley widening and moraine deposition are taken
-from the receiving cell's side over the Fibonacci roll bands, the
-remainder edges added in edge order (ops.banded.rem_add).
+target's adds in source order, the whole loop one launch
+(ops.banded.pointer_accumulate, so the card gives the CPU's bits); valley
+widening and moraine deposition are taken from the receiving cell's side
+over the Fibonacci roll bands, the remainder edges added in edge order
+(ops.banded.rem_add).
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import math
 import torch
 
 from ..ops.banded import (banded_sum, band_shift, banded_select,
-                          ordered_index_sum, rem_add)
+                          band_off_tensor, pointer_accumulate, rem_add)
 
 G_FLOW_THRESHOLD = 0.1
 G_FJORD_THRESHOLD = 0.5
 # pointer-doubling steps of the ice flow (a fixed count, as in the JAX
-# package: ice paths are short, and the sink absorbs every finished path)
+# package: ice paths are short, and the sink absorbs every finished path;
+# the rounds after every path has ended change nothing and are not run)
 ICE_FLOW_STEPS = 22
 
 
@@ -56,8 +58,7 @@ def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
     n = band_mask.shape[0]
     dev = elev.device
     idx_f = torch.arange(n, dtype=torch.float32, device=dev)
-    band_idx = idx_f[:, None] + torch.tensor(band_off, dtype=torch.float32,
-                                             device=dev)[None, :]
+    band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f,) = banded_select(
         elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,
         edge_payloads=[band_idx],
@@ -67,13 +68,10 @@ def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
                   & torch.isfinite(min_elev))
     ice_target = torch.where(has_target, tgt_f, -1.0).to(torch.int32)
 
-    sink = n
     p = torch.where(has_target, torch.clamp(ice_target, 0, n - 1),
-                    sink).to(torch.int64)
-    s = glac_idx.to(torch.float32).contiguous()
-    for _ in range(ICE_FLOW_STEPS):
-        s = s + ordered_index_sum(n, p, s)
-        p = torch.cat([p, p.new_tensor([sink])])[p]
+                    n).to(torch.int64)
+    s = pointer_accumulate(glac_idx.to(torch.float32).contiguous(), p,
+                           ICE_FLOW_STEPS, stop_at_sink=False)
     return ice_target, s
 
 

@@ -13,22 +13,24 @@ mode) — normally splatted from ``g.bands``.
 
 The fixpoint loops follow the JAX jnp loops' semantics: iteration caps
 bound the number of sweeps, and a loop ends at the first sweep that changes
-nothing. The distance BFS and the stress propagation (and the terrain warp
-and the ε-fill, in erosion/) run their whole loop in one relax launch of
-their kernel (ops/sweep_cuda.py, plain torch on CPU tensors), with no host
-sync. Only the carry BFS, components and flood_assign run one synchronous
-sweep per step under :func:`relax`, which reads the change flag every
-``CHECK_EVERY`` sweeps (a host sync); the extra sweeps past a fixpoint are
-no-ops and no loop runs past its cap.
+nothing. The distance BFS, the stress propagation and the components (and
+the terrain warp and the ε-fill, in erosion/) run their whole loop in one
+launch of their kernel (ops/sweep_cuda.py, plain torch on CPU tensors),
+with no host sync. Only the carry BFS and flood_assign, which have no
+kernel, run one synchronous sweep per step under :func:`relax`, which
+reads the change flag every ``CHECK_EVERY`` sweeps (a host sync); the
+extra sweeps past a fixpoint are no-ops and no loop runs past its cap.
 
 The climate's Laplacian smoothing runs all the passes of a call in one
 launch of the smoothing kernel; it sums, so it takes the remainder edges
 as CSR rows in edge order (:func:`rem_csr`) instead of a scatter, and so
 do :func:`banded_sum` and every other remainder-edge sum (:func:`rem_add`,
 walked as rows): every neighbour sum keeps the jnp scatter-add's order
-and gives the same bits on every run. The pointer-doubling and bin sums,
-whose targets change from call to call, go through
-:func:`ordered_index_sum` (a stable sort and the ordered-sum kernel).
+and gives the same bits on every run. The pointer-doubling loops, whose
+targets change every round, are one launch of the accumulate kernel each
+(:func:`pointer_accumulate`), and the one-round bin and deposit sums are
+the same kernel's one round (:func:`ordered_index_sum`): each target's
+floats add in source order, the CPU's bits on every run.
 """
 
 from __future__ import annotations
@@ -91,6 +93,21 @@ def pack_band_bits(band_mask):
     packed = (band_mask.to(torch.int64) * w).sum(1)
     packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
     return packed.to(torch.int32).contiguous()
+
+
+_BAND_OFF_TENSORS: dict = {}
+
+
+def band_off_tensor(band_off, device):
+    """The band offsets as a float32 [D] tensor on ``device``, made once
+    per (offsets, device): on the card a tensor made from a Python list
+    is a host-to-device copy, which waits for the device's queue."""
+    key = (tuple(int(o) for o in band_off), str(device))
+    t = _BAND_OFF_TENSORS.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.float32, device=device)
+        _BAND_OFF_TENSORS[key] = t
+    return t
 
 
 def band_gate(cell_value, band_off, band_mask):
@@ -168,10 +185,24 @@ def ordered_index_sum(n_out: int, idx, vals):
     ascending i from 0 (the order of the jnp ``.at[idx].add`` and of
     torch's CPU ``index_add``), for t < ``n_out``; entries with
     ``idx >= n_out`` (a virtual sink or overflow slot) are skipped.
-    ``vals`` is [K] or [K, F] float32. On a CUDA tensor one stable sort of
-    ``idx`` and one launch of the ordered-sum kernel (ops/sweep_cuda.py
-    ``ordered_sum``), with no atomics: the CPU's bits on every run."""
+    ``vals`` is [K] or [K, F] float32. On a CUDA tensor one launch of the
+    accumulate kernel's one-round form (ops/sweep_cuda.py ``ordered_sum``),
+    with no sort: the CPU's bits on every run."""
     return sweep_cuda.ordered_sum(n_out, idx, vals)
+
+
+def pointer_accumulate(s, p, rounds: int, stop_at_sink: bool = True):
+    """The pointer-doubling sum ``S ← S + scatter_add(S along P), P ←
+    P[P]`` over N cells with the sink at N (``p`` in [0, N], int32 or
+    int64): at most ``rounds`` rounds, each target's adds in source order
+    (int32 ``s``: counts, exact in any order). ``stop_at_sink`` stops
+    before a round in which every pointer is at the sink (the JAX
+    while_loop's cond); otherwise the loop ends once a round has run and
+    every pointer is at the sink, where the JAX scan's further rounds
+    change nothing. On a CUDA tensor the whole loop is one launch of the
+    accumulate kernel (ops/sweep_cuda.py ``accumulate_relax``) with no host
+    sync. Returns the sums."""
+    return sweep_cuda.accumulate_relax(s, p, rounds, stop_at_sink)[0]
 
 
 # The remainder walk of each (rem_src, rem_dst) pair in use, keyed by the
@@ -436,31 +467,22 @@ def band_bfs_banded(seeds, carried, band_off, band_mask, rem_src, rem_dst,
 
 def components_core(init_lab, member, gate_bits, rem_ok, band_off, rem_src,
                     rem_dst):
-    """Min-label components: per step one gated min-label sweep (the BFS
-    kernel with cost 0 over f32 cell-index labels, exact below 2^24), the
-    remainder edges, root hooking (each member scatter-mins its new label
-    into its previous parent's slot) and two pointer jumps — one
-    iteration of the JAX jnp components loops. ``init_lab`` [N] f32
-    (N at non-members). Returns [N] int32."""
+    """Min-label components: per step one gated min-label sweep over f32
+    cell-index labels (exact below 2^24), the gated remainder edges, root
+    hooking (each member scatter-mins its new label into its previous
+    parent's slot) and two pointer jumps — one iteration of the JAX jnp
+    components loops — until a step changes nothing. ``init_lab`` [N] f32
+    (N at non-members); ``member`` [N] bool, or None when every cell is a
+    member. The whole loop is one launch of the components kernel
+    (ops/sweep_cuda.py ``components_relax``), the gated remainder edges as
+    CSR rows (the ungated ones keyed past the last row), with no host
+    sync. Returns [N] int32."""
     n = init_lab.shape[0]
-    cost = torch.zeros((1, n), dtype=torch.float32, device=init_lab.device)
-    src, dst = rem_src[rem_ok], rem_dst[rem_ok]
-    members = torch.nonzero(member).flatten()
-    all_members = members.shape[0] == n
-
-    def step(prev, flag):
-        new = sweep_cuda.bfs_sweep(prev[None], cost, gate_bits, band_off)[0]
-        new = new.scatter_reduce(0, src, prev[dst], "amin")
-        parent = prev[members].long()
-        new = new.scatter_reduce(0, parent, new[members], "amin")
-        for _ in range(2):
-            jumped = new[new.long().clamp(0, n - 1)]
-            new = jumped if all_members else torch.where(member, jumped, new)
-        if flag is not None:
-            flag |= (new != prev).any().to(torch.int32)
-        return new
-
-    lab, _ = relax(step, init_lab.to(torch.float32).contiguous())
+    ptr, nbr = rem_csr(torch.where(rem_ok, rem_src, n), rem_dst, n)
+    mem = None if member is None else member.to(torch.uint8).contiguous()
+    lab, _ = sweep_cuda.components_relax(
+        init_lab.to(torch.float32).contiguous(), mem, gate_bits, band_off,
+        ptr, nbr)
     return lab.to(torch.int32)
 
 
@@ -471,8 +493,7 @@ def connected_components_gated(labels_eq, band_off, band_mask, rem_src,
     n = band_mask.shape[0]
     gate = band_gate(labels_eq, band_off, band_mask)
     return components_core(
-        torch.arange(n, dtype=torch.float32, device=band_mask.device),
-        torch.ones(n, dtype=torch.bool, device=band_mask.device),
+        torch.arange(n, dtype=torch.float32, device=band_mask.device), None,
         pack_band_bits(gate), rem_gate_eq(labels_eq, rem_src, rem_dst),
         band_off, rem_src, rem_dst)
 

@@ -1,57 +1,52 @@
-"""Hand-written CUDA kernels for the banded neighbour sweeps, and their
-plain-torch versions.
+"""Hand-written CUDA kernels for the banded neighbour sweeps and the
+pointer-doubling sums, and their plain-torch versions.
 
-Six kernels (csrc/sweeps.cu):
+Eight kernels (csrc/sweeps.cu), each running a whole loop in ONE
+cooperative launch (grid barriers inside, loop count in device memory,
+nothing read back to the host):
 
-=========  ==========================================================
-``bfs``    min-plus relaxation (distance BFS, components min-labels)
-``stress`` gated argmax stress propagation with an sf payload
-``warp``   nearest-candidate propagation of the terrain domain warp
-``flood``  priority-flood ε-fill surface relaxation
-``smooth`` Laplacian smoothing passes (plain, masked, frozen cells)
-``shadow`` rain-shadow hops (wind-aligned weighted min / max)
-=========  ==========================================================
+==============  ========================================================
+``bfs_relax``   min-plus distance BFS to its fixpoint or cap
+``stress``      gated argmax stress propagation with an sf payload
+``warp``        nearest-candidate propagation of the terrain domain warp
+``flood``       priority-flood ε-fill surface relaxation
+``smooth``      Laplacian smoothing passes (plain, masked, frozen cells)
+``shadow``      rain-shadow hops (wind-aligned weighted min / max)
+``components``  min-label connected components: sweep, hook, two jumps
+``accumulate``  pointer-doubling sums ``s ← s + Σ_{p[i]=t} s[i]``,
+                ``p ← p[p]``, floats added in source order
+==============  ========================================================
 
-and one kernel that replaces scatter-adds, not a sweep:
-``ordered_sum`` (one thread per target adds its run of a stably sorted
-index list in source order: a float sum in a fixed order, with no
-atomics).
-
-Each runs its whole loop in ONE cooperative launch (grid barrier between
-sweeps, sweep count in device memory), nothing read back to the host:
-``bfs_relax``, ``flood_relax``, ``stress_relax`` and ``warp_relax`` to
-their fixpoint or cap (device-side change flag) and ``shadow_relax`` its
-fixed number of hops, each returning ``(state, sweeps)`` with ``sweeps``
-an int32 [1] device tensor; ``smooth_relax`` runs a fixed number of
-passes and returns the state. The components loop's BFS also has a
-one-sweep entry (``bfs_sweep``). The other kernels' one sweep exists only
-as a plain version (``<name>_sweep_plain``), the step of the relax loops'
+``bfs_relax``, ``flood_relax``, ``stress_relax``, ``warp_relax`` and
+``components_relax`` run to their fixpoint or cap (device-side change
+flag), ``shadow_relax`` its fixed number of hops, each returning ``(state,
+sweeps)`` with ``sweeps`` an int32 [1] device tensor; ``smooth_relax``
+runs a fixed number of passes and returns the state;
+``accumulate_relax`` returns ``(s, rounds)`` and :func:`ordered_sum` is
+its one-round form (the bin sums). One sweep of each relax loop exists
+only as a plain version (``<name>_sweep_plain``), the step of the loops'
 oracles.
 
-Every wrapper takes the state as [F, NP] float32 planes, the band bits as
-one int32 word per cell (bit d = band d present, the packed form of
-``band_mask``) and the band offsets as a tuple. A wrapper given CPU
+Every sweep wrapper takes the state as [F, NP] float32 planes, the band
+bits as one int32 word per cell (bit d = band d present, the packed form
+of ``band_mask``) and the band offsets as a tuple. A wrapper given CPU
 tensors runs the plain-torch version; given CUDA tensors it launches its
 kernel (building the library on first use) or raises. There is no
 fallback between the two.
 
 The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 ``_build/`` beside this package at first use, and rebuilt when the source
-is newer than the library. ``LAUNCHES`` counts launches per kernel
-(``bfs`` the one-sweep BFS; ``bfs_relax``, ``stress``, ``warp``,
-``flood``, ``smooth`` and ``shadow`` the relax launches, one each;
-``ordered_sum`` the ordered sums), and
-:func:`sweeps_run` the sweeps (ε-fill: rounds; rain shadow: hops) that
-the relax launches other than smoothing ran; the plain versions never
-count.
+is newer than the library. ``LAUNCHES`` counts launches per kernel, and
+:func:`sweeps_run` the sweeps (ε-fill: rounds; rain shadow: hops;
+components: steps; accumulate: rounds) that the launches other than
+smoothing ran; the plain versions never count.
 
 Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
 receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
 [M], from ops/banded.py ``rem_csr``). The relax kernels walk them
 in-kernel after the bands (a sum keeps the jnp order; a min or max is
 order-free; stress keeps the jnp's tie rule); their plain versions walk
-the same rows. The one-sweep BFS entry takes no CSR: the components loop
-applies the remainder edges as torch scatters after each launch.
+the same rows.
 """
 
 from __future__ import annotations
@@ -72,8 +67,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bfs": 0, "bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
-            "smooth": 0, "shadow": 0, "ordered_sum": 0}
+LAUNCHES = {"bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
+            "smooth": 0, "shadow": 0, "components": 0, "accumulate": 0}
 # ε-fill sweeps per barrier round on the staged chunk (BFS always runs 1)
 FLOOD_INNER = 4
 
@@ -86,8 +81,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    # cur, cost, bits, out, flag, np, nf, offs, n_offs, stream
-    "bfs_sweep": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     # state, ocean, bits, rem_ptr, rem_nbr, rem_gate, m, out, tmp, ctl,
     # total, np, ng, offs, n_offs, decay, sub_decay, cap, stream
     "stress_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
@@ -113,21 +106,29 @@ _ARGTYPES = {
     # windward_hops, stream
     "shadow_relax": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                      _I, _P, _I, _F, _F, _I, _I, _P],
-    # keys, perm, vals, k, n_out, nf, out, stream
-    "ordered_sum": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P],
+    # lab, member, bits, rem_ptr, rem_nbr, m, out, nxt, hook, jmp, ctl,
+    # total, np, offs, n_offs, stream
+    "components_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _I, _P],
+    # s, p, p64, k, n_out, nf, is_int, rounds, loop, stop_at_sink, out, tmp,
+    # pbuf, cnt, offl, cur, list, vbuf, bsum, ctl, total, stream
+    "accumulate": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                   _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
-# per CUDA device: int32 [5] running sweep totals of the bfs / flood /
-# stress / warp / rain-shadow relax launches, added to by the kernels
-# themselves
+# per CUDA device: int32 [7] running sweep totals of the bfs / flood /
+# stress / warp / rain-shadow / components / accumulate launches, added to
+# by the kernels themselves
 _SWEEP_TOTALS: dict = {}
 _RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3,
-               "shadow": 4}
+               "shadow": 4, "components": 5, "accumulate": 6}
 # the most fields one smoothing launch carries (csrc kMaxSmoothFields)
 SMOOTH_MAX_FIELDS = 4
-# the most value columns one ordered sum carries (csrc kMaxSumFields)
+# the most value columns one accumulate launch carries (csrc kMaxSumFields)
 SUM_MAX_FIELDS = 4
+# the chunk totals an accumulate launch keeps (csrc kMaxAccGrid)
+ACC_MAX_GRID = 1024
 # rain-shadow edge weights stored per land cell (the mesh degree is at
 # most 8; a cell with more edges recomputes its weights every hop)
 SHADOW_SLOTS = 8
@@ -141,8 +142,9 @@ def reset_launches() -> None:
 
 
 def sweeps_run() -> dict:
-    """Sweeps (ε-fill: barrier rounds; rain shadow: hops) run by the relax
-    launches other than smoothing since the last :func:`reset_launches`.
+    """Sweeps (ε-fill: barrier rounds; rain shadow: hops; components:
+    steps; accumulate: rounds) run by the launches other than smoothing
+    since the last :func:`reset_launches`.
     Reads the device counters (a host sync): for measurement, never on the
     path."""
     out = {k: 0 for k in _RELAX_SLOT}
@@ -307,31 +309,17 @@ def _or_flag(flag, changed) -> None:
         flag |= changed.to(torch.int32)
 
 
-# ── 1. BFS / components ──────────────────────────────────────────────
+# ── 1. BFS (one sweep, plain: the relax and components loops' step) ──
 
 def bfs_sweep_plain(cur, cost, bits, band_off, flag=None):
+    """One min-plus sweep over [F, NP] planes:
+    ``out = min(cur, min_{bands set} cur[:, i+off] + cost)``."""
     best = torch.full_like(cur, float("inf"))
     for d, off in enumerate(band_off):
         best = torch.minimum(
             best, torch.where(_bit(bits, d), _shift(cur, off), float("inf")))
     out = torch.minimum(cur, best + cost)
     _or_flag(flag, (out != cur).any())
-    return out
-
-
-def bfs_sweep(cur, cost, bits, band_off, flag=None):
-    """One min-plus sweep over [F, NP] planes:
-    ``out = min(cur, min_{bands set} cur[:, i+off] + cost)``."""
-    if _on_cpu(cur):
-        return bfs_sweep_plain(cur, cost, bits, band_off, flag)
-    fn = _kernel("bfs_sweep")
-    f = cur.shape[0] if cur.dim() == 2 else -1
-    _check(bits, flag, (cur, f), (cost, f))
-    np_ = bits.shape[0]
-    out = torch.empty_like(cur)
-    offs, nd = _offs(band_off)
-    _launch(fn, "bfs", _ptr(cur), _ptr(cost), _ptr(bits), _ptr(out),
-            _ptr(flag), np_, f, offs, nd)
     return out
 
 
@@ -784,7 +772,69 @@ def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     return out, ctl[3:]
 
 
-# ── ordered scatter-sum (replaces float scatter-adds) ───────────────
+# ── 7. connected components ─────────────────────────────────────────
+
+def components_relax_plain(lab, member, bits, band_off, rem_ptr, rem_nbr):
+    """The loop of :func:`components_relax` in plain torch."""
+    n = lab.shape[0]
+    zero = torch.zeros((1, n), dtype=torch.float32, device=lab.device)
+    keep = None if member is None else member > 0
+    members = None if keep is None else torch.nonzero(keep).flatten()
+    prev, steps = lab, 0
+    while True:
+        new = bfs_sweep_plain(prev[None], zero, bits, band_off)[0]
+        new = torch.minimum(new, rem_min_plain(prev, rem_ptr, rem_nbr))
+        if members is None:
+            new = new.scatter_reduce(0, prev.long(), new, "amin")
+        else:
+            new = new.scatter_reduce(0, prev[members].long(), new[members],
+                                     "amin")
+        for _ in range(2):
+            jumped = new[new.long().clamp(0, n - 1)]
+            new = jumped if keep is None else torch.where(keep, jumped, new)
+        steps += 1
+        done = torch.equal(new, prev)
+        prev = new
+        if done:
+            break
+    return prev, torch.tensor([steps], dtype=torch.int32)
+
+
+def components_relax(lab, member, bits, band_off, rem_ptr, rem_nbr):
+    """Min-label connected components over [NP] float32 cell-index labels
+    (NP at non-members, exact below 2^24), until a step changes nothing.
+    A step is one iteration of the JAX components loop: a min-label sweep
+    over the gated band ``bits`` and the gated remainder edges (CSR rows of
+    the receiving cell; ungated edges may follow past ``rem_ptr[NP]``),
+    then hooking (each member mins its new label into its previous
+    parent's slot), then two pointer jumps (``lab[clamp(lab, 0, NP-1)]``)
+    of the members. ``member`` is a uint8 [NP] mask, or None when every
+    cell is a member. Returns (labels, steps)."""
+    if _on_cpu(lab):
+        return components_relax_plain(lab, member, bits, band_off, rem_ptr,
+                                      rem_nbr)
+    fn = _kernel("components_relax")
+    _check(bits, None, (lab, None))
+    _check_csr(bits, rem_ptr, rem_nbr)
+    if member is not None and (
+            member.device != lab.device or member.dtype != torch.uint8
+            or tuple(member.shape) != tuple(lab.shape)
+            or not member.is_contiguous()):
+        raise ValueError("components: member must be a contiguous uint8 "
+                         f"{tuple(lab.shape)} tensor on {lab.device}")
+    np_ = lab.shape[0]
+    # out, then the sweep, hook and jump buffers
+    buf = torch.empty((4, np_), dtype=torch.float32, device=lab.device)
+    ctl = torch.zeros(4, dtype=torch.int32, device=lab.device)
+    offs, nd = _offs(band_off)
+    _launch(fn, "components", _ptr(lab), _ptr(member), _ptr(bits),
+            _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(buf[0]),
+            _ptr(buf[1]), _ptr(buf[2]), _ptr(buf[3]), _ptr(ctl),
+            _ptr(_sweep_total("components", lab.device)), np_, offs, nd)
+    return buf[0], ctl[3:]
+
+
+# ── 8. pointer-doubling accumulate (replaces float scatter-adds) ──────
 
 def ordered_sum_plain(n_out: int, idx, vals):
     """:func:`ordered_sum` in plain torch: ``index_add`` onto zeros, which
@@ -797,10 +847,105 @@ def ordered_sum_plain(n_out: int, idx, vals):
     return out.index_add(0, idx, vals)[:n_out]
 
 
+def accumulate_relax_plain(s, p, rounds: int, stop_at_sink: bool = True):
+    """The loop of :func:`accumulate_relax` in plain torch: the body of the
+    JAX pointer-doubling loops, one :func:`ordered_sum_plain` a round
+    (int32 counts: an ``index_add``, exact in any order)."""
+    n = s.shape[0]
+    p = p.long()
+    ran = 0
+    for r in range(int(rounds)):
+        if not bool((p != n).any()) and (stop_at_sink or r > 0):
+            break
+        if s.dtype == torch.int32:
+            added = torch.zeros(n + 1, dtype=torch.int32,
+                                device=s.device).index_add(0, p, s)[:n]
+        else:
+            added = ordered_sum_plain(n, p, s)
+        s = s + added
+        p = torch.cat([p, p.new_tensor([n])])[p]
+        ran += 1
+    return s, torch.tensor([ran], dtype=torch.int32)
+
+
+def _check_acc(s, p, k: int):
+    """Raise unless the accumulate kernel can read its inputs: ``p`` a
+    contiguous 1-D int32 or int64 tensor of ``k`` entries on the values'
+    device, ``s`` a contiguous float32 [K] or [K, F] (F <=
+    ``SUM_MAX_FIELDS``) or int32 [K], and K below 2^31 - 1."""
+    if (p.dtype not in (torch.int32, torch.int64) or p.dim() != 1
+            or p.shape[0] != k or p.device != s.device
+            or not p.is_contiguous()):
+        raise ValueError("accumulate: targets must be a contiguous 1-D int32 "
+                         f"or int64 [{k}] tensor on {s.device}")
+    floats = s.dtype == torch.float32 and (
+        s.dim() == 1 or (s.dim() == 2 and 1 <= s.shape[1] <= SUM_MAX_FIELDS))
+    counts = s.dtype == torch.int32 and s.dim() == 1
+    if not (floats or counts) or not s.is_contiguous():
+        raise ValueError(
+            f"accumulate: values must be a contiguous float32 [K] or [K, F <= "
+            f"{SUM_MAX_FIELDS}] or int32 [K] tensor, got {s.dtype} "
+            f"{tuple(s.shape)}")
+    if not 0 <= k < 2 ** 31 - 1:
+        raise ValueError(f"accumulate: {k} entries out of range")
+
+
+def _accumulate(fn, s, p, n_out: int, rounds: int, loop: bool,
+                stop_at_sink: bool):
+    """One launch ``fn`` of the accumulate kernel; returns (out, rounds)."""
+    k = s.shape[0]
+    nf = 1 if s.dim() == 1 else s.shape[1]
+    counts = s.dtype == torch.int32
+    dev = s.device
+    out = torch.empty((n_out, *s.shape[1:]), dtype=s.dtype, device=dev)
+    tmp = torch.empty_like(s) if loop else None
+    # zeroed: the two count buffers (int: the sums), the cursors, ctl
+    zeros = torch.zeros(3 * n_out + 4, dtype=torch.int32, device=dev)
+    # row offsets, the rows, the chunk totals and the two pointer buffers
+    work = torch.empty(n_out + 3 * k + ACC_MAX_GRID, dtype=torch.int32,
+                       device=dev)
+    cnt, cur, ctl = (zeros[:2 * n_out], zeros[2 * n_out:3 * n_out],
+                     zeros[3 * n_out:])
+    offl, lst = work[:n_out], work[n_out:n_out + k]
+    pbuf, bsum = work[n_out + k:n_out + 3 * k], work[n_out + 3 * k:]
+    # the long rows' values, each in its ranked slot
+    vbuf = None if counts else torch.empty(k * nf, dtype=torch.float32,
+                                           device=dev)
+    _launch(fn, "accumulate", _ptr(s), _ptr(p), int(p.dtype == torch.int64),
+            k, n_out, nf, int(counts), int(rounds), int(loop),
+            int(stop_at_sink), _ptr(out), _ptr(tmp), _ptr(pbuf), _ptr(cnt),
+            _ptr(offl), _ptr(cur), _ptr(lst), _ptr(vbuf), _ptr(bsum),
+            _ptr(ctl), _ptr(_sweep_total("accumulate", dev)))
+    return out, ctl[3:]
+
+
+def accumulate_relax(s, p, rounds: int, stop_at_sink: bool = True):
+    """The pointer-doubling loop over N cells with the sink at N: per round
+    ``added[t]`` = the sum of ``s[i]`` over the i with ``p[i] == t`` (t <
+    N, added from 0 in ascending i: the CPU ``index_add``'s order, so its
+    bits), then ``s ← s + added`` and ``p ← p[p]`` (the sink maps to
+    itself and is never summed). ``s`` is float32 [N] or [N, F] (F <=
+    ``SUM_MAX_FIELDS`` on the card) or int32 [N] (counts, exact in any
+    order); ``p`` int32 or int64 [N] in [0, N]. At most ``rounds`` rounds;
+    the loop stops before a round in which no pointer is off the sink
+    when ``stop_at_sink`` (the JAX loops' cond), and otherwise once a round
+    has run (the later rounds would add +0.0 to values that hold no -0.0,
+    changing nothing). On the card the whole loop is one launch with no
+    host sync. Returns (s, rounds run)."""
+    if _on_cpu(s):
+        return accumulate_relax_plain(s, p, rounds, stop_at_sink)
+    fn = _kernel("accumulate")
+    _check_acc(s, p, s.shape[0])
+    if s.shape[0] == 0:
+        return s.clone(), torch.zeros(1, dtype=torch.int32, device=s.device)
+    return _accumulate(fn, s, p, s.shape[0], max(int(rounds), 0), True,
+                       stop_at_sink)
+
+
 def _check_sum(n_out: int, idx, vals):
-    """Raise unless the ordered-sum kernel can read its inputs: ``idx`` a
-    1-D int32 or int64 tensor of K entries on the values' device, ``vals``
-    a contiguous float32 [K] or [K, F] (F <= ``SUM_MAX_FIELDS``) and
+    """Raise unless the one-round sum can read its inputs: ``idx`` a 1-D
+    int32 or int64 tensor of K entries on the values' device, ``vals`` a
+    contiguous float32 [K] or [K, F] (F <= ``SUM_MAX_FIELDS``) and
     ``n_out`` in [0, 2^31 - 1)."""
     k = idx.shape[0] if idx.dim() == 1 else -1
     if (idx.dtype not in (torch.int32, torch.int64) or idx.dim() != 1
@@ -822,20 +967,14 @@ def ordered_sum(n_out: int, idx, vals):
     """``out[t]`` = the sum of ``vals[i]`` over the i with ``idx[i] == t``,
     added from 0 in ascending i, for t < ``n_out`` ([n_out] or [n_out, F]
     like ``vals``); entries with ``idx >= n_out`` are skipped. On the card:
-    a stable sort of ``idx`` (int32 keys), then one thread per target
-    binary-searches its run of the sorted keys and adds the run's values in
-    order, so the sum has the CPU's bits and never walks the runs past
-    ``n_out``."""
+    one round of the accumulate kernel (:func:`accumulate_relax`'s launch
+    without the loop), so the sum has the CPU's bits and never walks the
+    entries past ``n_out``."""
     if _on_cpu(vals):
         return ordered_sum_plain(n_out, idx, vals)
-    fn = _kernel("ordered_sum")
+    fn = _kernel("accumulate")
     _check_sum(n_out, idx, vals)
     if int(n_out) == 0:
         return vals.new_zeros((0, *vals.shape[1:]))
-    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
-    out = torch.empty((int(n_out), *vals.shape[1:]), dtype=torch.float32,
-                      device=vals.device)
-    nf = 1 if vals.dim() == 1 else vals.shape[1]
-    _launch(fn, "ordered_sum", _ptr(keys), _ptr(perm), _ptr(vals),
-            idx.shape[0], int(n_out), nf, _ptr(out))
-    return out
+    return _accumulate(fn, vals, idx.contiguous(), int(n_out), 1, False,
+                       False)[0]

@@ -149,6 +149,83 @@ def test_components_exact(graphs, tiny_sphere):
     _eq(a, b)
 
 
+def _components_before(init_lab, member, gate_bits, rem_ok, band_off,
+                       rem_src, rem_dst):
+    """(labels, steps) of the components loop the port ran before its
+    components launch: a one-sweep BFS, then the remainder edges, hooking
+    and two jumps as torch scatters, until a step changes nothing."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    n = init_lab.shape[0]
+    cost = torch.zeros((1, n))
+    src, dst = rem_src[rem_ok], rem_dst[rem_ok]
+    members = torch.nonzero(member).flatten()
+    prev, steps = init_lab, 0
+    while True:
+        new = sweep_cuda.bfs_sweep_plain(prev[None], cost, gate_bits,
+                                         band_off)[0]
+        new = new.scatter_reduce(0, src, prev[dst], "amin")
+        new = new.scatter_reduce(0, prev[members].long(), new[members],
+                                 "amin")
+        for _ in range(2):
+            new = torch.where(member, new[new.long().clamp(0, n - 1)], new)
+        steps += 1
+        if torch.equal(new, prev):
+            return new, steps
+        prev = new
+
+
+@pytest.mark.parametrize("case", ["all_cells", "subset", "isolated_cells"])
+def test_components_relax_plain_equals_the_loop_it_replaced(graphs,
+                                                            tiny_sphere,
+                                                            case):
+    """``components_relax_plain`` (the oracle of the components launch):
+    the labels and the step count of the loop it replaced, bit for bit,
+    and the labels of the JAX ``connected_components_gated`` (every cell a
+    member, same-class gate) or ``connected_components_banded`` (a strict
+    subset; with isolated cells: members none of whose neighbours is
+    one)."""
+    from planet_heightmap_generation_tpu.erosion.flood import (
+        connected_components_banded as jcc_in)
+    from planet_heightmap_generation_tpu.ops.banded import (
+        connected_components_gated as jcc_gated)
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    jg, g = graphs
+    n = g.n_padded
+    field = _blobs(tiny_sphere, n, 11)
+    ar = torch.arange(n, dtype=torch.float32)
+    if case == "all_cells":
+        classes = _t((field * 2).astype(np.int32) % 3)
+        member = torch.ones(n, dtype=torch.bool)
+        bits = tb.pack_band_bits(tb.band_gate(classes, *g.bands[:2]))
+        rem_ok = tb.rem_gate_eq(classes, *g.bands[2:])
+        init = ar
+        want = jcc_gated(jnp.asarray(classes.numpy()), *jg.bands)
+    else:
+        in_set = (field > 0.3) & g.valid.numpy()
+        if case == "isolated_cells":
+            lone = np.random.default_rng(12).choice(
+                np.flatnonzero(~in_set & g.valid.numpy()), 40, replace=False)
+            in_set[lone] = True
+        member = _t(in_set)
+        gate = tb.band_gate(member, *g.bands[:2]) & member[:, None]
+        bits = tb.pack_band_bits(gate)
+        rem_ok = member[g.rem_src] & member[g.rem_dst]
+        init = torch.where(member, ar, float(n))
+        want = jcc_in(jnp.asarray(in_set), *jg.bands)
+    ptr, nbr = tb.rem_csr(torch.where(rem_ok, g.rem_src, n), g.rem_dst, n)
+    lab, steps = sweep_cuda.components_relax_plain(
+        init, None if case == "all_cells" else member.to(torch.uint8), bits,
+        g.band_off, ptr, nbr)
+    ref, ref_steps = _components_before(init, member, bits, rem_ok,
+                                        g.band_off, g.rem_src, g.rem_dst)
+    assert torch.equal(lab, ref) and int(steps) == ref_steps > 1
+    _eq(want, lab.to(torch.int32))
+    if case == "isolated_cells":
+        assert bool((lab[_t(lone)] == _t(lone).float()).any())
+
+
 def test_flood_assign_exact(graphs, tiny_sphere):
     from planet_heightmap_generation_tpu.ops.banded import (
         flood_assign_banded as jflood)

@@ -24,7 +24,8 @@ import torch_parity  # noqa: F401 — one torch thread per test process
 
 import planet_heightmap_generation_torch as port
 from planet_heightmap_generation_torch.ops import sweep_cuda
-from planet_heightmap_generation_torch.ops.banded import ordered_index_sum
+from planet_heightmap_generation_torch.ops.banded import (
+    ordered_index_sum, pointer_accumulate)
 
 PKG = pathlib.Path(port.__file__).parent
 MODULES = sorted(
@@ -119,8 +120,12 @@ def _fake_cuda(shape):
 
 @pytest.mark.parametrize("kernel", ["bfs", "stress", "warp", "flood",
                                     "smooth", "shadow", "bfs_relax",
-                                    "ordered_sum"])
+                                    "ordered_sum", "accumulate"])
 def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
+    """``bfs``: the components loop, the BFS family's other use (its
+    launch is ``components_relax``); ``ordered_sum``: the one-round sum,
+    now a launch of the accumulate kernel; ``accumulate``: a whole
+    pointer-doubling loop."""
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
@@ -130,7 +135,7 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
     before = dict(sweep_cuda.LAUNCHES)
     x = _fake_cuda((4, 64))
     call = {
-        "bfs": lambda: sweep_cuda.bfs_sweep(x, x, x, (1,)),
+        "bfs": lambda: sweep_cuda.components_relax(x, None, x, (1,), x, x),
         "stress": lambda: sweep_cuda.stress_relax(x, x, x, (1,), x, x, x,
                                                   0.9, 0.8, 5),
         "warp": lambda: sweep_cuda.warp_relax(x, x, x, (1,), x, x, 5),
@@ -141,6 +146,7 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
                                                   0.9, 0.8, 3, 2),
         "bfs_relax": lambda: sweep_cuda.bfs_relax(x, x, x, (1,), x, x, 5),
         "ordered_sum": lambda: ordered_index_sum(4, x, x),
+        "accumulate": lambda: pointer_accumulate(x, x, 5),
     }[kernel]
     with pytest.raises(RuntimeError):
         call()
@@ -150,7 +156,9 @@ def test_cuda_request_without_kernel_raises(monkeypatch, tmp_path, kernel):
 def test_other_devices_refused():
     x = torch.zeros((1, 8), device="meta")
     with pytest.raises(ValueError):
-        sweep_cuda.bfs_sweep(x, x, x, (1,))
+        sweep_cuda.components_relax(x[0], None, x, (1,), x, x)
+    with pytest.raises(ValueError):
+        sweep_cuda.accumulate_relax(x[0], x[0], 3)
 
 
 @pytest.mark.parametrize("bad", ["plane_shape", "plane_dtype", "bits_dtype",
@@ -160,17 +168,25 @@ def test_other_devices_refused():
                                  "layer_bits_shape", "rem_gate_dtype",
                                  "rem_gate_shape", "no_smoothing_pass",
                                  "sum_idx_dtype", "sum_vals_dtype",
-                                 "sum_vals_shape", "sum_n_out_range"])
+                                 "sum_vals_shape", "sum_n_out_range",
+                                 "acc_vals_dtype", "acc_int_fields",
+                                 "acc_fields", "acc_ptr_dtype",
+                                 "acc_ptr_shape", "acc_strided",
+                                 "member_dtype"])
 def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
     """The checks every wrapper runs before handing pointers to a kernel
     (``_check``; ``_check_csr`` for the kernels that walk remainder
     rows, with the stress relax's per-layer remainder gates; ``_check_sum``
-    for the ordered sum). The staged kernels load planes as float4 words,
-    so NP must be a multiple of 4 and every plane 16-byte aligned; the
-    stress relax takes [G, 3, NP] state and [G, NP] bits; a smoothing
-    launch runs at least one pass; the ordered sum takes integer indices,
-    contiguous float32 values of at most 4 columns and an output count in
-    int32 range."""
+    for the one-round sum; ``_check_acc`` for the accumulate loop; the
+    components launch's member mask). The staged kernels load planes as
+    float4 words, so NP must be a multiple of 4 and every plane 16-byte
+    aligned; the stress relax takes [G, 3, NP] state and [G, NP] bits; a
+    smoothing launch runs at least one pass; the ordered sum takes integer
+    indices, contiguous float32 values of at most 4 columns and an output
+    count in int32 range; the accumulate loop takes contiguous float32
+    values of at most 4 columns or int32 counts of one, and contiguous
+    int32 or int64 targets, one a value; the components launch a uint8
+    member mask."""
     bits = torch.zeros(64, dtype=torch.int32)
     plane = torch.zeros((4, 64))
     flag = torch.zeros(1, dtype=torch.int32)
@@ -186,6 +202,9 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
     sweep_cuda._check_csr(lbits, ptr, nbr, rgate, 2)
     idx = torch.zeros(5, dtype=torch.int64)
     sweep_cuda._check_sum(8, idx, plane[:, :5].T.contiguous())
+    vals = plane[:, :5].T.contiguous()
+    sweep_cuda._check_acc(vals, idx, 5)
+    sweep_cuda._check_acc(idx.int(), idx.int(), 5)
     call = {
         "plane_shape": lambda: sweep_cuda._check(
             bits, flag, (plane[:, :32].contiguous(), 4)),
@@ -222,9 +241,31 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_read(bad):
             8, idx, torch.zeros((5, 5))),
         "sum_n_out_range": lambda: sweep_cuda._check_sum(
             -1, idx, plane[0, :5].clone()),
+        "acc_vals_dtype": lambda: sweep_cuda._check_acc(vals.double(), idx, 5),
+        "acc_int_fields": lambda: sweep_cuda._check_acc(
+            torch.zeros((5, 2), dtype=torch.int32), idx, 5),
+        "acc_fields": lambda: sweep_cuda._check_acc(torch.zeros((5, 5)), idx,
+                                                    5),
+        "acc_ptr_dtype": lambda: sweep_cuda._check_acc(vals, idx.to(
+            torch.int16), 5),
+        "acc_ptr_shape": lambda: sweep_cuda._check_acc(vals, idx[:4], 5),
+        "acc_strided": lambda: sweep_cuda._check_acc(
+            plane[:, :5].T, idx, 5),
+        "member_dtype": lambda: _components_as_on_card(
+            plane[0].clone(), plane[0].bool(), bits, ptr, nbr),
     }[bad]
     with pytest.raises(ValueError):
         call()
+
+
+def _components_as_on_card(lab, member, bits, ptr, nbr):
+    """``components_relax``'s input checks on CPU tensors, routed as CUDA
+    ones (it raises before it loads the library or reads any data)."""
+    import unittest.mock as mock
+
+    with mock.patch.object(sweep_cuda, "_on_cpu", lambda x: False), \
+            mock.patch.object(sweep_cuda, "_kernel", lambda name: None):
+        sweep_cuda.components_relax(lab, member, bits, (1,), ptr, nbr)
 
 
 def test_cpu_wrappers_run_plain_versions_uncounted():
@@ -262,9 +303,26 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
          sweep_cuda.shadow_relax_plain(st - 0.5, aux, st[2], bits, offs,
                                        rem_ptr, rem_nbr, 0.9, 0.8, 3, 2)),
     ]
+    lab = torch.where(st[2] > 0, torch.arange(n, dtype=torch.float32),
+                      float(n))
+    member = (st[2] > 0).to(torch.uint8)
+    sinks = torch.where(st[3] > 0.5, n, (torch.arange(n) * 7) % n)
+    relaxed += [
+        (sweep_cuda.components_relax(lab, member, bits, offs, rem_ptr,
+                                     rem_nbr),
+         sweep_cuda.components_relax_plain(lab, member, bits, offs, rem_ptr,
+                                           rem_nbr)),
+        (sweep_cuda.components_relax(torch.arange(n, dtype=torch.float32),
+                                     None, bits, offs, rem_ptr, rem_nbr),
+         sweep_cuda.components_relax_plain(
+             torch.arange(n, dtype=torch.float32), None, bits, offs,
+             rem_ptr, rem_nbr)),
+        (sweep_cuda.accumulate_relax(st[0].clone(), sinks, 6),
+         sweep_cuda.accumulate_relax_plain(st[0].clone(), sinks, 6)),
+        (sweep_cuda.accumulate_relax(member.int(), sinks, 6),
+         sweep_cuda.accumulate_relax_plain(member.int(), sinks, 6)),
+    ]
     pairs = [x for (a, b) in relaxed for x in zip(a, b)] + [
-        (sweep_cuda.bfs_sweep(st, st, bits, offs),
-         sweep_cuda.bfs_sweep_plain(st, st, bits, offs)),
         (sweep_cuda.smooth_relax(st, st[0] + 2, bits, offs, rem_ptr, rem_nbr,
                                  2, st[2], st[3]),
          sweep_cuda.smooth_relax_plain(st, st[0] + 2, bits, offs, rem_ptr,

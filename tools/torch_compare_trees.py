@@ -9,9 +9,10 @@ For each tree: build its kernels, run the default 204K generate
 the default and one of the terrain-only generate under ``torch.profiler``
 (device busy ms and the number of device events), and one more default
 run traced for the device time and calls of the scatter-add kernels
-(``index_add``, an atomic add), the sorts and the ordered-sum kernel.
-Prints one ``RESULT``
-JSON line per tree. Give the trees in turns, so that host drift falls on
+(``index_add``, an atomic add), the sorts, the one-sweep BFS, the
+ordered-sum kernel and the accumulate and components launches, and one
+more default run under CUDA sync debug mode, whose warnings count the
+generate's host syncs. Prints one ``RESULT`` JSON line per tree. Give the trees in turns, so that host drift falls on
 both sides. Needs one CUDA device; uses each tree's ``chip_smoke.py``.
 """
 import subprocess
@@ -26,7 +27,7 @@ import chip_smoke as cs
 from planet_heightmap_generation_torch.config import GenerationParams
 from planet_heightmap_generation_torch.ops import sweep_cuda
 sweep_cuda.build()
-sweep_cuda._kernel("bfs_sweep")
+sweep_cuda._kernel(next(iter(sweep_cuda._ARGTYPES)))
 dev = torch.device("cuda")
 p = GenerationParams(seed=42)
 cs.run_generate(dev, p)
@@ -39,17 +40,29 @@ launches = dict(sweep_cuda.LAUNCHES)
 prof = cs.profile_generate(dev, p)
 pt = cs.profile_generate(dev, GenerationParams(seed=42, skip_climate=True))
 kinds = {"index_add": ("indexFuncLargeIndex", "indexFuncSmallIndex"),
-         "sort": ("Sort", "sort"), "ordered_sum": ("ordered_sum_kernel",)}
+         "sort": ("Sort", "sort"), "ordered_sum": ("ordered_sum_kernel",),
+         "bfs_sweep": ("bfs_sweep_kernel",),
+         "accumulate": ("accumulate_relax",),
+         "components": ("components_relax_kernel",)}
 by_kind = {k: [0.0, 0] for k in kinds}
 for e in cs.device_events(lambda: cs.run_generate(dev, p)):
     for k, names in kinds.items():
         if any(n in e.name for n in names):
             by_kind[k][0] += e.time_range.elapsed_us() / 1e3
             by_kind[k][1] += 1
+import warnings
+torch.cuda.synchronize()
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    cs.run_generate(dev, p)
+    torch.cuda.set_sync_debug_mode("default")
+syncs = sum("synchroniz" in str(w.message) for w in caught)
 print("RESULT " + json.dumps(dict(
     tree=TREE, walls=walls, launches=launches, busy_ms=prof["busy_ms"],
     events=prof["n_events"], terrain_busy_ms=pt["busy_ms"],
-    terrain_events=pt["n_events"], device_ms_calls=by_kind)))
+    terrain_events=pt["n_events"], device_ms_calls=by_kind,
+    host_syncs=syncs)))
 '''
 
 
