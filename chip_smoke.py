@@ -39,7 +39,17 @@ Phases (any failure exits non-zero with its traceback):
    ``components`` at the generate's four call sites (all cells under the
    same-plate gate, the ocean subsets, the land subset), equal to the plain
    loop on the card in labels and steps; every caller of either launch
-   runs with no host sync;
+   runs with no host sync. Then every staged launch past 204K: synthetic
+   meshes (the 204K band set with its widest pair replaced by ±5760, about
+   the 2.56M mesh's half-width, on the 2.56M mesh's 2,561,024 cells, and by
+   ±7200, ~4M cells, on 1,048,576 cells; bits and remainder edges from
+   numpy seeds) whose plans the shared-memory window cap binds, so that
+   chunks are no multiple of 4: smoothing F = 1..4 with and without gate
+   and update mask, warp, stress with 2 layers, the BFS at F=1 and F=4,
+   and the ε-fill, rain shadow and components at F=1, each equal to its
+   plain loop on CPU copies bit for bit, in sweeps too (or refused, only
+   where its windows no longer fit), timed, with its plan (T, H, windows,
+   grid, shared bytes, capped or not) read back from the library;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the launches'
@@ -71,11 +81,31 @@ Phases (any failure exits non-zero with its traceback):
    retained elevation bit for bit; ``import_heightmap`` of a 1024×512
    band image passes the band checks; one ``WorkerProtocol.dispatch`` of
    each command returns its done type. Each command must launch the
-   kernels of its path, and its wall time is printed.
+   kernels of its path, and its wall time is printed;
+7. sizes past 204K: ``GenerationParams(seed=42, n_cells=1_000_000,
+   skip_climate=False)`` (the JAX bench config 4) and
+   ``GenerationParams(seed=42, n_cells=2_560_000)`` (the detail ceiling,
+   terrain-only by the 300K rule), each cold, then warm (stage table,
+   launches and sweeps of every kernel, peak device memory, and one line
+   per staged launch with its plan, read back from the library), then
+   warm under the profiler (device busy time, events); each passes the
+   gates of the default generate, and at 1M the climate's;
+8. the product surfaces on the default planet of phase 3: every
+   ``available_layers`` colour on the card equal to the same call on CPU
+   copies (atol 1e-6); ``nearest_region`` and ``cell_info`` at 8 points,
+   the CPU's cells; the wind and current arrows, the ITCZ and the plate
+   borders; ``rasterize_cell_ids`` at 2048×1024 (timed; where its ids
+   differ from the CPU's, the two candidates' scores differ by at most
+   1e-6) and ``export_map`` of the six types; ``export_map_tiled`` of the
+   heightmap at 8192×4096 (timed; >= 97 % of its pixels match the
+   in-memory export); ``export_globe``; ``cli.main`` for ``generate`` →
+   ``export`` (the npz's elevation the generate's, bit for bit) and a
+   ``sweep`` of three terrain-only seeds with 2048-px exports.
 
-Before the last line come a JSON object of the commands' wall times, a
-JSON object with one entry per kernel and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the
+Before the last line come JSON objects of the commands' wall times, the
+sizes past 204K, the plans past 204K and the product surfaces' wall
+times, a JSON object with one entry per kernel and the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits with code 1 before printing any result.
 """
 
@@ -86,6 +116,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +126,8 @@ N_CELLS = 204_000
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+# csrc kMaxWindowFloats: the dynamic shared memory a staged block may take
+KMAX_WINDOW_FLOATS = (232448 - 1024) // 4
 SOURCE = "planet_heightmap_generation_torch/csrc/sweeps.cu"
 TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
 REPLACES = {"bfs_relax": f"{TPU_KERNELS}:171",
@@ -532,6 +565,206 @@ def kernel_checks(g, g_cpu, dev, reps: int = 200, plain_reps: int = 10):
             land_f[:, None] * g.pos], 1)),
         ("5 normal fields", torch.as_tensor(
             rng.standard_normal((npad, 5)).astype(np.float32), device=dev))])
+    return records
+
+
+# ── phase 2: the staged launches' plans past 204K ────────────────────
+
+def synthetic_mesh(band_off, half_width: int, npad: int, seed: int):
+    """A banded mesh of ``npad`` cells made from a numpy seed, as CPU
+    tensors: the mesh's band set with its widest pair replaced by
+    ±``half_width`` (set in half the cells, every other band in a fifth),
+    and one random remainder edge per 100 cells. Returns (band_off, bits,
+    rem_ptr, rem_nbr)."""
+    from planet_heightmap_generation_torch.ops import banded
+
+    offs = sorted(band_off, key=abs)[:-2] + [-half_width, half_width]
+    offs = tuple(sorted(int(o) for o in offs))
+    rng = np.random.default_rng(seed)
+    wide = np.abs(np.asarray(offs)) == half_width
+    mask = rng.random((npad, len(offs))) < np.where(wide, 0.5, 0.2)
+    bits = banded.pack_band_bits(torch.as_tensor(mask))
+    m = npad // 100
+    ptr, nbr = banded.rem_csr(torch.as_tensor(rng.integers(0, npad, m)),
+                              torch.as_tensor(rng.integers(0, npad, m)),
+                              npad)
+    return offs, bits, ptr, nbr
+
+
+def plan_configs(mesh, npad: int, seed: int):
+    """Every staged launch at its real windows per item, on ``mesh``
+    (:func:`synthetic_mesh`), with inputs made from a numpy seed as CPU
+    tensors and short loops (caps of 2-3 sweeps; the ε-fill and the
+    components run to their fixpoints): smoothing with F = 1..4 fields
+    without and with gate and update mask (and F=2 with the update mask
+    alone), warp, stress with 2 layers, the BFS at F=1 and F=4, and F=1
+    for the ε-fill, rain shadow and components. Returns (label, kernel, wrapper, args, bytes
+    per sweep) tuples: ``wrapper(*args)`` on CPU tensors runs the plain
+    loop."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+
+    offs, bits, ptr, nbr = mesh
+    rng = np.random.default_rng(seed)
+    csr = (npad + 1 + nbr.shape[0]) * 4
+
+    def f32(*shape, lo=0.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    def mask(p):
+        return torch.as_tensor((rng.random(npad) < p).astype(np.float32))
+
+    def unit(n):
+        v = rng.standard_normal((3, n))
+        return torch.as_tensor((v / np.linalg.norm(v, axis=0))
+                               .astype(np.float32))
+
+    def plane_bytes(planes):
+        return planes * npad * 4 + npad * 4 + csr
+
+    out = []
+    c = f32(npad, lo=1.0, hi=8.0)
+    for f in range(1, sc.SMOOTH_MAX_FIELDS + 1):
+        masks = [(None, None), (mask(0.8), mask(0.9))]
+        if f == 2:
+            masks.append((None, mask(0.9)))
+        for gate, upd in masks:
+            name = ("" if gate is None else "gate ") + (
+                "" if upd is None else "upd")
+            out.append((f"smooth F={f}" + (f" {name.strip()}" if name.strip()
+                                           else ""), "smooth",
+                        sc.smooth_relax,
+                        (f32(f, npad, lo=-1.0), c, bits, offs, ptr, nbr, 2,
+                         gate, upd),
+                        plane_bytes(2 * f + 1 + (gate is not None)
+                                    + (upd is not None))))
+    pos = unit(npad)
+    state = torch.cat([torch.arange(npad, dtype=torch.float32)[None], pos])
+    target = pos + 0.05 * unit(npad)
+    out.append(("warp", "warp", sc.warp_relax,
+                (state.contiguous(), target.contiguous(), bits, offs, ptr,
+                 nbr, 3), plane_bytes(8 + 3)))
+    g = 2
+    st = torch.where(torch.as_tensor(rng.random((g, npad)) < 0.05),
+                     f32(g, npad, hi=2.0), 0.0)
+    layers = torch.stack([st, f32(g, npad), mask(0.5).expand(g, -1)], 1)
+    lbits = torch.stack([bits & torch.as_tensor(
+        rng.integers(-2 ** 31, 2 ** 31, npad).astype(np.int32))
+        for _ in range(g)])
+    out.append(("stress G=2", "stress", sc.stress_relax,
+                (layers.contiguous(), mask(0.3).expand(g, -1).contiguous(),
+                 lbits.contiguous(), offs, ptr, nbr,
+                 torch.as_tensor(rng.random((g, nbr.shape[0])) < 0.7)
+                 .to(torch.uint8), 0.9, 0.5, 3),
+                plane_bytes(g * (3 * 2 + 2))))
+    for f in (1, 4):   # F=4 (four groups) is capped at 2.56M cells
+        seeds = torch.as_tensor(rng.random((f, npad)) < 0.01)
+        out.append((f"bfs F={f}", "bfs_relax", sc.bfs_relax,
+                    (torch.where(seeds, 0.0, float("inf")).contiguous(),
+                     f32(f, npad, lo=0.5, hi=1.5), bits, offs, ptr, nbr, 3),
+                    plane_bytes(3 * f)))
+    elev = f32(npad, lo=-1.0)
+    ocean = torch.as_tensor(rng.random(npad) < 0.3)
+    big = 1e9
+    out.append(("flood F=1", "flood", sc.flood_relax,
+                (torch.where(ocean, elev, big).contiguous(), mask(0.02),
+                 elev, bits, offs, ptr, nbr, big, 1e-4),
+                plane_bytes(4)))
+    aux = torch.cat([pos, 0.3 * unit(npad), 0.3 * unit(npad)])
+    out.append(("shadow F=1", "shadow", sc.shadow_relax,
+                (f32(4, npad, lo=-1.0), aux.contiguous(), mask(0.4), bits,
+                 offs, ptr, nbr, 0.9, 0.8, 3, 2),
+                plane_bytes(4 * 2 + 9 + 1)))
+    out.append(("components F=1", "components", sc.components_relax,
+                (torch.arange(npad, dtype=torch.float32),
+                 None, bits & torch.as_tensor(rng.integers(
+                     -2 ** 31, 2 ** 31, npad).astype(np.int32)),
+                 offs, ptr, nbr), plane_bytes(2)))
+    return out
+
+
+# windows per item of each staged kernel (csrc make_geo's nw; smoothing:
+# one per field)
+PLAN_WINDOWS = {"bfs_relax": 1, "flood": 1, "stress": 2, "warp": 3,
+                "shadow": 1, "components": 1}
+
+
+def window_fits(nw: int, half_width: int) -> bool:
+    """Whether csrc get_plan finds a chunk T >= 1 for ``nw`` windows of
+    half-width ``half_width`` (kMaxWindowFloats / nw - 2H - 11 >= 1)."""
+    return KMAX_WINDOW_FLOATS // nw - 2 * half_width - 11 >= 1
+
+
+def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
+                plain=None):
+    """Every staged launch (:func:`plan_configs`) on a synthetic mesh of
+    NP cells at band half-width H, for each (H, NP) of ``sizes``, on
+    ``dev`` and, as its plain loop, on CPU copies (``plain(fn, *args)``,
+    default ``fn(*args)``): the two must agree bit for bit, in sweeps too;
+    a launch whose windows no longer fit shared memory
+    (:func:`window_fits`) must raise instead, and only then. Each launch's
+    plan is read back from the library, and on the card the launch is
+    timed. Returns one record per launch."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+
+    plain = plain or (lambda fn, *a: fn(*a))
+    records = []
+    for hw, npad in sizes:
+        mesh = synthetic_mesh(band_off, hw, npad, seed)
+        for label, kernel, fn, args, nbytes in plan_configs(mesh, npad,
+                                                            seed + hw):
+            nw = PLAN_WINDOWS.get(kernel) or args[0].shape[0]
+            groups = args[0].shape[0] if kernel in ("bfs_relax",
+                                                    "stress") else 1
+            ref = plain(fn, *args)
+            on_dev = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+            try:
+                got = fn(*on_dev)
+            except RuntimeError as e:
+                if window_fits(nw, hw) or "launch failed" not in str(e):
+                    raise
+                print(f"plan [{label}, H {hw}]: refused ({e}), as its "
+                      f"{nw} windows no longer fit", flush=True)
+                records.append(dict(config=label, H=hw, NP=npad,
+                                    refused=True))
+                continue
+            ref = ref if isinstance(ref, tuple) else (ref, None)
+            got = got if isinstance(got, tuple) else (got, None)
+            same = torch.equal(got[0].cpu(), ref[0])
+            # the ε-fill counts barrier rounds, its plain loop sweeps
+            sweeps = (None if ref[1] is None or kernel == "flood"
+                      else int(ref[1][0]))
+            if not same or (sweeps is not None and int(got[1][0]) != sweeps):
+                raise AssertionError(
+                    f"plan [{label}, H {hw}]: the launch differs from the "
+                    f"plain loop on the CPU (max abs err "
+                    f"{max_abs_err(got[0].cpu(), ref[0])}, sweeps "
+                    f"{None if got[1] is None else int(got[1][0])} / "
+                    f"{sweeps})")
+            # smoothing: its pass count; the ε-fill: the rounds it ran
+            sweeps = (int(got[1][0]) if kernel == "flood"
+                      else sweeps or args[6])
+            rec = dict(config=label, H=hw, NP=npad, sweeps=sweeps,
+                       refused=False, fits=window_fits(nw, hw))
+            plan = [p for p in sc.relax_plans()
+                    if p["kernel"] == kernel and p["np"] == npad
+                    and p["H"] == hw and p["windows"] == nw
+                    and p["groups"] == groups]
+            rec.update(plan[-1])
+            unit = "rounds" if kernel == "flood" else "sweeps"
+            text = (f"T {rec['T']} (before the cap {rec['T_free']}), {nw} "
+                    f"windows, grid {rec['grid']}, {rec['smem_bytes']} B "
+                    f"shared, {'capped' if rec['capped'] else 'not capped'}")
+            if dev.type == "cuda":
+                ms = time_ms(lambda: fn(*on_dev), reps, warm=1)
+                rec.update(ms=ms, us_per_sweep=ms * 1e3 / sweeps,
+                           bound_us_per_sweep=nbytes / HBM_BYTES_PER_S * 1e6)
+                text += (f"; {rec['us_per_sweep']:.2f} us a {unit[:-1]}, "
+                         f"bound {rec['bound_us_per_sweep']:.2f} a sweep "
+                         "(bytes)")
+            records.append(rec)
+            print(f"plan [{label}, H {hw}, NP {npad}]: bit-identical to the "
+                  f"plain loop on the CPU ({sweeps} {unit}); {text}",
+                  flush=True)
     return records
 
 
@@ -1265,6 +1498,262 @@ def snapshot_check(res):
     assert worst < 0.03, shares
 
 
+# ── phase 7: sizes past 204K ─────────────────────────────────────────
+
+# (label, GenerationParams keywords): the JAX package's bench config 4
+# (bench.py:93-95, 1M cells with climate) and the reference's detail
+# ceiling (config.py:17, 2.56M cells; the 300K rule skips climate)
+BIG_SIZES = (("1M with climate", dict(n_cells=1_000_000, skip_climate=False)),
+             ("2.56M terrain-only", dict(n_cells=2_560_000)))
+# the synthetic plan shapes of phase 2: (band half-width H, NP). ±5760 is
+# about the 2.56M mesh's half-width (its largest |offset| is 5778), at its
+# padded size, so its plans are within a few cells of the 2.56M
+# generate's; ±7200 (~4M cells, near where four windows stop fitting) on
+# 1M cells, where the warp and stress plans cap too
+PLAN_SIZES = ((5760, 2_561_024), (7200, 1_048_576))
+# phase 8: the in-memory export's (height, width), the tiled export's width
+EXPORT_HW = (1024, 2048)
+TILED_WIDTH = 8192
+
+
+def plan_lines(npad: int):
+    """Print and return the staged launches' plans at ``npad`` cells, as
+    the library cached them."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    plans = [p for p in sweep_cuda.relax_plans() if p["np"] == npad]
+    for p in plans:
+        print(f"  plan {p['kernel']:10s} NP {p['np']} groups {p['groups']} "
+              f"windows {p['windows']} H {p['H']} T {p['T']} (before the "
+              f"cap {p['T_free']}) grid {p['grid']} shared "
+              f"{p['smem_bytes']} B "
+              f"{'capped' if p['capped'] else 'not capped'}", flush=True)
+    return plans
+
+
+def size_checks(dev):
+    """The 1M-with-climate and 2.56M terrain-only generates, each cold
+    then warm (counted, timed, its plans read back), then once warm under
+    the profiler, held to PERF.md §2's gates. Returns one record per
+    size."""
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    out = {}
+    for label, kw in BIG_SIZES:
+        params = GenerationParams(seed=SEED, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        _, cold_s = run_generate(dev, params)
+        sweep_cuda.reset_launches()
+        res, warm_s = run_generate(dev, params)
+        launches = dict(sweep_cuda.LAUNCHES)
+        swept = sweep_cuda.sweeps_run()
+        peak = torch.cuda.max_memory_allocated()
+        print(res.timing.table())
+        n, npad = res.graph.n_cells, res.graph.n_padded
+        print(f"generate {label} ({n} cells, NP {npad}, "
+              f"{len(res.graph.banded_packed[0])} bands, H "
+              f"{max(abs(o) for o in res.graph.banded_packed[0])}): cold "
+              f"{cold_s:.2f} s, warm {warm_s:.3f} s, peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB", flush=True)
+        assert res.error is None, res.error
+        diag, plates = check_planet(res, params.n_plates)
+        print(f"diagnostics: {diag}, plates {plates}", flush=True)
+        climate = params.skip_climate is False
+        if climate:
+            print("climate: " + check_climate(res), flush=True)
+        else:
+            assert res.climate is None
+        path = [k for k in launches
+                if climate or k not in ("smooth", "shadow")]
+        missing = [k for k in path if launches[k] == 0]
+        assert not missing, f"{label}: kernels not launched: {missing}"
+        print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
+              + " | sweeps " + " ".join(f"{k}={v}" for k, v in swept.items()),
+              flush=True)
+        plans = plan_lines(npad)
+        staged = {p["kernel"] for p in plans}
+        assert staged >= {"bfs_relax", "stress", "warp", "flood",
+                          "components"} | ({"smooth", "shadow"} if climate
+                                           else set()), staged
+        prof = profile_generate(dev, params)
+        report_profile(prof, warm_s)
+        out[label] = dict(
+            n_cells=n, np=npad, cold_s=cold_s, warm_s=warm_s,
+            peak_bytes=peak, launches=launches, sweeps=swept,
+            stages=res.timing.stages, plans=plans,
+            busy_ms=None if prof is None else prof["busy_ms"],
+            events=None if prof is None else prof["n_events"],
+            device_ms=None if prof is None else prof["device_ms"])
+    return out
+
+
+# ── phase 8: the product surfaces on the default planet ──────────────
+
+def to_cpu(x):
+    """A result's tensors (in dicts too) as CPU copies."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x.cpu() if torch.is_tensor(x) else x
+
+
+def api_checks(dev, res, tmp: str):
+    """api/, the CLI and the batch sweep at 204K on the card, timed, with
+    the layers, picks, overlays and raster held against the same calls on
+    CPU copies. Returns {check: seconds}."""
+    import dataclasses
+    import os
+
+    from planet_heightmap_generation_torch import cli
+    from planet_heightmap_generation_torch.api import (export, globe, layers,
+                                                       overlays, picking)
+    from planet_heightmap_generation_torch.api.imageio import load_png
+    from planet_heightmap_generation_torch.mesh.device import to_device
+
+    walls = {}
+    cpu = dataclasses.replace(
+        res, r_plate=res.r_plate.cpu(), elevation=res.elevation.cpu(),
+        t_elevation=res.t_elevation.cpu(), stress=res.stress.cpu(),
+        climate=to_cpu(res.climate), debug=to_cpu(res.debug))
+
+    names = layers.available_layers(res)
+    assert names == layers.available_layers(cpu)
+    assert len(names) == len(layers.LAYERS), names
+    worst, secs = 0.0, 0.0
+    for name in names:
+        t0 = time.perf_counter()
+        got = layers.layer_color(res, name)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        assert got.device == res.elevation.device
+        err = max_abs_err(got.cpu(), layers.layer_color(cpu, name))
+        assert err <= 1e-6, (name, err)
+        worst = max(worst, err)
+    walls["layers"] = secs
+    print(f"layers: {len(names)} on the card in {secs:.3f} s, each within "
+          f"{worst:.2e} of the CPU (atol 1e-6)", flush=True)
+
+    rng = np.random.default_rng(SEED)
+    picks = []
+    for lat, lon in zip(rng.uniform(-90, 90, 8), rng.uniform(-180, 180, 8)):
+        cell = picking.nearest_region(res, lat, lon)
+        assert cell == picking.nearest_region(cpu, lat, lon), (lat, lon)
+        assert picking.cell_info(res, cell) == picking.cell_info(cpu, cell)
+        picks.append(cell)
+    print(f"picking: 8 lat/lon points, the CPU's cells {picks}", flush=True)
+
+    for label, fn in (("wind arrows", overlays.wind_arrows),
+                      ("current arrows", overlays.ocean_current_arrows)):
+        t0 = time.perf_counter()
+        got = fn(res)
+        walls[label] = time.perf_counter() - t0
+        want = fn(cpu)
+        assert np.isfinite(got["direction"]).all()
+        common = np.intersect1d(got["cells"], want["cells"])
+        print(f"{label}: {len(got['cells'])} arrows in "
+              f"{walls[label]:.3f} s; {len(common)} of the CPU's "
+              f"{len(want['cells'])} cells in common", flush=True)
+        assert len(common) >= 0.999 * len(want["cells"])
+    for sp in (False, True):
+        assert np.array_equal(overlays.plate_border_edges(res, sp),
+                              overlays.plate_border_edges(cpu, sp))
+    assert np.array_equal(overlays.itcz_polyline(res),
+                          overlays.itcz_polyline(cpu))
+
+    g = to_device(res.graph, dev)
+    h, w = EXPORT_HW
+    t0 = time.perf_counter()
+    ids = export.rasterize_cell_ids(g, h, w)
+    torch.cuda.synchronize()
+    walls[f"raster {w}x{h}"] = time.perf_counter() - t0
+    ids_cpu = export.rasterize_cell_ids(to_device(res.graph, "cpu"), h, w)
+    diff = (ids.cpu() != ids_cpu).numpy()
+    pos = res.graph.pos.astype(np.float64)
+    plat = (0.5 - (np.arange(h) + 0.5) / h) * np.pi
+    plon = ((np.arange(w) + 0.5) / w * 2 - 1) * np.pi
+    yy, xx = np.nonzero(diff)
+    pp = np.stack([np.cos(plat[yy]) * np.sin(plon[xx]), np.sin(plat[yy]),
+                   np.cos(plat[yy]) * np.cos(plon[xx])], -1)
+    gap = np.abs(np.einsum("nc,nc->n", pos[ids.cpu().numpy()[diff]], pp)
+                 - np.einsum("nc,nc->n", pos[ids_cpu.numpy()[diff]], pp))
+    assert (gap <= 1e-6).all(), gap.max()
+    t0 = time.perf_counter()
+    imgs = {t: export.export_map(g, res.elevation, t, h, w,
+                                 koppen=res.climate["koppen"], cell_ids=ids)
+            for t in export.EXPORT_TYPES}
+    walls[f"export 6 types {w}x{h}"] = time.perf_counter() - t0
+    assert all(v.shape == (h, w, 3) and np.isfinite(v).all()
+               for v in imgs.values())
+    print(f"export: raster {w}x{h} in {walls[f'raster {w}x{h}']:.3f} s "
+          f"({int(diff.sum())} pixels differ from the CPU's, each a score "
+          f"tie within {gap.max() if gap.size else 0.0:.1e}); six types in "
+          f"{walls[f'export 6 types {w}x{h}']:.3f} s", flush=True)
+
+    big_w = TILED_WIDTH
+    path = os.path.join(tmp, "tiled.png")
+    t0 = time.perf_counter()
+    export.export_map_tiled(res.graph, res.elevation, "heightmap", path,
+                            width=big_w)
+    key = f"tiled heightmap {big_w}x{big_w // 2}"
+    walls[key] = time.perf_counter() - t0
+    tiled = load_png(path)
+    mem = export.export_map(g, res.elevation, "heightmap", big_w // 2, big_w)
+    mem8 = np.clip(mem * 255 + 0.5, 0, 255).astype(np.uint8)
+    match = float((np.abs(tiled.astype(int) - mem8).max(axis=2) <= 2).mean())
+    print(f"{key}: {walls[key]:.3f} s, {os.path.getsize(path)} bytes, "
+          f"{match:.4%} of its pixels match the in-memory export",
+          flush=True)
+    assert match >= 0.97, match
+
+    t0 = time.perf_counter()
+    html = globe.export_globe(res, os.path.join(tmp, "globe"),
+                              layer=["terrain", "biome", "plates"])
+    walls["globe"] = time.perf_counter() - t0
+    manifest = json.load(open(os.path.join(tmp, "globe", "globe.json")))
+    assert manifest["num_cells"] == res.graph.n_cells and os.path.exists(html)
+    print(f"globe: {manifest['vertices']} vertices, "
+          f"{manifest['total_bytes']} bytes in {walls['globe']:.3f} s",
+          flush=True)
+
+    npz, png = os.path.join(tmp, "p.npz"), os.path.join(tmp, "m.png")
+    p = res.params
+    gen = ["--cells", str(p.n_cells), "--plates", str(p.n_plates),
+           "--continents", str(p.num_continents), "--device", str(dev)]
+    for label, argv in (
+            ("cli generate", ["generate", "--seed", str(p.seed), *gen,
+                              "--out", npz]),
+            ("cli export", ["export", "--in", npz, "--type", "biome",
+                            "--width", str(w), "--device", str(dev),
+                            "--out", png])):
+        t0 = time.perf_counter()
+        cli.main(argv)
+        walls[label] = time.perf_counter() - t0
+    assert load_png(png).shape == (h, w, 3)
+    data = np.load(npz)
+    assert np.array_equal(data["elevation"],
+                          res.elevation[:res.graph.n_cells].cpu().numpy())
+    here = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["sweep", "--seeds", "1-3", *gen, "--skip-climate",
+                  "--export-width", str(w)])
+        walls["cli sweep 3 seeds"] = time.perf_counter() - t0
+        for s in (1, 2, 3):
+            assert load_png(f"heightmap_seed{s}.png").shape == (h, w, 3)
+    finally:
+        os.chdir(here)
+    print(f"cli: generate {{:.2f}} s, export {{:.2f}} s, sweep of 3 seeds "
+          f"with {w}-px exports {{:.2f}} s".format(
+              walls["cli generate"], walls["cli export"],
+              walls["cli sweep 3 seeds"]), flush=True)
+    return walls
+
+
+def phase(t_run: float, n) -> None:
+    print(f"[phase {n} at {time.perf_counter() - t_run:.1f} s]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1285,7 +1774,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     # 1. build
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     report = sweep_cuda.build()
     sweep_cuda._kernel("accumulate")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1305,7 +1794,12 @@ def main() -> int:
     print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
     records = kernel_checks(g, to_device(graph, "cpu"), dev)
+    # the staged launches past 204K: synthetic meshes whose plans the
+    # window cap binds, each launch against its plain loop on CPU copies
+    phase(t_run, "2, plans past 204K")
+    plan_records = plan_checks(dev, g.band_off, PLAN_SIZES)
 
+    phase(t_run, 3)
     # 3. the main path: the default generate (204K, climate on), cold
     # (recording the arguments of its components and pointer-doubling
     # loops for the last two phase-2 rows) then warm; then one warm
@@ -1383,11 +1877,13 @@ def main() -> int:
     check_planet(res_t, terrain.n_plates)
     report_profile(profile_generate(dev, terrain), warm_t)
 
+    phase(t_run, 4)
     # 4. pinned distribution at 4K, climate on
     small, _ = run_generate(dev, GenerationParams(
         seed=123, n_cells=4000, n_plates=12, num_continents=2))
     snapshot_check(small)
 
+    phase(t_run, 5)
     # 5. the glacial generate (204K, glacial 0.2, climate on): a first run
     # records the arguments of every float-sum site (thermal, smoothing,
     # dep_sum, downstream_accumulate, the wind bins, wsum, the ice flow and
@@ -1418,8 +1914,19 @@ def main() -> int:
           "generate", flush=True)
     report_profile(profile_generate(dev, glacial), warm_g)
 
+    phase(t_run, 6)
     # 6. the retained-state commands on the default planet
     walls = command_checks(dev, params, params.n_plates)
+
+    phase(t_run, 7)
+    # 7. sizes past 204K: 1M with climate, 2.56M terrain-only
+    sizes = size_checks(dev)
+
+    phase(t_run, 8)
+    # 8. api/, the CLI and the batch sweep on the default planet
+    with tempfile.TemporaryDirectory() as tmp:
+        api_walls = api_checks(dev, res, tmp)
+    phase(t_run, "end")
 
     # the row's times and bound are those of its phase-2 shape (configs /
     # shapes list the others); path_device_ms is the mean device time per
@@ -1441,6 +1948,9 @@ def main() -> int:
         for k, r in records.items()]
     print(json.dumps({"commands_wall_s": walls,
                       "glacial_generate_wall_s": warm_g}))
+    print(json.dumps({"sizes": sizes}, default=str))
+    print(json.dumps({"plans_past_204K": plan_records}))
+    print(json.dumps({"api_wall_s": api_walls}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

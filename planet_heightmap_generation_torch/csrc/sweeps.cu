@@ -184,7 +184,7 @@ struct Geo {
   int ng;  // item groups: fields (BFS), 1 (ε-fill, smoothing), layers (stress)
   int nw;  // staged windows an item holds
   int T, H, m;
-  int tstep;  // T is a multiple of it
+  int tstep;  // T rounds up to a multiple of it, unless the window cap binds
   const uint32_t* bits;
   const int* rptr;
   const int* rnbr;
@@ -214,6 +214,7 @@ struct BfsRule {
     return fminf(c, best + cost_i);
   }
   __device__ float restage(float v, int) const { return v; }
+  __device__ bool hidden(int) const { return false; }
 };
 
 // The components loop's min-label sweep: out = min(cur, min_{nbr j} cur[j])
@@ -230,6 +231,7 @@ struct LabelRule {
     return fminf(c, best);
   }
   __device__ float restage(float v, int) const { return v; }
+  __device__ bool hidden(int) const { return false; }
 };
 
 struct FloodRule {
@@ -249,12 +251,13 @@ struct FloodRule {
     v.w = m.w > 0.0f ? big : v.w;
     return v;
   }
-  // inland cells are frozen and show `big` in the window: their own value
-  // is the input's
+  // inland cells show `big` in the window (hidden): their own value is
+  // the round's input
   __device__ float own(float w, const float* sf, int i) const {
     const float v = __ldcg(sf + i);
     return __ldg(inland + i) > 0.0f ? v : w;
   }
+  __device__ bool hidden(int i) const { return __ldg(inland + i) > 0.0f; }
   __device__ float aux(size_t, int i) const { return __ldg(baked + i); }
   __device__ float update(float c, float best, float baked_i) const {
     return fminf(c, fmaxf(baked_i, best + eps));
@@ -480,7 +483,10 @@ __device__ bool relax_item(const R& r, const Geo& g, const float* src,
         }
       }
       const float v = r.update(c, best, r.aux((size_t)f * g.np + i, i));
-      if (inner == 1) {
+      if (inner == 1 || r.hidden(i)) {
+        // a hidden cell (the ε-fill's inland cells: the window shows `big`)
+        // updates as the plain sweep does, from the round's input; best
+        // only falls within a round, so its last v is its least
         df[i] = v;
       } else if (v != c) {
         win[p] = r.restage(v, i);
@@ -494,7 +500,7 @@ __device__ bool relax_item(const R& r, const Geo& g, const float* src,
   }
   if (inner > 1) {
     for (int i = c0 + threadIdx.x; i < sp.c1; i += step)
-      df[i] = r.own(win[sp.base + (i - c0)], sf, i);
+      if (!r.hidden(i)) df[i] = win[sp.base + (i - c0)];
   }
   __syncthreads();  // the window is restaged by the next item
   return changed;
@@ -1234,26 +1240,40 @@ bool bad_shape(int np, int nf, int n_offs) {
 }
 
 // A staged kernel's launch plan: window half-width H = max |off|, chunk
-// size T, the windows' bytes of dynamic shared memory and the grid. Plans
-// are cached per kernel, device, NP, item groups, windows per item and H
-// (everything that sets T and the grid), so the SM-count, shared-memory-
-// attribute and occupancy calls run once per shape, not on each launch.
+// size T (t_free: T before the window cap), the windows' bytes of dynamic
+// shared memory and the grid. Plans are cached per kernel, device, NP,
+// item groups, windows per item and H (everything that sets T and the
+// grid), so the SM-count, shared-memory-attribute and occupancy calls run
+// once per shape, not on each launch; relax_plans() reads them back.
 struct Plan {
   const void* kern;
   int dev, np, ng, nw, H;
   int T, grid;
   long smem;
+  int t_free;
 };
 constexpr int kPlanSlots = 32;
+constexpr int kPlanFields = 9;  // the ints relax_plans() writes a plan
 Plan g_plans[kPlanSlots];
 int g_plan_count = 0;
 std::mutex g_plan_mu;
 
-// T: kItemsPerSm work items per SM, a multiple of g.tstep (the block size;
-// 4 for warp and the rain shadow, whose items then fill every SM), no
-// larger than the mesh or than what shared memory holds: nw windows of
-// T + 2H floats plus the float4 alignment slack. Grid: the co-resident
-// blocks of the cooperative launch, no more than there are items.
+// T: kItemsPerSm work items per SM, rounded up to a multiple of g.tstep
+// (the block size; 4 for warp and the rain shadow, whose items then fill
+// every SM), no larger than the mesh, then capped to what shared memory
+// holds: nw windows of T + 2H floats plus the float4 alignment slack. A
+// capped T is any integer >= 1, a multiple of neither tstep nor 4: the
+// item loops run to min(c0 + T, NP), span_of aligns each window by its
+// own lead, and the remainder rows and the change flag are per cell, so
+// every launch holds at any T (chip_smoke.py checks capped plans against
+// the plain loops). With H ~ 3.6 sqrt(N) the cap first binds at ~1M cells
+// for four smoothing fields (nw = 4), ~1.3-1.6M for the 4- and 5-field
+// BFS, warp, stress and three fields, ~2.3M for two; the launch is
+// refused (T < 1: 2H + 11 >= kMaxWindowFloats / nw) from H = 7227
+// (nw = 4, ~4.1M cells), 9637 (nw = 3, warp, ~7.3M), 14459 (nw = 2,
+// stress or two fields, ~16M) and 28923 (nw = 1, ~66M). Grid: the
+// co-resident blocks of the cooperative launch, no more than there are
+// items.
 int get_plan(const void* kern, const Geo& g, Plan* out) {
   int dev = 0;
   int e = (int)cudaGetDevice(&dev);
@@ -1278,10 +1298,11 @@ int get_plan(const void* kern, const Geo& g, Plan* out) {
   t = (t + step - 1) / step * step;
   t = std::max(t, step);
   t = std::min(t, ((long)g.np + step - 1) / step * step);
+  const long t_free = t;
   t = std::min(t, kMaxWindowFloats / g.nw - 2L * h - 11);
   if (t < 1) return (int)cudaErrorInvalidValue;
   Plan p{kern, dev, g.np, g.ng, g.nw, h, (int)t, 0,
-         g.nw * window_floats(t, h) * (long)sizeof(float)};
+         g.nw * window_floats(t, h) * (long)sizeof(float), (int)t_free};
   // the most any plan takes, so that no plan's limit shrinks another's
   e = (int)cudaFuncSetAttribute(kern,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2079,6 +2100,38 @@ int accumulate(const void* s, const void* p, int p64, int k, int n_out,
     case 3: return launch_accumulate(accumulate_relax_kernel<3>, a, st);
     default: return launch_accumulate(accumulate_relax_kernel<4>, a, st);
   }
+}
+
+// The cached launch plans (the last kPlanSlots), kPlanFields ints each:
+// kernel (ops/sweep_cuda.py PLAN_KERNELS: 0 bfs, 1 flood, 2 stress,
+// 3 warp, 4 smooth, 5 shadow, 6 components), NP, item groups, windows per
+// item, H, T, T before the window cap, grid, dynamic shared bytes. Writes
+// at most max_plans rows; returns the count. For measurement only.
+int relax_plans(int* out, int max_plans) {
+  const void* kerns[] = {(const void*)bfs_relax_kernel,
+                         (const void*)flood_relax_kernel,
+                         (const void*)stress_relax_kernel,
+                         (const void*)warp_relax_kernel,
+                         (const void*)smooth_relax_kernel<1>,
+                         (const void*)smooth_relax_kernel<2>,
+                         (const void*)smooth_relax_kernel<3>,
+                         (const void*)smooth_relax_kernel<4>,
+                         (const void*)shadow_relax_kernel,
+                         (const void*)components_relax_kernel};
+  const int kinds[] = {0, 1, 2, 3, 4, 4, 4, 4, 5, 6};
+  constexpr int n_kerns = sizeof kinds / sizeof kinds[0];
+  std::lock_guard<std::mutex> lock(g_plan_mu);
+  const int n = std::min(std::min(g_plan_count, kPlanSlots), max_plans);
+  for (int k = 0; k < n; ++k) {
+    const Plan& p = g_plans[k];
+    int kind = -1;
+    for (int i = 0; i < n_kerns; ++i)
+      if (kerns[i] == p.kern) kind = kinds[i];
+    const int row[kPlanFields] = {kind, p.np,     p.ng,   p.nw,      p.H,
+                                  p.T,  p.t_free, p.grid, (int)p.smem};
+    std::copy(row, row + kPlanFields, out + kPlanFields * k);
+  }
+  return n;
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Carry host state across from numpy into the port's tensors.
+"""Carry host state across from numpy into the port's tensors, and
+tensors back out to numpy.
 
 The generator has no learned weights; its state is the host prologue —
 mesh, plates, super plates, hotspot domes, noise tables and the
@@ -23,6 +24,13 @@ from .tectonics.coarse import projection_from_numpy
 
 SPHERE_FIELDS = ("n_cells", "n_padded", "pos", "nbr_idx", "nbr_mask",
                  "nbr_dist", "deg", "valid", "triangles", "pole_id")
+
+
+def to_numpy(x, dtype=None) -> np.ndarray:
+    """A tensor on any device, or an array, as a host numpy array (of
+    ``dtype`` where given)."""
+    a = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return a if dtype is None else a.astype(dtype, copy=False)
 
 
 def state_from_numpy(mesh: Mapping[str, np.ndarray],

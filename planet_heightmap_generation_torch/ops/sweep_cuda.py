@@ -114,6 +114,8 @@ _ARGTYPES = {
     # pbuf, cnt, offl, cur, list, vbuf, bsum, ctl, total, stream
     "accumulate": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P, _P, _P],
+    # out [max_plans, PLAN_FIELDS] int32, max_plans
+    "relax_plans": [_P, _I],
 }
 
 
@@ -152,6 +154,38 @@ def sweeps_run() -> dict:
         for k, slot in _RELAX_SLOT.items():
             out[k] += int(t[slot])
     return out
+
+
+# the staged kernels as csrc relax_plans() numbers them, and the fields of
+# one plan row (csrc kPlanSlots plans at most)
+PLAN_KERNELS = ("bfs_relax", "flood", "stress", "warp", "smooth", "shadow",
+                "components")
+PLAN_FIELDS = ("kernel", "np", "groups", "windows", "H", "T", "T_free",
+               "grid", "smem_bytes")
+PLAN_SLOTS = 32
+
+
+def decode_plans(rows) -> list:
+    """Plan dicts from relax_plans() rows: the kernel's name, NP, item
+    groups, windows per item, H, T, T before the window cap (``T_free``),
+    grid, dynamic shared bytes, and ``capped`` (the cap bound T)."""
+    out = []
+    for row in rows:
+        plan = dict(zip(PLAN_FIELDS, (int(v) for v in row)))
+        plan["kernel"] = PLAN_KERNELS[plan["kernel"]]
+        plan["capped"] = plan["T"] < plan["T_free"]
+        out.append(plan)
+    return out
+
+
+def relax_plans() -> list:
+    """The staged kernels' cached launch plans (the last 32 shapes
+    launched), read back from the library: for measurement, never on the
+    path."""
+    buf = (ctypes.c_int * (PLAN_SLOTS * len(PLAN_FIELDS)))()
+    n = _kernel("relax_plans")(ctypes.cast(buf, ctypes.c_void_p), PLAN_SLOTS)
+    k = len(PLAN_FIELDS)
+    return decode_plans([buf[i * k:(i + 1) * k] for i in range(n)])
 
 
 def _sweep_total(name: str, device):

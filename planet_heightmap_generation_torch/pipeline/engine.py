@@ -82,7 +82,9 @@ class PlanetResult:
     error: Optional[Dict] = None
 
     def _elev_np(self) -> np.ndarray:
-        return self.elevation[: self.graph.n_cells].cpu().numpy()
+        e = self.elevation[: self.graph.n_cells]
+        # a lean batch result (parallel/batch.py) keeps numpy elevation
+        return e.cpu().numpy() if torch.is_tensor(e) else np.asarray(e)
 
     @property
     def land_fraction(self) -> float:

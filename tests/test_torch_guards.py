@@ -58,6 +58,18 @@ def test_sources_name_no_jax():
             assert word not in text, f"{path}: {word}"
 
 
+def test_relax_plans_decode():
+    """The plan rows the library's relax_plans() writes, as dicts: the
+    kernel's name, and ``capped`` where the window cap bound T."""
+    rows = [[4, 2561024, 1, 4, 5760, 2933, 20480, 132, 231424],
+            [0, 1024, 1, 1, 40, 1024, 1024, 1, 4512]]
+    got = sweep_cuda.decode_plans(rows)
+    assert [p["kernel"] for p in got] == ["smooth", "bfs_relax"]
+    assert [p["capped"] for p in got] == [True, False]
+    assert got[0]["T"] == 2933 and got[0]["T_free"] == 20480
+    assert set(got[1]) == set(sweep_cuda.PLAN_FIELDS) | {"capped"}
+
+
 def test_engine_without_cuda_raises(monkeypatch):
     from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
 

@@ -12,7 +12,9 @@ variables live once per block. The launch plan sees ``EMU_NSM`` SMs
 accumulate launch (pointer-doubling loops: forests, int32 counts, F=3, a
 star row past the ranking limit, a fixed-round ice flow with -0.0 values)
 and its one-round form (few targets, long rows), and the components
-launch on a 2000-cell mesh (every cell, a subset, a sparse subset). It
+launch on a 2000-cell mesh (every cell, a subset, a sparse subset), and
+every staged launch at chip_smoke.py's synthetic shapes past 204K, whose
+chunks the window cap binds (``plan_checks``). It
 checks indexing, barriers, shuffles and loop control before a run on the
 card; it says nothing about speed. Exits 1 on any difference.
 """
@@ -161,10 +163,33 @@ def components_checks() -> bool:
     return ok
 
 
+def plan_checks() -> bool:
+    """The staged launches at chip_smoke.py's synthetic shapes past 204K
+    (the 204K band set with a band pair at ±5760, about the 2.56M mesh's
+    half-width, on 8,192 cells an SM, and at ±7200, ~4M, on 16,384 an
+    SM): their chunks are capped at these half-widths, as on the card at
+    2.56M cells, and are no multiple of 4."""
+    import chip_smoke
+    from planet_heightmap_generation_torch.mesh.build import build_sphere
+    from planet_heightmap_generation_torch.ops.rng import ParkMiller
+
+    band_off = build_sphere(204000, 0.75,
+                            rng=ParkMiller(42)).banded_packed[0]
+    try:
+        nsm = int(os.environ.get("EMU_NSM", "2"))
+        chip_smoke.plan_checks(torch.device("cpu"), band_off,
+                               [(5760, 8192 * nsm), (7200, 16384 * nsm)],
+                               plain=plain)
+    except AssertionError as e:
+        print(e, flush=True)
+        return False
+    return True
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         use_library(build(d))
-        ok = accumulate_checks() & components_checks()
+        ok = accumulate_checks() & components_checks() & plan_checks()
     print("all bit-identical" if ok else "DIFFERENCES FOUND")
     return 0 if ok else 1
 
