@@ -42,25 +42,34 @@ Phases (any failure exits non-zero with its traceback):
    runs with no host sync. Then every staged launch past 204K: synthetic
    meshes (the 204K band set with its widest pair replaced by ±5760, about
    the 2.56M mesh's half-width, on the 2.56M mesh's 2,561,024 cells, and by
-   ±7200, ~4M cells, on 1,048,576 cells; bits and remainder edges from
-   numpy seeds) whose plans the shared-memory window cap binds, so that
-   chunks are no multiple of 4: smoothing F = 1..4 with and without gate
-   and update mask, warp, stress with 2 layers, the BFS at F=1 and F=4,
-   and the ε-fill, rain shadow and components at F=1, each equal to its
-   plain loop on CPU copies bit for bit, in sweeps too (or refused, only
-   where its windows no longer fit), timed, with its plan (T, H, windows,
-   grid, shared bytes, capped or not) read back from the library;
+   ±7200, ~4M cells, on 1,048,576 cells, and the smoothing launches
+   alone at ±7300, where four smoothing windows no longer fit one launch;
+   bits and remainder edges from numpy seeds) whose plans the
+   shared-memory window cap binds, so that chunks are no multiple of 4:
+   smoothing F = 1..4 with and without gate and update mask (launched in
+   the field groups of ``sweep_cuda.smooth_groups``: 2 + 2 at ±5760 and
+   ±7200, one field a launch at ±7300), warp, stress with 2 layers, the
+   BFS at F=1 and F=4, and the ε-fill, rain shadow and components at F=1,
+   each equal to its plain loop on CPU copies bit for bit, in sweeps too
+   (or refused, only where its windows no longer fit: for smoothing, only
+   where one field's window does not), timed, with its plan (T, H,
+   windows, grid, shared bytes, capped or not) read back from the
+   library;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the launches'
    sweeps, read from the device) taken around the warm run, which must
    hold one components launch per components loop and one accumulate
    launch per pointer-doubling loop or one-round sum, and no one-sweep BFS;
-   then one more warm run under ``torch.profiler`` for the device's busy
-   time and each kernel's device time per launch, and one under CUDA sync
-   debug mode that counts the generate's host syncs; then one warm
-   terrain-only run (``skip_climate=True``), timed and profiled the same
-   way, so the terrain numbers stay comparable;
+   the warm runs use the production engine (``timing`` off: one device
+   sync, at the end); one more warm run in timing mode (``timing=True``,
+   a sync after every stage) prints the stage table and must give the
+   same elevation bit for bit; then one more warm run under
+   ``torch.profiler`` for the device's busy time and each kernel's device
+   time per launch, and one under CUDA sync debug mode that counts the
+   generate's host syncs; then one warm terrain-only run
+   (``skip_climate=True``), timed, tabled and profiled the same way, so
+   the terrain numbers stay comparable;
 4. check the 4K planet (seed 123) with climate against the reference's
    pinned c4k_s123 snapshot: terrain distribution and Köppen shares;
 5. the glacial generate (``glacial_erosion=0.2``, 204K, climate on): a
@@ -85,11 +94,12 @@ Phases (any failure exits non-zero with its traceback):
 7. sizes past 204K: ``GenerationParams(seed=42, n_cells=1_000_000,
    skip_climate=False)`` (the JAX bench config 4) and
    ``GenerationParams(seed=42, n_cells=2_560_000)`` (the detail ceiling,
-   terrain-only by the 300K rule), each cold, then warm (stage table,
-   launches and sweeps of every kernel, peak device memory, and one line
-   per staged launch with its plan, read back from the library), then
-   warm under the profiler (device busy time, events); each passes the
-   gates of the default generate, and at 1M the climate's;
+   terrain-only by the 300K rule), each cold, then warm (launches and
+   sweeps of every kernel, peak device memory, and one line per staged
+   launch with its plan, read back from the library), then warm in timing
+   mode (stage table), then warm under the profiler (device busy time,
+   events); each passes the gates of the default generate, and at 1M the
+   climate's;
 8. the product surfaces on the default planet of phase 3: every
    ``available_layers`` colour on the card equal to the same call on CPU
    copies (atol 1e-6); ``nearest_region`` and ``cell_info`` at 8 points,
@@ -100,11 +110,21 @@ Phases (any failure exits non-zero with its traceback):
    heightmap at 8192×4096 (timed; >= 97 % of its pixels match the
    in-memory export); ``export_globe``; ``cli.main`` for ``generate`` →
    ``export`` (the npz's elevation the generate's, bit for bit) and a
-   ``sweep`` of three terrain-only seeds with 2048-px exports.
+   ``sweep`` of three terrain-only seeds with 2048-px exports;
+9. the JAX package's bench config 5 (bench.py:235-270): the 4M-cell
+   terrain-only generate (seed 42) cold; ``prefetch_mesh`` of seed 44;
+   seed 43 warm (wall, cells/s, peak device memory, launches, plans;
+   timing mode for the stage table; profiled); ``sweep_heightmaps`` of
+   seeds 44-45 (lean, an 8192×4096 heightmap export each), the first
+   adopting the prefetched mesh and host products, with each seed's
+   generate wall; then one 4.5M-cell generate with climate, past the size
+   where four-field smoothing stopped fitting one launch, which must
+   launch it in field groups and pass the climate gates. Every run passes
+   the gates of the default generate.
 
 Before the last line come JSON objects of the commands' wall times, the
-sizes past 204K, the plans past 204K and the product surfaces' wall
-times, a JSON object with one entry per kernel and the card's name and
+sizes past 204K, the 4M sweep, the plans past 204K and the product
+surfaces' wall times, a JSON object with one entry per kernel and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits with code 1 before printing any result.
 """
@@ -127,7 +147,6 @@ SEED = 42
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 # csrc kMaxWindowFloats: the dynamic shared memory a staged block may take
-KMAX_WINDOW_FLOATS = (232448 - 1024) // 4
 SOURCE = "planet_heightmap_generation_torch/csrc/sweeps.cu"
 TPU_KERNELS = "planet_heightmap_generation_tpu/ops/sweep_pallas.py"
 REPLACES = {"bfs_relax": f"{TPU_KERNELS}:171",
@@ -691,28 +710,38 @@ PLAN_WINDOWS = {"bfs_relax": 1, "flood": 1, "stress": 2, "warp": 3,
 def window_fits(nw: int, half_width: int) -> bool:
     """Whether csrc get_plan finds a chunk T >= 1 for ``nw`` windows of
     half-width ``half_width`` (kMaxWindowFloats / nw - 2H - 11 >= 1)."""
-    return KMAX_WINDOW_FLOATS // nw - 2 * half_width - 11 >= 1
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    return sweep_cuda.capped_chunk(nw, half_width) >= 1
 
 
 def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
                 plain=None):
     """Every staged launch (:func:`plan_configs`) on a synthetic mesh of
-    NP cells at band half-width H, for each (H, NP) of ``sizes``, on
+    NP cells at band half-width H, for each (H, NP[, kernels]) of
+    ``sizes`` (only the named kernels where a third entry is given), on
     ``dev`` and, as its plain loop, on CPU copies (``plain(fn, *args)``,
     default ``fn(*args)``): the two must agree bit for bit, in sweeps too;
     a launch whose windows no longer fit shared memory
-    (:func:`window_fits`) must raise instead, and only then. Each launch's
-    plan is read back from the library, and on the card the launch is
-    timed. Returns one record per launch."""
+    (:func:`window_fits`) must raise instead, and only then. Smoothing
+    launches its fields in the groups of ``sweep_cuda.smooth_groups``, so
+    only a one-field group can be refused. Each launch's plan is read back
+    from the library, and on the card the launch is timed. Returns one
+    record per launch."""
     from planet_heightmap_generation_torch.ops import sweep_cuda as sc
 
     plain = plain or (lambda fn, *a: fn(*a))
     records = []
-    for hw, npad in sizes:
+    for hw, npad, *only in sizes:
         mesh = synthetic_mesh(band_off, hw, npad, seed)
         for label, kernel, fn, args, nbytes in plan_configs(mesh, npad,
                                                             seed + hw):
-            nw = PLAN_WINDOWS.get(kernel) or args[0].shape[0]
+            if only and kernel not in only[0]:
+                continue
+            split = (sc.smooth_groups(args[0].shape[0], hw)
+                     if kernel == "smooth" else None)
+            # windows per launch (smoothing: its largest group's fields)
+            nw = PLAN_WINDOWS.get(kernel) or max(b - a for a, b in split)
             groups = args[0].shape[0] if kernel in ("bfs_relax",
                                                     "stress") else 1
             ref = plain(fn, *args)
@@ -754,6 +783,10 @@ def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
             text = (f"T {rec['T']} (before the cap {rec['T_free']}), {nw} "
                     f"windows, grid {rec['grid']}, {rec['smem_bytes']} B "
                     f"shared, {'capped' if rec['capped'] else 'not capped'}")
+            if split is not None:
+                rec["field_groups"] = split
+                text = (f"{len(split)} launch(es), field groups {split}; "
+                        + text)
             if dev.type == "cuda":
                 ms = time_ms(lambda: fn(*on_dev), reps, warm=1)
                 rec.update(ms=ms, us_per_sweep=ms * 1e3 / sweeps,
@@ -1414,14 +1447,33 @@ def count_host_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def run_generate(dev, params):
+def run_generate(dev, params, timing: bool = False):
+    """(result, wall s) of one generate on a new engine: the production
+    default (one device sync, at the end), or ``timing=True`` (a sync
+    after every stage: the stage table's times are the device's)."""
     from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
 
-    engine = PlanetEngine(device=dev)
+    engine = PlanetEngine(device=dev, timing=timing)
     t0 = time.perf_counter()
     res = engine.generate(params)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
+
+
+def stage_table(dev, params, label: str, ref=None):
+    """A warm ``timing=True`` generate: print its stage table and wall;
+    its elevation must equal ``ref``'s (a production-mode result) bit for
+    bit. Returns (stages, wall s)."""
+    res, wall = run_generate(dev, params, timing=True)
+    print(res.timing.table())
+    print(f"generate {label} warm with timing=True (a device sync after "
+          f"each of its {res.timing.syncs} synced stages): {wall:.3f} s",
+          flush=True)
+    if ref is not None:
+        assert torch.equal(res.elevation, ref.elevation), label
+        print(f"  elevation equal to the production-mode run's, bit for "
+              f"bit", flush=True)
+    return res.timing.stages, wall
 
 
 def check_planet(res, n_plates: int):
@@ -1505,12 +1557,16 @@ def snapshot_check(res):
 # ceiling (config.py:17, 2.56M cells; the 300K rule skips climate)
 BIG_SIZES = (("1M with climate", dict(n_cells=1_000_000, skip_climate=False)),
              ("2.56M terrain-only", dict(n_cells=2_560_000)))
-# the synthetic plan shapes of phase 2: (band half-width H, NP). ±5760 is
-# about the 2.56M mesh's half-width (its largest |offset| is 5778), at its
-# padded size, so its plans are within a few cells of the 2.56M
-# generate's; ±7200 (~4M cells, near where four windows stop fitting) on
-# 1M cells, where the warp and stress plans cap too
-PLAN_SIZES = ((5760, 2_561_024), (7200, 1_048_576))
+# the synthetic plan shapes of phase 2: (band half-width H, NP[, the only
+# kernels checked]). ±5760 is about the 2.56M mesh's half-width (its
+# largest |offset| is 5778), at its padded size, so its plans are within a
+# few cells of the 2.56M generate's; ±7200 (~4M cells, where four-field
+# smoothing took T 53 in one launch; now 2 + 2 fields) on 1M cells, where
+# the warp and stress plans cap too; ±7300 (~4.1M), where four smoothing
+# windows no longer fit one launch (refused before field groups; now one
+# field a launch), smoothing only
+PLAN_SIZES = ((5760, 2_561_024), (7200, 1_048_576),
+              (7300, 1_048_576, ("smooth",)))
 # phase 8: the in-memory export's (height, width), the tiled export's width
 EXPORT_HW = (1024, 2048)
 TILED_WIDTH = 8192
@@ -1533,9 +1589,9 @@ def plan_lines(npad: int):
 
 def size_checks(dev):
     """The 1M-with-climate and 2.56M terrain-only generates, each cold
-    then warm (counted, timed, its plans read back), then once warm under
-    the profiler, held to PERF.md §2's gates. Returns one record per
-    size."""
+    then warm (counted, timed, its plans read back), then warm in timing
+    mode (the stage table; the same elevation), then once warm under the
+    profiler, held to PERF.md §2's gates. Returns one record per size."""
     from planet_heightmap_generation_torch.config import GenerationParams
     from planet_heightmap_generation_torch.ops import sweep_cuda
 
@@ -1549,7 +1605,6 @@ def size_checks(dev):
         launches = dict(sweep_cuda.LAUNCHES)
         swept = sweep_cuda.sweeps_run()
         peak = torch.cuda.max_memory_allocated()
-        print(res.timing.table())
         n, npad = res.graph.n_cells, res.graph.n_padded
         print(f"generate {label} ({n} cells, NP {npad}, "
               f"{len(res.graph.banded_packed[0])} bands, H "
@@ -1568,23 +1623,176 @@ def size_checks(dev):
                 if climate or k not in ("smooth", "shadow")]
         missing = [k for k in path if launches[k] == 0]
         assert not missing, f"{label}: kernels not launched: {missing}"
-        print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
-              + " | sweeps " + " ".join(f"{k}={v}" for k, v in swept.items()),
-              flush=True)
+        print(kernel_counts(launches, swept), flush=True)
         plans = plan_lines(npad)
         staged = {p["kernel"] for p in plans}
         assert staged >= {"bfs_relax", "stress", "warp", "flood",
                           "components"} | ({"smooth", "shadow"} if climate
                                            else set()), staged
+        stages, timed_s = stage_table(dev, params, label, ref=res)
+        del res
         prof = profile_generate(dev, params)
         report_profile(prof, warm_s)
         out[label] = dict(
             n_cells=n, np=npad, cold_s=cold_s, warm_s=warm_s,
             peak_bytes=peak, launches=launches, sweeps=swept,
-            stages=res.timing.stages, plans=plans,
+            stages=stages, timing_mode_s=timed_s, plans=plans,
             busy_ms=None if prof is None else prof["busy_ms"],
             events=None if prof is None else prof["n_events"],
             device_ms=None if prof is None else prof["device_ms"])
+    return out
+
+
+# ── phase 9: bench config 5, the 4M-cell seed sweep ──────────────────
+
+SWEEP_CELLS = 4_000_000
+# the first seed of the sweep after the warm one: prefetched
+SWEEP_SEEDS = (44, 45)
+# each sweep seed's heightmap export (bench config 5: 8K)
+SWEEP_WIDTH = 8192
+# past where four smoothing windows stopped fitting one launch (H 7,227)
+CLIMATE_CELLS = 4_500_000
+
+
+def kernel_counts(launches, swept) -> str:
+    return ("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
+            + " | sweeps " + " ".join(f"{k}={v}" for k, v in swept.items()))
+
+
+def mesh_line(label: str, graph) -> str:
+    off = graph.banded_packed[0]
+    return (f"{label}: {graph.n_cells} cells, NP {graph.n_padded}, "
+            f"{len(off)} bands, H {max(abs(o) for o in off)}")
+
+
+def sweep_checks(dev):
+    """The JAX package's bench config 5 (bench.py:235-270) on the card:
+    ``GenerationParams(seed=42, n_cells=4_000_000, skip_climate=True)``
+    cold; ``prefetch_mesh`` of seed 44; one warm seed (43) timed, counted
+    and profiled, with its plans and peak device memory, then in timing
+    mode for the stage table; ``sweep_heightmaps`` of seeds 44-45 (lean,
+    an 8192×4096 heightmap export each), the first adopting the prefetched
+    host products, with each seed's wall; and one 4.5M generate with
+    climate, whose four-field smoothing no single launch holds. Every
+    run passes the gates of the default generate. Returns a record."""
+    from planet_heightmap_generation_torch.config import GenerationParams
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+    from planet_heightmap_generation_torch.parallel import batch
+    from planet_heightmap_generation_torch.pipeline import engine as eng
+
+    params = GenerationParams(seed=SEED, n_cells=SWEEP_CELLS,
+                              skip_climate=True)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    res, cold_s = run_generate(dev, params)
+    print(mesh_line("4M sweep mesh", res.graph), flush=True)
+    diag, plates = check_planet(res, params.n_plates)
+    print(f"generate 4M seed {SEED} cold: {cold_s:.2f} s; diagnostics "
+          f"{diag}, plates {plates}", flush=True)
+    del res
+    eng.prefetch_mesh(params.replace(seed=SWEEP_SEEDS[0]))
+    warm = params.replace(seed=SEED + 1)
+    sweep_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res, warm_s = run_generate(dev, warm)
+    launches = dict(sweep_cuda.LAUNCHES)
+    swept = sweep_cuda.sweeps_run()
+    peak = torch.cuda.max_memory_allocated()
+    diag, plates = check_planet(res, params.n_plates)
+    assert res.climate is None and res.error is None
+    npad = res.graph.n_padded
+    print(f"generate 4M seed {warm.seed} warm (the mesh prefetch of seed "
+          f"{SWEEP_SEEDS[0]} running beside it): {warm_s:.3f} s, "
+          f"{SWEEP_CELLS / warm_s:.0f} cells/s, peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; diagnostics {diag}, plates {plates}",
+          flush=True)
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in ("smooth", "shadow")]
+    assert not missing, f"4M: kernels not launched: {missing}"
+    print(kernel_counts(launches, swept), flush=True)
+    plans = plan_lines(npad)
+    stages, timed_s = stage_table(dev, warm, "4M seed 43", ref=res)
+    del res
+    prof = profile_generate(dev, warm)
+    report_profile(prof, warm_s)
+    out["warm"] = dict(
+        seed=warm.seed, cold_s=cold_s, warm_s=warm_s,
+        cells_per_s=SWEEP_CELLS / warm_s, peak_bytes=peak,
+        launches=launches, sweeps=swept, plans=plans, stages=stages,
+        timing_mode_s=timed_s, diagnostics=diag, plates=plates,
+        busy_ms=None if prof is None else prof["busy_ms"],
+        events=None if prof is None else prof["n_events"])
+
+    # the sweep: plate counts taken before each result is made lean
+    plates_of = {}
+    lean = batch._lean
+
+    def counted_lean(r):
+        n = r.graph.n_cells
+        plates_of[r.params.seed] = len(torch.unique(r.r_plate[:n]))
+        return lean(r)
+
+    batch._lean = counted_lean
+    seeds = []
+    t0 = time.perf_counter()
+    try:
+        for s, r, img in batch.sweep_heightmaps(params, SWEEP_SEEDS,
+                                                width=SWEEP_WIDTH,
+                                                devices=[dev]):
+            adopted = "Coarse plates" not in dict(r.timing.stages)
+            d = r.diagnostics()
+            assert d["nan_count"] == 0 and 0.15 < d["land_fraction"] < 0.5, d
+            assert plates_of[s] == params.n_plates, plates_of
+            assert img.shape[:2] == (SWEEP_WIDTH // 2, SWEEP_WIDTH), img.shape
+            seeds.append(dict(seed=s, wall_s=r.timing.total_ms / 1e3,
+                              prefetched=adopted, diagnostics=d,
+                              plates=plates_of[s]))
+            print(f"sweep seed {s}: generate {r.timing.total_ms / 1e3:.3f} "
+                  f"s ({'with' if adopted else 'without'} the prefetched "
+                  f"mesh and host products), heightmap {img.shape}, "
+                  f"diagnostics {d}, plates {plates_of[s]}", flush=True)
+    finally:
+        batch._lean = lean
+    sweep_s = time.perf_counter() - t0
+    assert [x["prefetched"] for x in seeds] == [True, False], seeds
+    assert not eng._MESH_PREFETCH
+    print(f"sweep of seeds {SWEEP_SEEDS} with exports: {sweep_s:.2f} s; "
+          f"per-seed generate with prefetch {seeds[0]['wall_s']:.3f} s, "
+          f"without {seeds[1]['wall_s']:.3f} s", flush=True)
+    out["sweep"] = dict(seeds=seeds, wall_s=sweep_s)
+
+    # past the old refusal: 4.5M with climate, smoothing in field groups
+    big = GenerationParams(seed=SEED, n_cells=CLIMATE_CELLS,
+                           skip_climate=False)
+    sweep_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = run_generate(dev, big)
+    launches = dict(sweep_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    assert res.error is None, res.error
+    diag, plates = check_planet(res, big.n_plates)
+    h = max(abs(o) for o in res.graph.banded_packed[0])
+    print(mesh_line("4.5M mesh", res.graph) + f": generate with climate "
+          f"{wall:.3f} s (first run at this size), peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; diagnostics {diag}, plates {plates}",
+          flush=True)
+    print("climate: " + check_climate(res), flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    assert not missing, f"4.5M: kernels not launched: {missing}"
+    groups = sweep_cuda.smooth_groups(4, h)
+    assert len(groups) > 1, groups
+    assert launches["smooth"] > SMOOTH_CALLS, launches
+    print(kernel_counts(launches, sweep_cuda.sweeps_run())
+          + f"; four-field smoothing in the groups {groups} "
+          f"({launches['smooth']} smoothing launches for {SMOOTH_CALLS} "
+          "calls)", flush=True)
+    plans = plan_lines(res.graph.n_padded)
+    assert all(p["windows"] <= groups[0][1] for p in plans
+               if p["kernel"] == "smooth"), plans
+    out["climate_4_5M"] = dict(
+        n_cells=res.graph.n_cells, H=h, wall_s=wall, peak_bytes=peak,
+        launches=launches, smooth_groups=groups, plans=plans,
+        diagnostics=diag, plates=plates)
     return out
 
 
@@ -1817,9 +2025,9 @@ def main() -> int:
                                           dict.fromkeys(LOOP_SITES, 0))
     launches = dict(sweep_cuda.LAUNCHES)
     swept = sweep_cuda.sweeps_run()
-    print(res.timing.table())
-    print(f"generate 204K (default, climate on) warm: {warm_s:.3f} s",
-          flush=True)
+    print(f"generate 204K (default, climate on) warm: {warm_s:.3f} s "
+          f"(production mode: {res.timing.syncs} stage syncs)", flush=True)
+    stage_table(dev, params, "204K (default, climate on)", ref=res)
     diag, plates = check_planet(res, params.n_plates)
     print(f"diagnostics: {diag}, plates {plates}", flush=True)
     print("climate: " + check_climate(res), flush=True)
@@ -1872,8 +2080,8 @@ def main() -> int:
     terrain = GenerationParams(seed=SEED, skip_climate=True)
     res_t, warm_t = run_generate(dev, terrain)
     assert res_t.climate is None
-    print(res_t.timing.table())
     print(f"generate 204K terrain-only warm: {warm_t:.3f} s", flush=True)
+    stage_table(dev, terrain, "204K terrain-only", ref=res_t)
     check_planet(res_t, terrain.n_plates)
     report_profile(profile_generate(dev, terrain), warm_t)
 
@@ -1899,10 +2107,10 @@ def main() -> int:
     sweep_cuda.reset_launches()
     res_g, warm_g = run_generate(dev, glacial)
     launches_g = dict(sweep_cuda.LAUNCHES)
-    print(res_g.timing.table())
     print(f"generate 204K glacial 0.2 (climate on) warm: {warm_g:.3f} s; "
           "kernels " + " ".join(f"{k}={v}" for k, v in launches_g.items()),
           flush=True)
+    stage_table(dev, glacial, "204K glacial 0.2", ref=res_g)
     assert launches_g["accumulate"] > 0, launches_g
     assert res_g.error is None, res_g.error
     diag_g, plates_g = check_planet(res_g, glacial.n_plates)
@@ -1926,6 +2134,12 @@ def main() -> int:
     # 8. api/, the CLI and the batch sweep on the default planet
     with tempfile.TemporaryDirectory() as tmp:
         api_walls = api_checks(dev, res, tmp)
+    del res, res_t, res_g
+
+    phase(t_run, 9)
+    # 9. bench config 5: the 4M seed sweep with prefetch, and 4.5M with
+    # climate
+    sweep = sweep_checks(dev)
     phase(t_run, "end")
 
     # the row's times and bound are those of its phase-2 shape (configs /
@@ -1949,6 +2163,7 @@ def main() -> int:
     print(json.dumps({"commands_wall_s": walls,
                       "glacial_generate_wall_s": warm_g}))
     print(json.dumps({"sizes": sizes}, default=str))
+    print(json.dumps({"sweep_4M": sweep}, default=str))
     print(json.dumps({"plans_past_204K": plan_records}))
     print(json.dumps({"api_wall_s": api_walls}))
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,10 @@
 """Shared climate utilities — the JAX package's climate/util.py in torch:
-smoothstep, the sort-based percentile, the elevation → km curve, the
-per-cell geographic frame and the periodic ITCZ lookup."""
+smoothstep, the gather-form smoothing and gradients, the sort-based
+percentile, the elevation → km curve, the per-cell geographic frame and
+the periodic ITCZ lookup. The climate stack runs the banded forms of
+ops/banded.py (``smooth_field_banded``, ``smooth_masked_banded``,
+``compute_gradients_banded``); the gather forms here, over the [N, K]
+``nbr_idx`` / ``nbr_mask``, are their oracle, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -9,11 +13,65 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.banded import dot3
+
 
 def smoothstep(e0, e1, x):
     """Reference smoothstep (js/wind.js:75-79); handles e0 > e1 reversal."""
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3 - 2 * t)
+
+
+def smooth_field(field, nbr_idx, nbr_mask, passes: int):
+    """Laplacian smoothing including the cell itself, ``passes`` times
+    (js/climate-util.js:5-25). ``field`` may be [N] or [N, F]."""
+    m, c = nbr_mask, 1 + nbr_mask.sum(1)
+    if field.dim() == 2:
+        m, c = m[:, :, None], c[:, None]
+    f = field.to(torch.float32)
+    for _ in range(int(passes)):
+        f = (f + torch.where(m, f[nbr_idx], 0.0).sum(1)) / c
+    return f
+
+
+def smooth_masked(field, mask, nbr_idx, nbr_mask, passes: int):
+    """Smoothing restricted to ``mask`` cells: the others pass through and
+    do not contribute (js/ocean.js:168-189). ``field`` may be [N] or
+    [N, F]."""
+    ok = nbr_mask & mask[nbr_idx]
+    c, okx, maskx = 1 + ok.sum(1), ok, mask
+    if field.dim() == 2:
+        c, okx, maskx = c[:, None], ok[:, :, None], mask[:, None]
+    f = field.to(torch.float32)
+    for _ in range(int(passes)):
+        s = f + torch.where(okx, f[nbr_idx], 0.0).sum(1)
+        f = torch.where(maskx, s / c, f)
+    return f
+
+
+def compute_gradients(pos, field, east, north, nbr_idx, nbr_mask):
+    """Per-axis least-squares tangent gradients (js/wind.js:306-339).
+    ``field`` may be [N] or [N, F]. Returns (ge, gn) f32."""
+    d = pos[nbr_idx] - pos[:, None, :]                     # [N, K, 3]
+    de = torch.where(nbr_mask, dot3(d, east[:, None, :]), 0.0)
+    dn = torch.where(nbr_mask, dot3(d, north[:, None, :]), 0.0)
+    sum_ee = (de * de).sum(1)
+    sum_nn = (dn * dn).sum(1)
+    if field.dim() == 2:
+        dp = torch.where(nbr_mask[:, :, None],
+                         field[nbr_idx] - field[:, None, :], 0.0)
+        sum_ep = (de[:, :, None] * dp).sum(1)
+        sum_np = (dn[:, :, None] * dp).sum(1)
+        sum_ee, sum_nn = sum_ee[:, None], sum_nn[:, None]
+    else:
+        dp = torch.where(nbr_mask, field[nbr_idx] - field[:, None], 0.0)
+        sum_ep = (de * dp).sum(1)
+        sum_np = (dn * dp).sum(1)
+    ge = torch.where(sum_ee > 1e-12,
+                     sum_ep / torch.clamp(sum_ee, min=1e-20), 0.0)
+    gn = torch.where(sum_nn > 1e-12,
+                     sum_np / torch.clamp(sum_nn, min=1e-20), 0.0)
+    return ge.to(torch.float32), gn.to(torch.float32)
 
 
 def percentile(values, p: float, mask):

@@ -51,11 +51,15 @@ def distance_bfs_caps(sf_res: float):
     return interior_band, tectonic_reach, h_far, bfs_hops
 
 
+# the seed offset of each noise table the elevation stage consumes
+ELEVATION_TABLE_OFFSETS = dict(base=0, rift=419, fold=557, c1=77, c2=133,
+                               c3=211, arc=307, hs1=501, hs2=502)
+
+
 def elevation_tables(seed: int, device="cpu") -> Dict[str, Tables]:
     """All seed-derived noise tables the elevation stage consumes."""
-    offsets = dict(base=0, rift=419, fold=557, c1=77, c2=133, c3=211,
-                   arc=307, hs1=501, hs2=502)
-    return {k: tables(seed + o, device) for k, o in offsets.items()}
+    return {k: tables(seed + o, device)
+            for k, o in ELEVATION_TABLE_OFFSETS.items()}
 
 
 class ElevationResult(NamedTuple):

@@ -127,6 +127,9 @@ _RELAX_SLOT = {"bfs_relax": 0, "flood": 1, "stress": 2, "warp": 3,
                "shadow": 4, "components": 5, "accumulate": 6}
 # the most fields one smoothing launch carries (csrc kMaxSmoothFields)
 SMOOTH_MAX_FIELDS = 4
+# the most floats of staged windows a block's shared memory holds (csrc
+# kMaxWindowFloats: 227 KB less room for the static shared words)
+MAX_WINDOW_FLOATS = (232448 - 1024) // 4
 # the most value columns one accumulate launch carries (csrc kMaxSumFields)
 SUM_MAX_FIELDS = 4
 # the chunk totals an accumulate launch keeps (csrc kMaxAccGrid)
@@ -681,14 +684,37 @@ def smooth_relax_plain(field, c, bits, band_off, rem_ptr, rem_nbr,
     return field
 
 
+def capped_chunk(nw: int, h: int) -> int:
+    """The most cells a block of a staged launch takes when it stages
+    ``nw`` windows of band half-width ``h`` (csrc get_plan's cap: nw
+    windows of T + 2H floats plus the float4 alignment slack); below 1 the
+    launch is refused."""
+    return MAX_WINDOW_FLOATS // nw - 2 * h - 11
+
+
+def smooth_groups(f: int, h: int) -> list:
+    """The consecutive field groups ``[(lo, hi), ...]`` in which
+    :func:`smooth_relax` launches ``f`` fields at band half-width ``h``,
+    one launch a group: groups of the largest size whose capped chunk
+    still covers its own halo (T >= 2H), so one group of F wherever that
+    holds (204K and 1M cells: F = 4 takes T 7,311 >= 2H 7,142 at 1M), one
+    field a group where no size does (F = 4 from H 7,230, ~4.1M cells).
+    Each field's passes read no other field, so the groups give the same
+    bits as one launch. A one-field group whose window does not fit
+    (H >= 28,923, ~66M cells) is refused by its launch."""
+    size = next((n for n in range(f, 0, -1)
+                 if capped_chunk(n, h) >= 2 * h), 1)
+    return [(lo, min(lo + size, f)) for lo in range(0, f, size)]
+
+
 def smooth_relax(field, c, bits, band_off, rem_ptr, rem_nbr, passes: int,
                  gate=None, upd=None):
     """``passes`` (>= 1) Laplacian passes over [F, NP] planes, each
-    ``(f + Σ_nbr f) / c``, in one launch (F <= ``SMOOTH_MAX_FIELDS`` on
-    the card). ``gate`` [NP] (0/1 f32): only neighbours with gate > 0
-    contribute; ``upd`` [NP] (0/1 f32): only cells with upd > 0 update,
-    the others pass through. ``c`` [NP] is 1 + the (gated) neighbour
-    count. Returns the planes."""
+    ``(f + Σ_nbr f) / c`` (F <= ``SMOOTH_MAX_FIELDS`` on the card), in one
+    launch for each group of :func:`smooth_groups`. ``gate`` [NP] (0/1
+    f32): only neighbours with gate > 0 contribute; ``upd`` [NP] (0/1
+    f32): only cells with upd > 0 update, the others pass through. ``c``
+    [NP] is 1 + the (gated) neighbour count. Returns the planes."""
     if int(passes) < 1:
         raise ValueError(f"smoothing takes at least one pass, got {passes}")
     if _on_cpu(field):
@@ -703,13 +729,17 @@ def smooth_relax(field, c, bits, band_off, rem_ptr, rem_nbr, passes: int,
     _check(bits, None, (field, f), (c, None),
            *((t, None) for t in (gate, upd) if t is not None))
     _check_csr(bits, rem_ptr, rem_nbr)
-    out, tmp = torch.empty_like(field), torch.empty_like(field)
-    ctl = torch.zeros(4, dtype=torch.int32, device=field.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "smooth", _ptr(field), _ptr(c), _ptr(gate), _ptr(upd),
-            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
-            _ptr(out), _ptr(tmp), _ptr(ctl), bits.shape[0], f, offs, nd,
-            int(passes))
+    out = torch.empty_like(field)
+    for lo, hi in smooth_groups(f, max((abs(int(o)) for o in band_off),
+                                       default=0)):
+        # rows of a contiguous [F, NP] plane: contiguous, 16-byte aligned
+        part, tmp = field[lo:hi], torch.empty_like(field[lo:hi])
+        ctl = torch.zeros(4, dtype=torch.int32, device=field.device)
+        _launch(fn, "smooth", _ptr(part), _ptr(c), _ptr(gate), _ptr(upd),
+                _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
+                _ptr(out[lo:hi]), _ptr(tmp), _ptr(ctl), bits.shape[0],
+                hi - lo, offs, nd, int(passes))
     return out
 
 

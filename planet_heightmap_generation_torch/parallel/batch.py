@@ -18,7 +18,6 @@ import numpy as np
 
 from ..config import GenerationParams
 from ..pipeline.engine import PlanetEngine, PlanetResult
-from ..pipeline.timing import StageTimer
 
 
 def _engine(devices: Optional[Sequence], engine: Optional[PlanetEngine]
@@ -51,7 +50,8 @@ def generate_batch(params: GenerationParams, seeds: Sequence[int],
 
     ``lean=True`` keeps only the elevation per result — fetched to HOST
     memory as numpy, with every other device output dropped (and the
-    engine's retained state reset) before the next seed runs. A retained
+    engine's retained state reset) before the next seed runs; the stage
+    timer stays (``timing.total_ms`` is the seed's generate wall). A retained
     full result pins ~30 debug/climate [N] device tensors (~0.5 GB at 4M
     cells), so large sweeps (bench config 5) must run lean.
 
@@ -73,8 +73,9 @@ def generate_batch(params: GenerationParams, seeds: Sequence[int],
 
 
 def _lean(res: PlanetResult) -> PlanetResult:
-    """The elevation on the host, and the host prologue's plate arrays;
-    nothing that holds device memory."""
+    """The elevation on the host, the host prologue's plate arrays and the
+    stage timer (its table and the generate's frozen total); nothing that
+    holds device memory."""
     return PlanetResult(
         graph=res.graph, params=res.params, r_plate=None,
         plate_seeds=res.plate_seeds, plate_is_ocean=res.plate_is_ocean,
@@ -83,8 +84,7 @@ def _lean(res: PlanetResult) -> PlanetResult:
         elevation=res.elevation.cpu().numpy(),
         t_elevation=None, stress=None, mountain_mask=None,
         coastline_mask=None, ocean_seed_mask=None,
-        climate=None, debug={}, timing=StageTimer(sync_enabled=False),
-        error=res.error)
+        climate=None, debug={}, timing=res.timing, error=res.error)
 
 
 def sweep_heightmaps(params: GenerationParams, seeds: Sequence[int],

@@ -26,6 +26,7 @@ import dataclasses
 import json
 import math
 import os
+import threading
 import time
 import traceback
 from typing import Callable, Dict, Optional
@@ -37,15 +38,16 @@ from ..config import GenerationParams, AUTO_CLIMATE_THRESHOLD
 from ..mesh.build import SphereGraph, build_sphere
 from ..mesh.device import DeviceGraph, to_device
 from ..ops.rng import ParkMiller
-from ..ops.noise import tables
+from ..ops.noise import make_perm_tables, tables, tables_from_numpy
 from ..ops.graph import majority_smooth
 from ..ops.banded import connected_components_gated, flood_assign_banded
 from ..tectonics.coarse import (CoarsePlates, generate_coarse_plates,
                                 assign_plate_densities, project_kernel,
-                                project_points_host, projection_inputs)
+                                project_points_host, projection_from_numpy,
+                                projection_host)
 from ..tectonics.plates import PlateSet
 from ..tectonics.super_plates import build_super_plates
-from ..elevation.assemble import assign_elevation, elevation_tables
+from ..elevation.assemble import assign_elevation, ELEVATION_TABLE_OFFSETS
 from ..elevation.hotspots import build_domes
 from ..erosion.composite import run_post_processing
 from ..climate import (compute_wind, compute_ocean_currents,
@@ -178,34 +180,60 @@ def super_arrays(super_sp, device, max_super: int = MAX_SUPER):
         super_sp.plate_to_super.astype(np.int32), so, spo, som, sd))
 
 
-def host_prologue(graph: SphereGraph, coarse: CoarsePlates, plates, seed: int,
-                  num_plates: int, device):
-    """The seed's dome and noise half of the prologue: hotspot domes (plate
-    lookup through the host coarse-grid projection), the elevation noise
-    tables and the warp tables. Returns (domes, noise_pack, warp_t)."""
+def host_prologue_np(graph: SphereGraph, coarse: CoarsePlates, plates,
+                     seed: int, num_plates: int):
+    """The seed's dome and noise half of the prologue on the host: hotspot
+    domes (plate lookup through the host coarse-grid projection), the
+    elevation noise tables and the warp tables, as numpy. Returns (domes,
+    elevation tables, warp tables); the tables as (perm, pm12) pairs."""
     def plate_of(center: int) -> int:
         return int(project_points_host(
             coarse, seed, num_plates, graph.pos[center])[0])
 
-    domes_np = build_domes(seed, graph.pos, plate_of, plates.pole,
-                           plates.omega, plates.is_ocean, graph.n_cells)
-    domes = {k: torch.as_tensor(v, device=device)
-             for k, v in domes_np.items()}
-    return domes, elevation_tables(seed, device), tables(seed + 9999, device)
+    domes = build_domes(seed, graph.pos, plate_of, plates.pole,
+                        plates.omega, plates.is_ocean, graph.n_cells)
+    elev_t = {k: make_perm_tables(seed + o)
+              for k, o in ELEVATION_TABLE_OFFSETS.items()}
+    return domes, elev_t, make_perm_tables(seed + 9999)
 
 
-def host_setup(params: GenerationParams, device, timer: StageTimer,
-               prog: Callable) -> PlanetSetup:
-    """The host prologue: mesh, coarse tectonics, super plates, hotspot
-    domes, noise tables — and their upload to ``device``."""
+def upload_prologue(prologue, device):
+    """:func:`host_prologue_np`'s arrays as tensors on ``device``.
+    Returns (domes, noise_pack, warp_t)."""
+    domes, elev_t, warp_t = prologue
+    return ({k: torch.as_tensor(v, device=device) for k, v in domes.items()},
+            {k: tables_from_numpy(*v, device) for k, v in elev_t.items()},
+            tables_from_numpy(*warp_t, device))
+
+
+def host_prologue(graph: SphereGraph, coarse: CoarsePlates, plates, seed: int,
+                  num_plates: int, device):
+    """:func:`host_prologue_np` uploaded to ``device``. Returns (domes,
+    noise_pack, warp_t)."""
+    return upload_prologue(
+        host_prologue_np(graph, coarse, plates, seed, num_plates), device)
+
+
+@dataclasses.dataclass
+class HostProducts:
+    """The host half of one seed's prologue after the mesh, numpy only:
+    the coarse tectonics (toggles applied), super plates, the dome and
+    noise arrays (:func:`host_prologue_np`) and the projection inputs
+    (``projection_host``)."""
+
+    coarse: CoarsePlates
+    plates: PlateSet
+    original_is_ocean: np.ndarray
+    super_sp: object
+    prologue: tuple
+    projection: tuple
+
+
+def host_products(params: GenerationParams, graph: SphereGraph,
+                  timer: StageTimer) -> HostProducts:
+    """Coarse tectonics, super plates, hotspot domes and noise tables on
+    the host; touches no device."""
     seed = params.seed
-    prog(0, "Shaping the world…")
-    with timer.stage("Sphere mesh + upload", sync=True):
-        graph = build_sphere(params.n_cells, params.jitter,
-                             rng=ParkMiller(seed))
-        g = to_device(graph, device)
-
-    prog(10, "Generating coarse plates…")
     with timer.stage("Coarse plates"):
         coarse = generate_coarse_plates(
             seed, params.n_plates, params.num_continents,
@@ -223,16 +251,135 @@ def host_setup(params: GenerationParams, device, timer: StageTimer,
             super_sp = build_super_plates(coarse.graph, coarse.r_plate,
                                           plates)
 
-    with timer.stage("Hotspot domes + noise tables", sync=True):
-        domes, noise_pack, warp_t = host_prologue(
-            graph, coarse, plates, seed, params.n_plates, device)
-        projection = projection_inputs(coarse, seed, params.n_plates, device)
+    with timer.stage("Hotspot domes + noise tables"):
+        prologue = host_prologue_np(graph, coarse, plates, seed,
+                                    params.n_plates)
+        projection = projection_host(coarse, seed, params.n_plates)
+    return HostProducts(coarse=coarse, plates=plates,
+                        original_is_ocean=original_is_ocean,
+                        super_sp=super_sp, prologue=prologue,
+                        projection=projection)
+
+
+# ── mesh prefetch ────────────────────────────────────────────────────
+# The host mesh build (native Delaunay, adjacency, banded packing) is the
+# largest serial part of a generate past 1M cells. The mesh is a pure
+# function of (n_cells, jitter, seed), so a sweep of seeds can build the
+# next seed's host products on a daemon thread while the current seed runs
+# (the native mesh code releases the GIL during its C calls). The thread
+# builds numpy products only and never touches the device: every upload
+# stays in ``host_setup`` on the caller's thread. ``host_setup`` adopts an
+# entry whose key matches; unclaimed entries are dropped on the next
+# prefetch to bound host memory (~400 MB per 4M-cell graph).
+
+_MESH_PREFETCH: Dict = {}
+_MESH_LOCK = threading.Lock()
+
+
+def _prefetch_key(params: GenerationParams):
+    return params.replace(skip_climate=None)
+
+
+def prefetch_mesh(params: GenerationParams) -> None:
+    """Start building the host prologue of ``params`` on a daemon thread:
+    always the mesh and its banded packing; for params without plate
+    toggles also the coarse tectonics, super plates, hotspot domes, noise
+    tables and projection inputs (:func:`host_products`). Toggled params
+    prefetch the mesh only, as in the JAX package."""
+    key = _prefetch_key(params)
+    with _MESH_LOCK:
+        if key in _MESH_PREFETCH:
+            return
+        for k in [k for k in _MESH_PREFETCH if k != key]:
+            _MESH_PREFETCH.pop(k, None)
+        holder: Dict = {}
+        _MESH_PREFETCH[key] = holder
+
+    def build():
+        try:
+            graph = build_sphere(params.n_cells, params.jitter,
+                                 rng=ParkMiller(params.seed))
+            _ = graph.banded_packed
+            holder["graph"] = graph
+            if not params.toggled_indices:
+                holder["products"] = host_products(
+                    params, graph, StageTimer(sync_enabled=False))
+        except BaseException as e:  # noqa: BLE001 — raised on adoption
+            holder["error"] = e
+
+    t = threading.Thread(target=build, daemon=True, name="prefetch-mesh")
+    holder["thread"] = t
+    t.start()
+
+
+def _take_prefetched_mesh(params: GenerationParams):
+    """(graph | None, HostProducts | None) of a prefetch of ``params``,
+    joining its thread if it is still running. A build that failed raises
+    its error here; nothing falls back to a silent rebuild."""
+    with _MESH_LOCK:
+        holder = _MESH_PREFETCH.pop(_prefetch_key(params), None)
+    if holder is None:
+        return None, None
+    holder["thread"].join()
+    if "error" in holder:
+        raise RuntimeError(
+            f"the mesh prefetch of seed {params.seed} "
+            f"({params.n_cells} cells) failed: {holder['error']!r}"
+        ) from holder["error"]
+    return holder.get("graph"), holder.get("products")
+
+
+def host_setup(params: GenerationParams, device, timer: StageTimer,
+               prog: Callable) -> PlanetSetup:
+    """The host prologue: mesh, coarse tectonics, super plates, hotspot
+    domes, noise tables (adopted from :func:`prefetch_mesh` when one
+    matches) — and their upload to ``device``."""
+    prog(0, "Shaping the world…")
+    graph, host = _take_prefetched_mesh(params)
+    with timer.stage("Sphere mesh + upload", sync=True):
+        if graph is None:
+            graph = build_sphere(params.n_cells, params.jitter,
+                                 rng=ParkMiller(params.seed))
+        g = to_device(graph, device)
+
+    prog(10, "Generating coarse plates…")
+    if host is None:
+        host = host_products(params, graph, timer)
+    with timer.stage("Upload plates, domes + noise tables", sync=True):
+        domes, noise_pack, warp_t = upload_prologue(host.prologue, device)
+        projection = projection_from_numpy(*host.projection, device)
+        p_arrays = plate_arrays(host.plates, device)
+        s_arrays = super_arrays(host.super_sp, device)
 
     return PlanetSetup(
-        params=params, graph=graph, g=g, coarse=coarse, plates=plates,
-        original_is_ocean=original_is_ocean, super_sp=super_sp, domes=domes,
-        noise_pack=noise_pack, warp_t=warp_t, projection=projection, plate_arrays=plate_arrays(plates, device),
-        super_arrays=super_arrays(super_sp, device))
+        params=params, graph=graph, g=g, coarse=host.coarse,
+        plates=host.plates, original_is_ocean=host.original_is_ocean,
+        super_sp=host.super_sp, domes=domes, noise_pack=noise_pack,
+        warp_t=warp_t, projection=projection, plate_arrays=p_arrays,
+        super_arrays=s_arrays)
+
+
+_TRANSFER_PRIMED = False
+
+
+def prime_device_transfer(device) -> None:
+    """Once per process, start a daemon thread that initialises the CUDA
+    context of ``device`` and makes one 1 MB device→host copy, so the
+    card's first-use cost overlaps the host mesh build. A no-op on the
+    CPU; it never selects a device the caller did not pass."""
+    global _TRANSFER_PRIMED
+    device = torch.device(device)
+    if device.type != "cuda" or _TRANSFER_PRIMED:
+        return
+    _TRANSFER_PRIMED = True
+
+    def go():
+        try:
+            torch.arange(262_144, dtype=torch.float32, device=device).cpu()
+        except Exception:  # noqa: BLE001 — the caller's first use reports it
+            pass
+
+    threading.Thread(target=go, daemon=True, name="prime-d2h").start()
 
 
 def _resolve_device(device) -> torch.device:
@@ -276,14 +423,32 @@ def triangle_elevations(elevation, graph: SphereGraph):
 class PlanetEngine:
     """Generates planets on ``device`` (default ``"cuda"``; there is no
     silent fallback to the CPU — pass ``device="cpu"`` to ask for it) and
-    keeps the last planet's state for the other commands."""
+    keeps the last planet's state for the other commands.
 
-    def __init__(self, device=None):
+    ``timing=True`` (default: ``PLANET_TIMING=1``) synchronizes the device
+    after every stage for true per-stage times; otherwise a command
+    enqueues its device work without stage syncs and synchronizes once,
+    at its end. The mode changes no result."""
+
+    def __init__(self, device=None, timing: Optional[bool] = None):
         self.device = _resolve_device(device)
+        if timing is None:
+            timing = os.environ.get("PLANET_TIMING", "0") == "1"
+        self._timing = bool(timing)
         self._w: Optional[dict] = None
+        prime_device_transfer(self.device)
 
     def _timer(self) -> StageTimer:
-        return StageTimer(sync_enabled=self.device.type == "cuda")
+        return StageTimer(sync_enabled=self._timing)
+
+    def _finish(self, timer: StageTimer, params=None, kind=None) -> None:
+        """The end of a command: one device sync (the only one outside
+        timing mode), the total frozen, the perf record written."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timer.stop()
+        if kind is not None:
+            self._maybe_log_perf(params, timer, kind)
 
     def reset(self) -> None:
         """Drop the retained state (and its device memory)."""
@@ -319,7 +484,8 @@ class PlanetEngine:
         np.savez_compressed(path, **out)
 
     @classmethod
-    def load_session(cls, path: str, device=None) -> "PlanetEngine":
+    def load_session(cls, path: str, device=None,
+                     timing: Optional[bool] = None) -> "PlanetEngine":
         """An engine with the retained state of a ``save_session`` file
         (of either package): ``host_setup`` replays the prologue, the
         stored arrays fill in the generate products."""
@@ -328,7 +494,7 @@ class PlanetEngine:
         pd["toggled_indices"] = tuple(pd.get("toggled_indices", ()))
         params = GenerationParams(**pd)
 
-        eng = cls(device=device)
+        eng = cls(device=device, timing=timing)
         dev = eng.device
         s = host_setup(params, dev, StageTimer(sync_enabled=False),
                        _no_progress)
@@ -363,7 +529,7 @@ class PlanetEngine:
         try:
             rec = dict(
                 t=round(time.time(), 3), kind=kind, n_cells=params.n_cells,
-                seed=params.seed, fused=False,
+                seed=params.seed, fused=not self._timing,
                 total_ms=round(timer.total_ms, 1),
                 stages={k: round(v, 2) for k, v in timer.stages})
             with open(path, "a") as f:
@@ -448,7 +614,7 @@ class PlanetEngine:
             cached_wind=(climate or {}).get("wind"),
             cached_ocean=(climate or {}).get("ocean"),
         )
-        self._maybe_log_perf(params, timer, "generate")
+        self._finish(timer, params, "generate")
         return PlanetResult(
             graph=s.graph, params=params, r_plate=r_plate,
             plate_seeds=s.plates.seeds, plate_is_ocean=s.plates.is_ocean,
@@ -496,7 +662,7 @@ class PlanetEngine:
         w["elevation_final"] = elevation
         w["cached_wind"] = (climate or {}).get("wind")
         w["cached_ocean"] = (climate or {}).get("ocean")
-        self._maybe_log_perf(params, timer, "reapply")
+        self._finish(timer, params, "reapply")
         return PlanetResult(
             graph=graph, params=params, r_plate=w["r_plate"],
             plate_seeds=w["plates"].seeds,
@@ -584,7 +750,7 @@ class PlanetEngine:
                  mountain=elev_res.mountain, coastline=elev_res.coastline,
                  ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
                  hotspot=debug.get("hotspot"))
-        self._maybe_log_perf(params, timer, "edit_recompute")
+        self._finish(timer, params, "edit_recompute")
         return PlanetResult(
             graph=graph, params=params, r_plate=w["r_plate"],
             plate_seeds=plates.seeds, plate_is_ocean=plates.is_ocean,
@@ -630,6 +796,7 @@ class PlanetEngine:
         precip, temp, koppen = climate_rest(g, elevation, wind, ocean,
                                             params, timer)
         prog(95, "Done")
+        self._finish(timer)
         return dict(wind=wind, ocean=ocean, precip=precip, temp=temp,
                     koppen=koppen, timing=timer)
 
@@ -694,7 +861,7 @@ class PlanetEngine:
             cached_wind=(climate or {}).get("wind"),
             cached_ocean=(climate or {}).get("ocean"),
         )
-        self._maybe_log_perf(params, timer, "import_heightmap")
+        self._finish(timer, params, "import_heightmap")
         return PlanetResult(
             graph=graph, params=params, r_plate=r_plate,
             plate_seeds=plates.seeds, plate_is_ocean=plates.is_ocean,

@@ -137,18 +137,23 @@ def project_points_host(coarse: CoarsePlates, seed: int, num_plates: int,
     return coarse.r_plate[nearest].astype(np.int32)
 
 
-def projection_inputs(coarse: CoarsePlates, seed: int, num_plates: int,
-                      device="cpu"):
+def projection_host(coarse: CoarsePlates, seed: int, num_plates: int):
     """The seed/coarse-derived inputs of :func:`project_kernel` (noise
-    tables, warp amplitude, geobins, coarse plate map), built on host once
-    and returned as tensors on ``device``."""
+    tables, warp amplitude, geobins, coarse plate map) as numpy arrays, in
+    :func:`projection_from_numpy`'s argument order."""
     perm, pm12 = make_perm_tables(seed + 999)
     coarse_edge_rad = np.pi / np.sqrt(coarse.graph.n_cells)
     low_t = _low_plate_t(num_plates)
     perturb_amp = float(np.float32(coarse_edge_rad * (1.5 + 1.0 * low_t)))
-    return projection_from_numpy(
-        perm, pm12, perturb_amp, coarse.bins.cand_idx, coarse.bins.cand_mask,
-        coarse.bins.points, coarse.r_plate, device)
+    return (perm, pm12, perturb_amp, coarse.bins.cand_idx,
+            coarse.bins.cand_mask, coarse.bins.points, coarse.r_plate)
+
+
+def projection_inputs(coarse: CoarsePlates, seed: int, num_plates: int,
+                      device="cpu"):
+    """:func:`projection_host`'s inputs as tensors on ``device``."""
+    return projection_from_numpy(*projection_host(coarse, seed, num_plates),
+                                 device)
 
 
 def projection_from_numpy(perm, pm12, perturb_amp, cand_idx, cand_mask,

@@ -167,8 +167,9 @@ def plan_checks() -> bool:
     """The staged launches at chip_smoke.py's synthetic shapes past 204K
     (the 204K band set with a band pair at ±5760, about the 2.56M mesh's
     half-width, on 8,192 cells an SM, and at ±7200, ~4M, on 16,384 an
-    SM): their chunks are capped at these half-widths, as on the card at
-    2.56M cells, and are no multiple of 4."""
+    SM, and the smoothing launches alone at ±7300, whose fields launch one
+    a group): their chunks are capped at these half-widths, as on the card
+    at 2.56M cells, and are no multiple of 4."""
     import chip_smoke
     from planet_heightmap_generation_torch.mesh.build import build_sphere
     from planet_heightmap_generation_torch.ops.rng import ParkMiller
@@ -178,7 +179,8 @@ def plan_checks() -> bool:
     try:
         nsm = int(os.environ.get("EMU_NSM", "2"))
         chip_smoke.plan_checks(torch.device("cpu"), band_off,
-                               [(5760, 8192 * nsm), (7200, 16384 * nsm)],
+                               [(5760, 8192 * nsm), (7200, 16384 * nsm),
+                                (7300, 16384 * nsm, ("smooth",))],
                                plain=plain)
     except AssertionError as e:
         print(e, flush=True)

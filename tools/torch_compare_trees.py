@@ -1,11 +1,15 @@
 """The PyTorch port's default generate in several checkouts of this repo
 on one card, each in a process of its own, in the order given:
 
-    python3 tools/torch_compare_trees.py PARENT CHANGE CHANGE PARENT
+    python3 tools/torch_compare_trees.py [--cells N] PARENT CHANGE CHANGE PARENT
 
 For each tree: build its kernels, run the default 204K generate
-(``GenerationParams(seed=42)``, climate on) cold, then three warm runs
-(wall seconds, and the kernel launches of the last), then one warm run of
+(``GenerationParams(seed=42)``, climate on; with ``--cells N``,
+``GenerationParams(seed=42, n_cells=N)``, climate by the 300K rule) cold,
+then three warm runs (wall seconds, the kernel launches and the stage
+table of the last; with ``PLANET_TIMING=1`` in the environment an engine
+that has the timing mode syncs after every stage, as engines without it
+always do), then one warm run of
 the default and one of the terrain-only generate under ``torch.profiler``
 (device busy ms and the number of device events), and one more default
 run traced for the device time and calls of the scatter-add kernels
@@ -29,16 +33,18 @@ from planet_heightmap_generation_torch.ops import sweep_cuda
 sweep_cuda.build()
 sweep_cuda._kernel(next(iter(sweep_cuda._ARGTYPES)))
 dev = torch.device("cuda")
-p = GenerationParams(seed=42)
+p = GenerationParams(seed=42, **KW)
 cs.run_generate(dev, p)
 walls = []
 for _ in range(3):
     sweep_cuda.reset_launches()
-    _, w = cs.run_generate(dev, p)
+    res, w = cs.run_generate(dev, p)
     walls.append(w)
 launches = dict(sweep_cuda.LAUNCHES)
+stages = res.timing.stages
+del res
 prof = cs.profile_generate(dev, p)
-pt = cs.profile_generate(dev, GenerationParams(seed=42, skip_climate=True))
+pt = cs.profile_generate(dev, p.replace(skip_climate=True))
 kinds = {"index_add": ("indexFuncLargeIndex", "indexFuncSmallIndex"),
          "sort": ("Sort", "sort"), "ordered_sum": ("ordered_sum_kernel",),
          "bfs_sweep": ("bfs_sweep_kernel",),
@@ -59,17 +65,22 @@ with warnings.catch_warnings(record=True) as caught:
     torch.cuda.set_sync_debug_mode("default")
 syncs = sum("synchroniz" in str(w.message) for w in caught)
 print("RESULT " + json.dumps(dict(
-    tree=TREE, walls=walls, launches=launches, busy_ms=prof["busy_ms"],
+    tree=TREE, walls=walls, launches=launches, stages=stages,
+    busy_ms=prof["busy_ms"],
     events=prof["n_events"], terrain_busy_ms=pt["busy_ms"],
     terrain_events=pt["n_events"], device_ms_calls=by_kind,
     host_syncs=syncs)))
 '''
 
 
-def main(trees) -> int:
-    for tree in trees:
-        r = subprocess.run([sys.executable, "-c", f"TREE = {tree!r}\n" + CODE],
-                           capture_output=True, text=True, timeout=600)
+def main(args) -> int:
+    kw = {}
+    if args[:1] == ["--cells"]:
+        kw, args = dict(n_cells=int(args[1])), args[2:]
+    for tree in args:
+        r = subprocess.run([sys.executable, "-c",
+                            f"TREE = {tree!r}\nKW = {kw!r}\n" + CODE],
+                           capture_output=True, text=True, timeout=900)
         line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
         if r.returncode or not line:
             print(r.stdout[-3000:], r.stderr[-3000:])
