@@ -120,13 +120,26 @@ Phases (any failure exits non-zero with its traceback):
    generate wall; then one 4.5M-cell generate with climate, past the size
    where four-field smoothing stopped fitting one launch, which must
    launch it in field groups and pass the climate gates. Every run passes
-   the gates of the default generate.
+   the gates of the default generate;
+10. the cells × seed split (parallel/): ``terrain_step`` on the 204K mesh
+   of phase 2 for four seeds, then ``batched_terrain_step`` with B = 4
+   over ``make_planet_mesh(8, seed_parallel=2, devices=["cuda:0"] * 8)``
+   and B = 1 over ``cells_mesh(4, devices=["cuda:0"] * 4)``: every seed
+   equal to its single-device step bit for bit, the accumulate kernel
+   launched, walls and exchanges printed; then each of the eight kernel
+   loops as the default generate of phase 3 called it (recorded through
+   ``LOOP_SITES``; the distance BFS at F=4, cap 119) replayed split over
+   four windows of ``cuda:0`` (parallel/loops.py) against its one launch,
+   bit for bit, in its count too where the split runs the same sweeps,
+   with its launches, exchanges and wall beside the one launch's µs.
 
 Before the last line come JSON objects of the commands' wall times, the
-sizes past 204K, the 4M sweep, the plans past 204K and the product
-surfaces' wall times, a JSON object with one entry per kernel and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the
-script exits with code 1 before printing any result.
+sizes past 204K, the 4M sweep, the plans past 204K, the product
+surfaces' wall times and the split, a JSON object with one entry per
+kernel (each with its ``sharded`` record: equal, launches, exchanges,
+ms) and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA the script exits with
+code 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -186,6 +199,17 @@ LOOP_SITES = {
     ("erosion.glacial", "pointer_accumulate"): 1,
     ("ops.banded", "components_core"): 4,
     ("erosion.flood", "components_core"): 4,
+    # one call of each of the eight kernel loops, replayed split in phase
+    # 10 (the distance BFS keeps its three calls: the F=4 one at cap 119)
+    ("ops.sweep_cuda", "bfs_relax"): 3,
+    ("ops.sweep_cuda", "stress_relax"): 1,
+    ("ops.sweep_cuda", "warp_relax"): 1,
+    ("ops.sweep_cuda", "flood_relax"): 1,
+    ("ops.sweep_cuda", "smooth_relax"): 1,
+    ("ops.sweep_cuda", "shadow_relax"): 1,
+    ("ops.sweep_cuda", "components_relax"): 1,
+    ("ops.sweep_cuda", "accumulate_relax"): 1,
+    ("ops.sweep_cuda", "ordered_sum"): 1,
 }
 # the default generate with one launch per float sum and per components
 # sweep, before both became one launch per loop (PERF.md §6 keeps the runs;
@@ -1479,6 +1503,10 @@ def stage_table(dev, params, label: str, ref=None):
 def check_planet(res, n_plates: int):
     d = res.diagnostics()
     n = res.graph.n_cells
+    pre = getattr(res, "pre_post_elevation", None)
+    if torch.is_tensor(pre):
+        # the elevation before erosion: which stage sets the maximum
+        d["pre_erosion_max"] = float(pre[:n].max())
     plates = len(torch.unique(res.r_plate[:n]))
     assert d["nan_count"] == 0, d
     assert 0.15 < d["land_fraction"] < 0.5, d
@@ -1793,6 +1821,239 @@ def sweep_checks(dev):
         n_cells=res.graph.n_cells, H=h, wall_s=wall, peak_bytes=peak,
         launches=launches, smooth_groups=groups, plans=plans,
         diagnostics=diag, plates=plates)
+    return out
+
+
+# ── phase 10: the cells × seed split ─────────────────────────────────
+
+# the windows each loop is split over on cuda:0 (parallel/windows.py)
+SPLIT_SHARDS = 4
+# the seeds of the split terrain step's batch (their noise tables)
+SPLIT_SEEDS = (42, 43, 44, 45)
+
+
+def split_step_checks(g, devices=None):
+    """``terrain_step`` on the 204K mesh ``g`` for each of the seeds of
+    ``SPLIT_SEEDS`` (a noise elevation, scaled per seed, and the seed's
+    noise tables), then ``batched_terrain_step`` with B = 4 over
+    ``make_planet_mesh(8, seed_parallel=2)`` and B = 1 over
+    ``cells_mesh(4)``, the meshes' devices taken in turn from ``devices``
+    (``g``'s device alone by default): every seed must equal its
+    single-device step bit for bit, and the accumulate kernel must launch
+    (the pointer loops run on gathered whole arrays). Returns walls and
+    exchanges."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+    from planet_heightmap_generation_torch.ops.noise import make_perm_tables
+    from planet_heightmap_generation_torch.parallel.sharding import (
+        batched_terrain_step, cells_mesh, gather_cells, make_planet_mesh,
+        terrain_step)
+
+    dev = g.device
+    base = noise_terrain(g)
+    elev = torch.stack([base * s for s in (1.0, 0.5, 1.5, 0.8)])
+    tabs = [make_perm_tables(float(s)) for s in SPLIT_SEEDS]
+    perm = torch.as_tensor(np.stack([t[0] for t in tabs]), device=dev)
+    pm12 = torch.as_tensor(np.stack([t[1] for t in tabs]), device=dev)
+    args = (g.pos, g.band_mask, g.rem_src, g.rem_dst, g.valid)
+
+    def single(k):
+        return terrain_step(elev[k], *args, perm[k], pm12[k], g.band_off)
+
+    single(0)
+    acc0 = sweep_cuda.LAUNCHES["accumulate"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = [single(k) for k in range(len(SPLIT_SEEDS))]
+    torch.cuda.synchronize()
+    single_s = (time.perf_counter() - t0) / len(SPLIT_SEEDS)
+    assert (sweep_cuda.LAUNCHES["accumulate"] > acc0
+            or not ref[0].is_cuda), "no accumulate launch"
+    for k, r in enumerate(ref):
+        assert bool(torch.isfinite(r).all()), k
+    print(f"split: terrain_step, {g.n_padded} cells, one device: "
+          f"{single_s * 1e3:.1f} ms a seed "
+          f"({sweep_cuda.LAUNCHES['accumulate'] - acc0} accumulate launches "
+          f"for {len(ref)} seeds)", flush=True)
+    out = dict(single_ms_per_seed=single_s * 1e3)
+    devs = [str(d) for d in (devices or [dev])]
+    for label, mesh, b in (
+            (f"8 of {devs}, seed_parallel 2", make_planet_mesh(
+                8, seed_parallel=2, devices=(devs * 8)[:8]), 4),
+            (f"4 of {devs}, cells", cells_mesh(4, devices=(devs * 4)[:4]),
+             1)):
+        step = batched_terrain_step(mesh, g.band_off)
+        walls = []
+        for _ in range(2):     # cold (the window layouts built), warm
+            for r in range(mesh.shape["seed"]):
+                mesh.layout(r, g.n_padded, g.band_off, g.rem_src,
+                            g.rem_dst).exchanges = 0
+            acc0 = sweep_cuda.LAUNCHES["accumulate"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(elev[:b], *args, perm[:b], pm12[:b])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = gather_cells(res)
+            for k in range(b):
+                assert torch.equal(got[k], ref[k]), (
+                    f"split step {label}, seed {SPLIT_SEEDS[k]}: differs from "
+                    f"the single-device step (max abs err "
+                    f"{max_abs_err(got[k], ref[k])})")
+            assert (sweep_cuda.LAUNCHES["accumulate"] > acc0
+                    or not got.is_cuda), label
+        lays = [row.layout for row in res.rows]
+        exch = sum(lay.exchanges for lay in lays)
+        chunks = [lays[0].chunk_len(c) for c in range(lays[0].n_shards)]
+        print(f"split: batched_terrain_step over {label} (B={b}, chunks "
+              f"{chunks}, halo {lays[0].halo}): bit-identical to the "
+              f"single-device step for every seed; cold {walls[0]:.3f} s, "
+              f"warm {walls[1]:.3f} s ({walls[1] / b * 1e3:.1f} ms a seed), "
+              f"{exch} exchanges, "
+              f"{sweep_cuda.LAUNCHES['accumulate'] - acc0} accumulate "
+              "launches", flush=True)
+        out[label] = dict(seeds=b, cold_s=walls[0], warm_s=walls[1],
+                          exchanges=exch, chunks=chunks, halo=lays[0].halo)
+    return out
+
+
+def split_cases(calls, lay):
+    """(name → (one launch, split run)) for the eight loops' recorded calls
+    of the default generate (``calls`` from :func:`record_calls` with
+    ``LOOP_SITES``), split over ``lay``'s windows. The split run returns
+    (whole result, count or None)."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+    from planet_heightmap_generation_torch.parallel import loops, windows
+
+    def kept(name):
+        got = calls[("ops.sweep_cuda", name)]
+        assert got, f"no {name} call recorded"
+        return got
+
+    def planes(x):
+        return windows.split(lay, x, -1)
+
+    def graph(a):
+        return lay.graph(a[2], a[3], a[4], a[5])
+
+    def done(res):
+        out, n = res if isinstance(res, tuple) else (res, None)
+        return (out.gather() if hasattr(out, "gather") else out), n
+
+    b = next(a for a, _ in kept("bfs_relax") if a[0].shape[0] == 4)
+    st = kept("stress_relax")[0][0]
+    wp = kept("warp_relax")[0][0]
+    fl = kept("flood_relax")[0][0]
+    sm = kept("smooth_relax")[0][0]
+    sh = kept("shadow_relax")[0][0]
+    cp = kept("components_relax")[0][0]
+    ac = kept("accumulate_relax")[0][0]
+    os_ = kept("ordered_sum")[0][0]
+
+    def opt(x):
+        return None if x is None else planes(x)
+
+    # the one-round form's one launch, made here so no split run counts it
+    os_want = sc.ordered_sum(*os_)
+
+    def accumulate():
+        s, n = done(loops.sharded_accumulate_relax(
+            windows.split(lay, ac[0]), windows.split(lay, ac[1]), *ac[2:]))
+        part = done(loops.sharded_ordered_sum(
+            os_[0], windows.split(lay, os_[1]), windows.split(lay, os_[2])))
+        assert torch.equal(part[0], os_want), "split ordered_sum differs"
+        return s, n
+
+    return {
+        "bfs_relax": (lambda: sc.bfs_relax(*b), lambda: done(
+            loops.sharded_bfs_relax(planes(b[0]), planes(b[1]), graph(b),
+                                    b[6]))),
+        "stress": (lambda: sc.stress_relax(*st), lambda: done(
+            loops.sharded_stress_relax(planes(st[0]), planes(st[1]),
+                                       graph(st), *st[6:]))),
+        "warp": (lambda: sc.warp_relax(*wp), lambda: done(
+            loops.sharded_warp_relax(planes(wp[0]), planes(wp[1]), graph(wp),
+                                     wp[6]))),
+        "flood": (lambda: sc.flood_relax(*fl), lambda: done(
+            loops.sharded_flood_relax(planes(fl[0]), planes(fl[1]),
+                                      planes(fl[2]),
+                                      lay.graph(*fl[3:7]), *fl[7:]))),
+        "smooth": (lambda: sc.smooth_relax(*sm), lambda: done(
+            loops.sharded_smooth_relax(planes(sm[0]), planes(sm[1]),
+                                       graph(sm), sm[6], opt(sm[7]),
+                                       opt(sm[8])))),
+        "shadow": (lambda: sc.shadow_relax(*sh), lambda: done(
+            loops.sharded_shadow_relax(planes(sh[0]), planes(sh[1]),
+                                       planes(sh[2]), lay.graph(*sh[3:7]),
+                                       *sh[7:]))),
+        "components": (lambda: sc.components_relax(*cp), lambda: done(
+            loops.sharded_components_relax(planes(cp[0]),
+                                           lay.graph(*cp[2:6])))),
+        "accumulate": (lambda: sc.accumulate_relax(*ac), accumulate),
+    }
+
+
+# the loops whose split form runs the one-launch loop's sweeps (per sweep
+# or per hop), so whose counts must agree
+SPLIT_SAME_COUNT = ("bfs_relax", "stress", "warp", "shadow", "accumulate")
+
+
+def split_loop_checks(calls, devices=None, reps: int = 20):
+    """Each of the eight loops of the default generate (recorded in phase
+    3; the distance BFS: its F=4 call, at cap 119 at 204K), replayed split
+    over ``SPLIT_SHARDS`` windows against its one launch: bit for bit, in
+    its count too where the split runs the same sweeps. The windows' devices
+    are taken in turn from ``devices`` (the recorded call's alone by
+    default). Returns the ``sharded`` record of each kernel row."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+    from planet_heightmap_generation_torch.parallel.sharding import (
+        cells_mesh)
+
+    b = next(a for a, _ in calls[("ops.sweep_cuda", "bfs_relax")]
+             if a[0].shape[0] == 4)
+    npd, ptr, nbr = b[2].shape[-1], b[4], b[5]
+    # the generate's remainder edges, read off its CSR
+    src = torch.repeat_interleave(torch.arange(npd, device=ptr.device),
+                                  (ptr[1:] - ptr[:-1]).long())
+    devs = list(devices or [ptr.device]) * SPLIT_SHARDS
+    mesh = cells_mesh(SPLIT_SHARDS, devices=devs[:SPLIT_SHARDS])
+    lay = mesh.layout(0, npd, b[3], src, nbr.long())
+    out = {}
+    for name, (whole, split) in split_cases(calls, lay).items():
+        want = whole()
+        want, n_want = want if isinstance(want, tuple) else (want, None)
+        split()
+        before = dict(sc.LAUNCHES)
+        lay.exchanges = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, n_got = split()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: sc.LAUNCHES[k] - before[k] for k in sc.LAUNCHES
+                    if sc.LAUNCHES[k] > before[k]}
+        equal = torch.equal(got, want)
+        assert equal, (f"split {name} differs from its one launch (max abs "
+                       f"err {max_abs_err(got.float(), want.float())})")
+        # (the plain versions, on CPU copies, count no launches)
+        assert launched or not got.is_cuda, f"split {name}: no launch"
+        if name in SPLIT_SAME_COUNT and n_want is not None:
+            assert n_got == int(n_want[0]), (name, n_got, n_want)
+        one_ms = time_ms(whole, reps)
+        print(f"split {name} over {SPLIT_SHARDS} windows of "
+              f"{sorted({str(d) for d in lay.devices})}: "
+              f"bit-identical to its one launch; count {n_got} split, "
+              f"{None if n_want is None else int(n_want[0])} in one launch; "
+              f"launches {launched}, {lay.exchanges} exchanges; "
+              f"{ms * 1e3:.1f} us split, {one_ms * 1e3:.2f} us one launch",
+              flush=True)
+        if name == "bfs_relax":
+            print(f"  (the distance BFS at F=4, cap {b[6]})", flush=True)
+        out[name] = dict(equal=equal, launches=sum(launched.values()),
+                         kernels=launched, exchanges=lay.exchanges, ms=ms,
+                         one_launch_ms=one_ms, count=n_got,
+                         **({"cap": b[6]} if name == "bfs_relax" else {}),
+                         one_launch_count=None if n_want is None
+                         else int(n_want[0]))
     return out
 
 
@@ -2140,6 +2401,13 @@ def main() -> int:
     # 9. bench config 5: the 4M seed sweep with prefetch, and 4.5M with
     # climate
     sweep = sweep_checks(dev)
+
+    phase(t_run, 10)
+    # 10. the cells × seed split: the terrain step whole and split at 204K,
+    # and each kernel loop of the default generate split over windows
+    split = split_step_checks(g)
+    split_rows = split_loop_checks(loop_calls)
+    assert split_rows["bfs_relax"]["cap"] == 119, split_rows["bfs_relax"]
     phase(t_run, "end")
 
     # the row's times and bound are those of its phase-2 shape (configs /
@@ -2158,6 +2426,7 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         path_device_ms=None if prof is None else prof["device_ms"][k],
         **({"path_sweeps": swept[k]} if k in swept else {}),
+        sharded=split_rows[k],
         **{x: v for x, v in r.items() if x not in top})
         for k, r in records.items()]
     print(json.dumps({"commands_wall_s": walls,
@@ -2166,6 +2435,7 @@ def main() -> int:
     print(json.dumps({"sweep_4M": sweep}, default=str))
     print(json.dumps({"plans_past_204K": plan_records}))
     print(json.dumps({"api_wall_s": api_walls}))
+    print(json.dumps({"split": split}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

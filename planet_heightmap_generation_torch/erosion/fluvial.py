@@ -36,18 +36,22 @@ def log_rounds(n: int) -> int:
 
 
 def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
-                       rem_src, rem_dst, rem_dist):
+                       rem_src, rem_dst, rem_dist, index_base=None):
     """Per land cell: steepest-descent neighbour, else least-ascent (pit).
-    Returns (receiver [N] i64 (-1 none), dist [N], is_pit [N])."""
+    ``index_base`` [N] f32 is each row's global cell index (a window of a
+    cells split, parallel/windows.py; ``arange(N)`` by default), so the
+    receivers are global indices. Returns (receiver [N] i64 (-1 none),
+    dist [N], is_pit [N])."""
     n = band_mask.shape[0]
     dev = elev.device
     land = (~is_ocean) & valid
-    idx_f = torch.arange(n, dtype=torch.float32, device=dev)
+    idx_f = (torch.arange(n, dtype=torch.float32, device=dev)
+             if index_base is None else index_base)
     band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f, dist_f) = banded_select(
         elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,
         edge_payloads=[band_idx, band_dist],
-        rem_edge_payloads=[rem_dst.to(torch.float32), rem_dist])
+        rem_edge_payloads=[idx_f[rem_dst], rem_dist])
     has = torch.isfinite(min_elev) & land
     best_drop = elev - min_elev
     rcv = torch.where(has, tgt_f, -1.0).to(torch.int64)

@@ -17,47 +17,70 @@ import torch
 from ..ops.banded import band_shift, rem_add
 
 
-def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
+def _edge_excess(h_me, h_nb, d, ok, talus_slope):
+    """Per-edge slope excess above the talus slope (land→land edges)."""
+    dd = torch.clamp(d, min=1e-6)
+    slope = (h_me - h_nb) / dd
+    return torch.where(ok & (slope > talus_slope),
+                       (slope - talus_slope) * dd, 0.0)
+
+
+def thermal_shed(elev, is_ocean, valid, band_off, band_mask, band_dist,
                  rem_src, rem_dst, rem_dist, talus_slope, k_thermal):
+    """Pass 1: each cell's total slope excess over its land neighbours →
+    (shed, nb_share), ``nb_share`` the share of the excess it sends across
+    each edge, which pass 2 reads at the neighbours. A cells split
+    exchanges ``nb_share`` between the passes (parallel/sharding.py)."""
     n = band_mask.shape[0]
     land = (~is_ocean) & valid
-    src = rem_src
-
-    # pass 1: total slope excess shed by each cell (land→land edges only)
-    def edge_excess(h_me, h_nb, d, ok):
-        dd = torch.clamp(d, min=1e-6)
-        slope = (h_me - h_nb) / dd
-        return torch.where(ok & (slope > talus_slope),
-                           (slope - talus_slope) * dd, 0.0)
-
     total_excess = torch.zeros(n, device=elev.device)
     for d, off in enumerate(band_off):
         ok = band_mask[:, d] & land & band_shift(land, off)
-        total_excess = total_excess + edge_excess(
-            elev, band_shift(elev, off), band_dist[:, d], ok)
-    ok_r = land[src] & land[rem_dst]
+        total_excess = total_excess + _edge_excess(
+            elev, band_shift(elev, off), band_dist[:, d], ok, talus_slope)
+    ok_r = land[rem_src] & land[rem_dst]
     total_excess = rem_add(
-        total_excess, edge_excess(elev[src], elev[rem_dst], rem_dist, ok_r),
+        total_excess, _edge_excess(elev[rem_src], elev[rem_dst], rem_dist,
+                                   ok_r, talus_slope),
         rem_src, rem_dst)
 
     transfer = k_thermal * total_excess * 0.5
     shed = torch.where(total_excess > 0, transfer, 0.0)
-
-    # pass 2: received from each higher neighbour — the neighbour's
-    # transfer share across this edge
     nb_share = torch.where(
         total_excess > 0,
         transfer / torch.clamp(total_excess, min=1e-20), 0.0)
+    return shed, nb_share
+
+
+def thermal_receive(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                    rem_src, rem_dst, rem_dist, talus_slope, shed, nb_share):
+    """Pass 2: received from each higher neighbour — the neighbour's
+    transfer share across this edge — less what the cell sheds."""
+    n = band_mask.shape[0]
+    land = (~is_ocean) & valid
     recv = torch.zeros(n, device=elev.device)
     for d, off in enumerate(band_off):
         ok = band_mask[:, d] & land & band_shift(land, off)
-        excess_in = edge_excess(band_shift(elev, off), elev,
-                                band_dist[:, d], ok)
+        excess_in = _edge_excess(band_shift(elev, off), elev,
+                                 band_dist[:, d], ok, talus_slope)
         recv = recv + excess_in * band_shift(nb_share, off)
     # remainder: every directed edge appears exactly once across bands +
     # remainder, so one (src ← dst) pass covers all remaining flow
-    excess_in_r = edge_excess(elev[rem_dst], elev[src], rem_dist, ok_r)
+    ok_r = land[rem_src] & land[rem_dst]
+    excess_in_r = _edge_excess(elev[rem_dst], elev[rem_src], rem_dist, ok_r,
+                               talus_slope)
     recv = rem_add(recv, excess_in_r * nb_share[rem_dst], rem_src, rem_dst)
 
     out = elev + torch.where(land, recv - shed, 0.0)
     return out.to(torch.float32)
+
+
+def thermal_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                 rem_src, rem_dst, rem_dist, talus_slope, k_thermal):
+    """One talus step: :func:`thermal_shed`, then :func:`thermal_receive`."""
+    shed, nb_share = thermal_shed(elev, is_ocean, valid, band_off, band_mask,
+                                  band_dist, rem_src, rem_dst, rem_dist,
+                                  talus_slope, k_thermal)
+    return thermal_receive(elev, is_ocean, valid, band_off, band_mask,
+                           band_dist, rem_src, rem_dst, rem_dist, talus_slope,
+                           shed, nb_share)

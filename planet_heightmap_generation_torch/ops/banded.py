@@ -218,22 +218,25 @@ def rem_walk_edges(rem_src, rem_dst, host=None):
     into the remainder list of the k-th edge of the first U_k of them
     (those with more than k edges). Built once per pair of tensors, from
     ``host`` = (rem_src, rem_dst) numpy arrays where the caller has them
-    (mesh/device.py does), else from a copy to the host (one sync)."""
+    (mesh/device.py does), else on the tensors' own device (reading back
+    only the row-length counts)."""
     key = (id(rem_src), id(rem_dst))
     hit = _REM_WALKS.get(key)
     if hit is not None and hit[0]() is rem_src and hit[1]() is rem_dst:
         return hit[2]
-    src = rem_src.cpu().numpy() if host is None else np.asarray(host[0])
-    order = np.argsort(src, kind="stable")
-    cells, first, count = np.unique(src[order], return_index=True,
-                                    return_counts=True)
-    rows = np.argsort(-count, kind="stable")
-    walk = (torch.as_tensor(cells[rows], dtype=torch.int64,
-                            device=rem_src.device),
-            tuple(torch.as_tensor(order[first[rows[:int((count > k).sum())]]
-                                        + k], dtype=torch.int64,
-                                  device=rem_src.device)
-                  for k in range(int(count.max()) if count.size else 0)))
+    src = (rem_src if host is None
+           else torch.as_tensor(np.asarray(host[0]), dtype=torch.int64))
+    order = torch.argsort(src, stable=True)
+    cells, count = torch.unique_consecutive(src[order], return_counts=True)
+    first = torch.cumsum(count, 0) - count
+    rows = torch.argsort(-count, stable=True)
+    longest = count[rows[:1]]
+    ks = torch.arange(int(longest.sum()), device=src.device)
+    widths = (count[:, None] > ks[None, :]).sum(0).tolist()
+    dev = rem_src.device
+    walk = (cells[rows].to(dev),
+            tuple((order[first[rows[:u]] + k]).to(dev)
+                  for k, u in enumerate(widths)))
 
     def drop(_):
         _REM_WALKS.pop(key, None)

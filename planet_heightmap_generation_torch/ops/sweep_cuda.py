@@ -325,8 +325,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn, counter: str, *args):
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(fn, counter: str, device, *args):
+    """Launch ``fn`` on ``device`` (the card its tensors live on, also when
+    another card is current) and its current stream."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
     LAUNCHES[counter] += 1
@@ -424,9 +427,9 @@ def stress_relax(state, ocean, bits, band_off, rem_ptr, rem_nbr, rem_gate,
     out, tmp = torch.empty_like(state), torch.empty_like(state)
     ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "stress", _ptr(state), _ptr(ocean), _ptr(bits),
-            _ptr(rem_ptr), _ptr(rem_nbr), _ptr(rem_gate), rem_nbr.shape[0],
-            _ptr(out), _ptr(tmp), _ptr(ctl),
+    _launch(fn, "stress", state.device, _ptr(state), _ptr(ocean),
+            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), _ptr(rem_gate),
+            rem_nbr.shape[0], _ptr(out), _ptr(tmp), _ptr(ctl),
             _ptr(_sweep_total("stress", state.device)), bits.shape[1], g,
             offs, nd, float(decay), float(sub_decay), int(cap))
     return out, ctl[3:]
@@ -509,9 +512,10 @@ def warp_relax(state, w, bits, band_off, rem_ptr, rem_nbr, cap: int):
                         device=state.device)
     ctl = torch.zeros(4, dtype=torch.int32, device=state.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "warp", _ptr(state), _ptr(w), _ptr(bits), _ptr(rem_ptr),
-            _ptr(rem_nbr), rem_nbr.shape[0], _ptr(rcand), _ptr(out),
-            _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("warp", state.device)),
+    _launch(fn, "warp", state.device, _ptr(state), _ptr(w), _ptr(bits),
+            _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(rcand),
+            _ptr(out), _ptr(tmp), _ptr(ctl),
+            _ptr(_sweep_total("warp", state.device)),
             state.shape[1], offs, nd, int(cap))
     return out, ctl[3:]
 
@@ -604,7 +608,7 @@ def bfs_relax(cur, cost, bits, band_off, rem_ptr, rem_nbr, cap: int = 0):
     out, tmp = torch.empty_like(cur), torch.empty_like(cur)
     ctl = torch.zeros(4, dtype=torch.int32, device=cur.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "bfs_relax", _ptr(cur), _ptr(cost), _ptr(bits),
+    _launch(fn, "bfs_relax", cur.device, _ptr(cur), _ptr(cost), _ptr(bits),
             _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
             _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("bfs_relax", cur.device)),
             bits.shape[0], f, offs, nd, int(cap))
@@ -649,9 +653,9 @@ def _flood_relax(surf, inland, elev_baked, bits, band_off, rem_ptr, rem_nbr,
     out, tmp = torch.empty_like(surf), torch.empty_like(surf)
     ctl = torch.zeros(4, dtype=torch.int32, device=surf.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "flood", _ptr(surf), _ptr(inland), _ptr(elev_baked),
-            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
-            _ptr(out), _ptr(tmp), _ptr(ctl),
+    _launch(fn, "flood", surf.device, _ptr(surf), _ptr(inland),
+            _ptr(elev_baked), _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr),
+            rem_nbr.shape[0], _ptr(out), _ptr(tmp), _ptr(ctl),
             _ptr(_sweep_total("flood", surf.device)), surf.shape[0], offs, nd,
             float(big), float(eps), int(inner))
     return out, ctl[3:]
@@ -736,8 +740,9 @@ def smooth_relax(field, c, bits, band_off, rem_ptr, rem_nbr, passes: int,
         # rows of a contiguous [F, NP] plane: contiguous, 16-byte aligned
         part, tmp = field[lo:hi], torch.empty_like(field[lo:hi])
         ctl = torch.zeros(4, dtype=torch.int32, device=field.device)
-        _launch(fn, "smooth", _ptr(part), _ptr(c), _ptr(gate), _ptr(upd),
-                _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
+        _launch(fn, "smooth", field.device, _ptr(part), _ptr(c),
+                _ptr(gate), _ptr(upd), _ptr(bits), _ptr(rem_ptr),
+                _ptr(rem_nbr), rem_nbr.shape[0],
                 _ptr(out[lo:hi]), _ptr(tmp), _ptr(ctl), bits.shape[0],
                 hi - lo, offs, nd, int(passes))
     return out
@@ -827,9 +832,10 @@ def shadow_relax(state, aux, land, bits, band_off, rem_ptr, rem_nbr,
     wts = torch.empty((SHADOW_SLOTS, np_, 4), dtype=torch.float32,
                       device=state.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "shadow", _ptr(state), _ptr(aux), _ptr(land), _ptr(bits),
-            _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out),
-            _ptr(tmp), _ptr(ctl), _ptr(_sweep_total("shadow", state.device)),
+    _launch(fn, "shadow", state.device, _ptr(state), _ptr(aux), _ptr(land),
+            _ptr(bits), _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0],
+            _ptr(out), _ptr(tmp), _ptr(ctl),
+            _ptr(_sweep_total("shadow", state.device)),
             _ptr(lands), _ptr(wts), SHADOW_SLOTS,
             np_, offs, nd, float(retain_s), float(retain_w),
             int(shadow_hops), int(windward_hops))
@@ -891,7 +897,7 @@ def components_relax(lab, member, bits, band_off, rem_ptr, rem_nbr):
     buf = torch.empty((4, np_), dtype=torch.float32, device=lab.device)
     ctl = torch.zeros(4, dtype=torch.int32, device=lab.device)
     offs, nd = _offs(band_off)
-    _launch(fn, "components", _ptr(lab), _ptr(member), _ptr(bits),
+    _launch(fn, "components", lab.device, _ptr(lab), _ptr(member), _ptr(bits),
             _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(buf[0]),
             _ptr(buf[1]), _ptr(buf[2]), _ptr(buf[3]), _ptr(ctl),
             _ptr(_sweep_total("components", lab.device)), np_, offs, nd)
@@ -975,9 +981,10 @@ def _accumulate(fn, s, p, n_out: int, rounds: int, loop: bool,
     # the long rows' values, each in its ranked slot
     vbuf = None if counts else torch.empty(k * nf, dtype=torch.float32,
                                            device=dev)
-    _launch(fn, "accumulate", _ptr(s), _ptr(p), int(p.dtype == torch.int64),
-            k, n_out, nf, int(counts), int(rounds), int(loop),
-            int(stop_at_sink), _ptr(out), _ptr(tmp), _ptr(pbuf), _ptr(cnt),
+    _launch(fn, "accumulate", dev, _ptr(s), _ptr(p),
+            int(p.dtype == torch.int64), k, n_out, nf, int(counts),
+            int(rounds), int(loop), int(stop_at_sink), _ptr(out), _ptr(tmp),
+            _ptr(pbuf), _ptr(cnt),
             _ptr(offl), _ptr(cur), _ptr(lst), _ptr(vbuf), _ptr(bsum),
             _ptr(ctl), _ptr(_sweep_total("accumulate", dev)))
     return out, ctl[3:]

@@ -1,0 +1,234 @@
+"""The kernel loops of ops/sweep_cuda.py run split over a row of windows
+(parallel/windows.py), each equal to its one-launch form bit for bit.
+
+Every split loop takes the same inputs as its one-launch form, with each
+``[..., NP]`` plane a :class:`~.windows.CellShards` (cell axis last) and
+the band bits and remainder CSR a :class:`~.windows.WindowGraph`
+(``layout.graph(bits, band_off, rem_ptr, rem_nbr)``). Each shard's launch
+is the one-launch wrapper itself on its window: on CUDA windows it
+launches the CUDA kernel, on CPU windows it runs the plain version; the
+split adds no other branch. A loop returns ``(CellShards, count)`` with
+the count on the host; every window's halo and slots are exchanged at
+the end.
+
+Two loop modes, chosen per loop by what makes it equal the one-launch
+loop:
+
+- **per sweep**: one sweep (pass, hop) a launch on every window, then an
+  exchange; a fixpoint loop stops after the first sweep in which no chunk
+  changed, or at its cap. Every chunk row reads exact neighbour values in
+  every sweep, so this is the one-launch Jacobi loop, cap and sweep count
+  included: the distance BFS (capped or not), stress, warp, smoothing and
+  the rain shadow.
+- **stale-halo rounds**: a launch runs the loop to its fixpoint on the
+  window with the halo and slot rows frozen, then an exchange; the rounds
+  repeat until no chunk changed in one. Only for loops whose fixpoint is
+  unique: the ε-fill, and the components as min-label sweeps. Their
+  counts are rounds, not the one-launch form's sweeps or steps.
+
+The pointer-doubling sums (``accumulate_relax``, ``ordered_sum``) read
+pointers that reach any cell: the *gather* route all-gathers the chunks
+and runs the one launch once, on the layout's first device, and splits
+the result back (as XLA all-gathers the operands of a split dynamic
+gather). Once, not once per device: the loop's work is the whole array
+either way, and on one card W launches would only repeat it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import sweep_cuda
+from .windows import CellShards
+
+
+def chunks_changed(layout, old, new) -> bool:
+    """Whether any shard's chunk rows differ between windows ``old`` and
+    ``new`` (cell axis last): one host read."""
+    dev = layout.devices[0]
+    flags = [(layout.chunk(n, c, -1) != layout.chunk(o, c, -1)).any().to(dev)
+             for c, (o, n) in enumerate(zip(old, new))]
+    return bool(torch.stack(flags).any())
+
+
+def _per_sweep(layout, state, step, cap: int, fixpoint: bool = True):
+    """Per-sweep mode: ``step(windows, i)`` (sweep i on every shard), then
+    an exchange, until a sweep changes no chunk (``fixpoint``) or ``cap``
+    sweeps ran (<= 0: no cap). Returns (windows, sweeps)."""
+    state, n = list(state), 0
+    while cap <= 0 or n < cap:
+        new = step(state, n)
+        changed = not fixpoint or chunks_changed(layout, state, new)
+        layout.exchange(new, -1)
+        state, n = new, n + 1
+        if not changed:
+            break
+    return state, n
+
+
+def _stale_rounds(layout, state, run):
+    """Stale-halo mode: ``run(c, window)`` (a loop to the window's fixpoint
+    with frozen halo and slots) on every shard, then an exchange, until a
+    round changes no chunk. Returns (windows, rounds)."""
+    state, n = list(state), 0
+    while True:
+        new = [run(c, w) for c, w in enumerate(state)]
+        changed = chunks_changed(layout, state, new)
+        layout.exchange(new, -1)
+        state, n = new, n + 1
+        if not changed:
+            return state, n
+
+
+def _each(launch):
+    """A per-sweep step that runs ``launch(c, window, i)`` on every
+    shard."""
+    return lambda ws, i: [launch(c, x, i) for c, x in enumerate(ws)]
+
+
+def _out(x: CellShards, windows) -> CellShards:
+    return CellShards(x.layout, windows, -1)
+
+
+def sharded_bfs_relax(cur, cost, wg, cap: int = 0):
+    """:func:`sweep_cuda.bfs_relax` per sweep: the cap (which binds before
+    the fixpoint on the path) and the sweep count are the one launch's."""
+    step = _each(lambda c, x, _: sweep_cuda.bfs_relax(
+        x, cost.windows[c], wg.bits(c), wg.band_off, *wg.csr(c), 1)[0])
+    out, n = _per_sweep(cur.layout, cur.windows, step, int(cap))
+    return _out(cur, out), n
+
+
+def sharded_stress_relax(state, ocean, wg, rem_gate, decay: float,
+                         sub_decay: float, cap: int):
+    """:func:`sweep_cuda.stress_relax` per sweep (a capped argmax with
+    payload ties: no schedule but the Jacobi one gives its values).
+    ``rem_gate`` [G, M] is the global gate in CSR order."""
+    gates = [wg.edge_rows(rem_gate, c) for c in range(len(wg.shards))]
+    step = _each(lambda c, x, _: sweep_cuda.stress_relax(
+        x, ocean.windows[c], wg.bits(c), wg.band_off, *wg.csr(c), gates[c],
+        decay, sub_decay, 1)[0])
+    out, n = _per_sweep(state.layout, state.windows, step, int(cap))
+    return _out(state, out), n
+
+
+def sharded_warp_relax(state, w, wg, cap: int):
+    """:func:`sweep_cuda.warp_relax` per sweep: it stops at its first sweep
+    that changes nothing, and a sweep changed something exactly where a
+    chunk's state changed (a pick is strictly nearer, so its coordinates
+    differ). A sweep's remainder phase reads its neighbours' band-phase
+    output, so each sweep is two launches of the kernel with an exchange
+    between: the band phase (an empty remainder CSR), then the remainder
+    phase (no band bits). The source index stays a global value: it rides
+    along and is never dereferenced."""
+    lay = state.layout
+    if int(cap) < 1:
+        return _out(state, [x.clone() for x in state.windows]), 0
+    no_rows = [(torch.zeros(lay.length(c) + 1, dtype=torch.int32, device=d),
+                torch.zeros(0, dtype=torch.int32, device=d))
+               for c, d in enumerate(lay.devices)]
+    no_bits = [torch.zeros(lay.length(c), dtype=torch.int32, device=d)
+               for c, d in enumerate(lay.devices)]
+    bands = _each(lambda c, x, _: sweep_cuda.warp_relax(
+        x, w.windows[c], wg.bits(c), wg.band_off, *no_rows[c], 1)[0])
+    rows = _each(lambda c, x, _: sweep_cuda.warp_relax(
+        x, w.windows[c], no_bits[c], wg.band_off, *wg.csr(c), 1)[0])
+
+    def step(ws, i):
+        new = bands(ws, i)
+        lay.exchange(new, -1)
+        return rows(new, i)
+
+    out, n = _per_sweep(lay, state.windows, step, int(cap))
+    return _out(state, out), n
+
+
+def sharded_flood_relax(surf, inland, elev_baked, wg, big: float,
+                        eps: float):
+    """:func:`sweep_cuda.flood_relax` in stale-halo rounds: the ε-fill's
+    fixpoint is unique, so the rounds reach its surface. The count is
+    rounds."""
+    def run(c, x):
+        return sweep_cuda.flood_relax(x, inland.windows[c],
+                                      elev_baked.windows[c], wg.bits(c),
+                                      wg.band_off, *wg.csr(c), big, eps)[0]
+
+    out, n = _stale_rounds(surf.layout, surf.windows, run)
+    return _out(surf, out), n
+
+
+def sharded_smooth_relax(field, c_norm, wg, passes: int, gate=None,
+                         upd=None):
+    """:func:`sweep_cuda.smooth_relax` one pass a launch (a fixed pass
+    count; every pass reads exact neighbours)."""
+    if int(passes) < 1:
+        raise ValueError(f"smoothing takes at least one pass, got {passes}")
+    step = _each(lambda c, x, _: sweep_cuda.smooth_relax(
+        x, c_norm.windows[c], wg.bits(c), wg.band_off, *wg.csr(c), 1,
+        None if gate is None else gate.windows[c],
+        None if upd is None else upd.windows[c]))
+    out, _ = _per_sweep(field.layout, field.windows, step, int(passes),
+                        fixpoint=False)
+    return _out(field, out)
+
+
+def sharded_shadow_relax(state, aux, land, wg, retain_s: float,
+                         retain_w: float, shadow_hops: int,
+                         windward_hops: int):
+    """:func:`sweep_cuda.shadow_relax` one hop a launch: hop i updates the
+    shadow columns while i < ``shadow_hops`` and the windward columns while
+    i < ``windward_hops`` (a launch of one hop with 0 for a column that has
+    stopped). The count is the hops, ``max(shadow_hops, windward_hops)``."""
+    hops = max(int(shadow_hops), int(windward_hops), 0)
+    if hops == 0:
+        return _out(state, [x.clone() for x in state.windows]), 0
+    step = _each(lambda c, x, i: sweep_cuda.shadow_relax(
+        x, aux.windows[c], land.windows[c], wg.bits(c), wg.band_off,
+        *wg.csr(c), retain_s, retain_w, int(i < int(shadow_hops)),
+        int(i < int(windward_hops)))[0])
+    out, n = _per_sweep(state.layout, state.windows, step, hops,
+                        fixpoint=False)
+    return _out(state, out), n
+
+
+def sharded_components_relax(lab, wg):
+    """:func:`sweep_cuda.components_relax` as min-label sweeps
+    (``bfs_relax`` at zero cost over the gated bits and rows) in stale-halo
+    rounds. The one-launch loop's hook and jumps dereference labels, which
+    are global cell indices, so they cannot run on a window; they only
+    hasten the loop to the same labels, the unique least min-label fixpoint
+    from the initial labels over symmetric gates (each component's least
+    initial label; non-members without a gated edge keep theirs), so the
+    member mask is not needed. The count is rounds, not steps."""
+    zeros = [torch.zeros((1, x.shape[-1]), dtype=torch.float32,
+                         device=x.device) for x in lab.windows]
+
+    def run(c, x):
+        return sweep_cuda.bfs_relax(x[None], zeros[c], wg.bits(c),
+                                    wg.band_off, *wg.csr(c), 0)[0][0]
+
+    out, n = _stale_rounds(lab.layout, lab.windows, run)
+    return _out(lab, out), n
+
+
+def sharded_accumulate_relax(s, p, rounds: int, stop_at_sink: bool = True):
+    """:func:`sweep_cuda.accumulate_relax` by the gather route: ``s``
+    ([N] or [N, F]) and ``p`` ([N], global indices, the sink at N) split
+    with cell axis 0, all-gathered to the first device, one launch there,
+    the sums split back. Returns (CellShards, rounds)."""
+    lay = s.layout
+    out, ran = sweep_cuda.accumulate_relax(s.gather(), p.gather(), rounds,
+                                           stop_at_sink)
+    return CellShards(lay, lay.split(out, 0), 0), int(ran)
+
+
+def sharded_ordered_sum(n_out: int, idx, vals):
+    """:func:`sweep_cuda.ordered_sum` by the gather route over ``idx`` and
+    ``vals`` split with cell axis 0: the sum on the first device, split
+    back when it is cell-indexed (``n_out`` = NP), else that one tensor
+    (bins: replicated, as a psum leaves it)."""
+    lay = vals.layout
+    out = sweep_cuda.ordered_sum(n_out, idx.gather(), vals.gather())
+    if int(n_out) == lay.n_padded:
+        return CellShards(lay, lay.split(out, 0), 0)
+    return out

@@ -1,0 +1,366 @@
+"""Multi-device scaling — a cells × seed split of the terrain step, the
+port of the JAX package's ``parallel/sharding.py``.
+
+The JAX package places each ``[N]``-leading array with a ``NamedSharding``
+and XLA's SPMD partitioner inserts the collectives. The port's kernels
+run whole loops in one launch over whole planes, so its split is explicit
+(parallel/windows.py): windows with a halo of the largest band offset and
+remainder slots, filled from their owners by an exchange.
+
+The mesh is single-controller, as JAX's ``Mesh`` is: one process holds a
+``seed`` × ``cells`` grid of ``torch.device``s and runs each shard's work
+in turn, the copies between devices being ``copy_``s. A device may appear
+more than once, where the caller lists it so (``["cpu"] * 8`` in the
+tests, ``["cuda:0"] * 4`` on one card). Without ``devices`` the mesh takes
+the visible CUDA devices.
+
+- **Seeds** split over ``seed``: each seed group runs its seeds in turn
+  (the JAX package ``vmap``s them; the port has no ``vmap`` over its
+  hand-written kernels).
+- **Cells** split over ``cells``: pointwise ops run on the chunk, banded
+  and remainder ops on the window right after an exchange, pointer loops
+  (flow accumulation, the stream-power solve) on gathered whole arrays on
+  the row's first device, and the global mean on the gathered elevation
+  with the same call as the single-device step. So the split step equals
+  the single-device step bit for bit on the same device type.
+
+JAX's ``no_persistent_cache`` guards its compile cache, which the port
+does not have; ``shard_fused_args`` places the engine's fused arguments
+and comes with ``PlanetEngine(mesh=)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..erosion.fluvial import (flow_accumulation, steepest_receivers,
+                               stream_power_solve)
+from ..erosion.smooth import smooth_elevation
+from ..erosion.thermal import thermal_receive, thermal_shed, thermal_step
+from ..ops.banded import band_nbr_dist
+from ..ops.noise import Tables, fbm
+from .windows import CellShards, WindowLayout, _norm_device
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CellsMesh:
+    """A ``seed`` × ``cells`` grid of devices (``devices[r][c]``). It keeps
+    the window layouts built on it, one per (seed row, graph)."""
+
+    devices: tuple
+    axis_names: tuple
+    _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def shape(self) -> dict:
+        return {"seed": len(self.devices), "cells": len(self.devices[0])}
+
+    def layout(self, row: int, n_padded: int, band_off, rem_src=None,
+               rem_dst=None) -> WindowLayout:
+        """The window layout of seed row ``row`` for a graph of
+        ``n_padded`` cells, built once per (row, graph tensors)."""
+        key = (row, int(n_padded), tuple(int(o) for o in band_off),
+               id(rem_src), id(rem_dst))
+        hit = self._layouts.get(key)
+        if hit is None:
+            # the edge tensors stay referenced, so their ids stay theirs
+            hit = (rem_src, rem_dst, WindowLayout(
+                self.devices[row], n_padded, band_off,
+                None if rem_src is None else _tensor(rem_src),
+                None if rem_dst is None else _tensor(rem_dst)))
+            self._layouts[key] = hit
+        return hit[2]
+
+
+def _devices(n_devices: Optional[int], devices: Optional[Sequence]) -> list:
+    """``n_devices`` of ``devices`` (the visible CUDA devices by
+    default). Asking for more than the list holds raises: the port takes
+    no other backend in their place."""
+    if devices is None:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [_norm_device(d) for d in devices]
+    n = len(devs) if n_devices is None else int(n_devices)
+    if n < 1 or len(devs) < n:
+        raise ValueError(f"a mesh of {n} devices needs as many, got "
+                         f"{len(devs)}: {[str(d) for d in devs]}")
+    return devs[:n]
+
+
+def make_planet_mesh(n_devices: Optional[int] = None, seed_parallel: int = 1,
+                     devices: Optional[Sequence] = None) -> CellsMesh:
+    """Device mesh with ('seed', 'cells') axes. ``seed_parallel`` rows run
+    independent planets; each row splits the cell dimension. Where the JAX
+    package falls back to the virtual CPU backend when the default backend
+    has too few devices, this raises: a mesh never runs on a device its
+    caller did not list. ``seed_parallel`` must divide ``n_devices``."""
+    devs = _devices(n_devices, devices)
+    sp = int(seed_parallel)
+    if sp < 1 or len(devs) % sp:
+        raise ValueError(f"seed_parallel {seed_parallel} does not divide "
+                         f"{len(devs)} devices")
+    per = len(devs) // sp
+    grid = tuple(tuple(devs[r * per:(r + 1) * per]) for r in range(sp))
+    return CellsMesh(grid, ("seed", "cells"))
+
+
+def cells_mesh(n_devices: Optional[int] = None,
+               devices: Optional[Sequence] = None) -> CellsMesh:
+    """One-row mesh with a single 'cells' axis: the split of one planet's
+    cells over the devices (raises, as :func:`make_planet_mesh`, where
+    the list is too short)."""
+    return CellsMesh((tuple(_devices(n_devices, devices)),), ("cells",))
+
+
+@dataclasses.dataclass
+class MeshShards:
+    """A value split over a whole mesh: one :class:`CellShards` per seed
+    row, holding that row's seed group (``batched``) or a replica."""
+
+    rows: tuple
+    batched: bool
+
+
+def _tensor(x):
+    return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+
+
+def shard_cells(mesh: CellsMesh, *arrays, batched: bool = False,
+                bands=None):
+    """Place [N] / [N, K] arrays (or [B, N, ...] when ``batched``) with the
+    cell dimension split over the 'cells' axis (and the batch over 'seed';
+    B must divide into the seed rows): a :class:`MeshShards` per array.
+    ``bands`` = (band_off, band_mask, rem_src, rem_dst) gives the windows
+    their halo and remainder slots (parallel/windows.py); without it each
+    shard holds its chunk alone."""
+    out = []
+    for a in arrays:
+        a = _tensor(a)
+        axis = 1 if batched else 0
+        rows = []
+        for r in range(len(mesh.devices)):
+            lay = _layout(mesh, r, a.shape[axis], bands)
+            part = a
+            if batched:
+                if a.shape[0] % len(mesh.devices):
+                    raise ValueError(f"a batch of {a.shape[0]} does not "
+                                     f"split over {len(mesh.devices)} seed "
+                                     "rows")
+                part = a.chunk(len(mesh.devices), 0)[r]
+            rows.append(CellShards(lay, lay.split(part, axis), axis))
+        out.append(MeshShards(tuple(rows), batched))
+    return out if len(out) > 1 else out[0]
+
+
+def _layout(mesh, row, n_padded, bands):
+    if bands is None:
+        return mesh.layout(row, n_padded, ())
+    band_off, _, rem_src, rem_dst = bands
+    return mesh.layout(row, n_padded, band_off, rem_src, rem_dst)
+
+
+def replicate(mesh: CellsMesh, *arrays):
+    """Every device of the mesh holds the whole array: per array a tuple
+    of one tensor per device (row-major), one copy per distinct device."""
+    out = []
+    for a in arrays:
+        a = _tensor(a)
+        copies = {}
+        for d in (d for row in mesh.devices for d in row):
+            if str(d) not in copies:
+                copies[str(d)] = a.to(d)
+        out.append(tuple(copies[str(d)] for row in mesh.devices for d in row))
+    return out if len(out) > 1 else out[0]
+
+
+def gather_cells(x, device=None):
+    """The whole tensor of a split value, in cell (and seed) order, on
+    ``device`` (the first shard's device by default)."""
+    if isinstance(x, CellShards):
+        return x.gather(device)
+    if not x.batched:
+        return x.rows[0].gather(device)
+    dev = x.rows[0].layout.devices[0] if device is None else device
+    return torch.cat([r.gather(dev) for r in x.rows], 0)
+
+
+def _f32(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def terrain_step(elev, pos, band_mask, rem_src, rem_dst, valid, perm, pm12,
+                 band_off):
+    """One full terrain step — the framework's 'training step' analog: fbm
+    tectonic forcing, then one composite erosion iteration with the
+    production functions (banded steepest-receiver routing, flow
+    accumulation and the Braun-Willett affine solve through the accumulate
+    kernel on the card, talus thermal transport, bilateral smoothing),
+    closed by a global mean correction. On the device of ``elev``;
+    ``rem_src`` / ``rem_dst`` are the real remainder edges (DeviceGraph's),
+    ``perm`` / ``pm12`` a [512] noise table pair. Mirrors one iteration of
+    erodeComposite (reference js/terrain-post.js:369-707)."""
+    dev = elev.device
+    t = Tables(_tensor(perm).to(dev).long(), _tensor(pm12).to(dev).long())
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    uplift = fbm(t, x * 4, y * 4, z * 4, 4) * 0.05
+    e = elev + torch.where(valid, uplift, 0.0)
+    is_ocean = (e <= 0) & valid
+
+    band_dist = band_nbr_dist(pos, band_off, band_mask)
+    rem_dist = torch.linalg.vector_norm(pos[rem_src] - pos[rem_dst],
+                                        dim=1).to(torch.float32)
+
+    # hydraulic: route → accumulate → implicit stream-power solve
+    rcv, dist, is_pit = steepest_receivers(
+        e, is_ocean, valid, band_off, band_mask, band_dist, rem_src, rem_dst,
+        rem_dist)
+    e = _fluvial(e, is_ocean, valid, rcv, dist, is_pit)
+
+    # thermal talus transport + ridge-preserving bilateral smooth
+    e = thermal_step(e, is_ocean, valid, band_off, band_mask, band_dist,
+                     rem_src, rem_dst, rem_dist, _f32(0.8, dev),
+                     _f32(0.15, dev))
+    e = smooth_elevation(e, is_ocean, valid, band_off, band_mask, rem_src,
+                         rem_dst, 1, _f32(0.3, dev))
+    return (e - 0.01 * _mean_land(e, valid)).to(torch.float32)
+
+
+def _fluvial(e, is_ocean, valid, rcv, dist, is_pit):
+    """Flow accumulation and the stream-power solve on whole arrays."""
+    dev = e.device
+    land = (~is_ocean) & valid
+    flow = flow_accumulation(land, rcv, is_pit, rounds=12)
+    return stream_power_solve(e, is_ocean, valid, rcv, dist, is_pit, flow,
+                              _f32(3e-4, dev), _f32(0.5, dev),
+                              _f32(1.0, dev), rounds=12)
+
+
+def _mean_land(e, valid):
+    """The global reduction: mean elevation over the valid cells."""
+    return torch.sum(torch.where(valid, e, 0.0)) / torch.clamp(
+        torch.sum(valid), min=1)
+
+
+@dataclasses.dataclass
+class _RowGraph:
+    """One seed row's static windows: positions, validity, band masks,
+    edge lists, edge lengths and global index bases, per shard."""
+
+    layout: WindowLayout
+    pos: list
+    valid: list
+    band_mask: list
+    edges: list
+    band_dist: list
+    rem_dist: list
+    base: list
+
+
+def _row_graph(lay, pos, band_mask, valid) -> _RowGraph:
+    pos_w = lay.split(pos)
+    bm_w = lay.band_mask(band_mask)
+    edges = lay.edges()
+    return _RowGraph(
+        lay, pos_w, lay.split(valid), bm_w, edges,
+        [band_nbr_dist(p, lay.band_off, m) for p, m in zip(pos_w, bm_w)],
+        [torch.linalg.vector_norm(p[s] - p[d], dim=1).to(torch.float32)
+         for p, (s, d) in zip(pos_w, edges)],
+        lay.index_base())
+
+
+def _split_step(rg: _RowGraph, elev_w, tables):
+    """:func:`terrain_step` of one seed over one row's windows ``elev_w``
+    ([L] each), ``tables[c]`` the seed's noise tables on shard c's device.
+    Returns the windows of the new elevation, exchanged."""
+    lay, off = rg.layout, rg.layout.band_off
+    n_sh = lay.n_shards
+    h = lay.halo
+
+    # pointwise on the chunk, then an exchange
+    e_w = [w.clone() for w in elev_w]
+    for c in range(n_sh):
+        p = lay.chunk(rg.pos[c], c)
+        uplift = fbm(tables[c], p[:, 0] * 4, p[:, 1] * 4, p[:, 2] * 4,
+                     4) * 0.05
+        e_w[c][h:h + lay.chunk_len(c)] = (
+            lay.chunk(elev_w[c], c)
+            + torch.where(lay.chunk(rg.valid[c], c), uplift, 0.0))
+    lay.exchange(e_w)
+    ocean_w = [(e <= 0) & v for e, v in zip(e_w, rg.valid)]
+
+    # routing on the windows; the pointer loops on gathered whole arrays
+    routed = [steepest_receivers(
+        e_w[c], ocean_w[c], rg.valid[c], off, rg.band_mask[c],
+        rg.band_dist[c], *rg.edges[c], rg.rem_dist[c],
+        index_base=rg.base[c]) for c in range(n_sh)]
+    whole = [lay.gather(x) for x in (e_w, ocean_w, rg.valid,
+                                     *zip(*routed))]
+    e_w = lay.split(_fluvial(*whole))
+
+    # thermal: pass 1, an exchange of the edge shares, pass 2
+    dev = [e.device for e in e_w]
+    args = [(e_w[c], ocean_w[c], rg.valid[c], off, rg.band_mask[c],
+             rg.band_dist[c], *rg.edges[c], rg.rem_dist[c],
+             _f32(0.8, dev[c])) for c in range(n_sh)]
+    shed = [thermal_shed(*a, _f32(0.15, dev[c])) for c, a in enumerate(args)]
+    share = [s for _, s in shed]
+    lay.exchange(share)
+    e_w = [thermal_receive(*a, s, share[c])
+           for c, (a, (s, _)) in enumerate(zip(args, shed))]
+    lay.exchange(e_w)
+    e_w = [smooth_elevation(e_w[c], ocean_w[c], rg.valid[c], off,
+                            rg.band_mask[c], *rg.edges[c], 1,
+                            _f32(0.3, dev[c])) for c in range(n_sh)]
+
+    mean = _mean_land(lay.gather(e_w), lay.gather(rg.valid))
+    out = [(e - 0.01 * mean.to(e.device)).to(torch.float32) for e in e_w]
+    lay.exchange(out)
+    return out
+
+
+def batched_terrain_step(mesh: CellsMesh, band_off: tuple):
+    """:func:`terrain_step` over a seed batch on the ('seed', 'cells') mesh
+    — the multi-chip 'training step' equivalent. Returns
+    ``step(elev [B, NP], pos, band_mask, rem_src, rem_dst, valid,
+    perm [B, 512], pm12 [B, 512])`` → a batched :class:`MeshShards`
+    [B, NP] (seeds over 'seed', cells over 'cells', as JAX's
+    ``out_shardings``). It places its arguments as JAX's ``in_shardings``
+    do: elevation split over both axes, positions, band masks and validity
+    over 'cells', the remainder edges replicated (they build the window
+    layout), the noise tables over 'seed'. Each seed group runs its seeds
+    in turn."""
+    band_off = tuple(int(o) for o in band_off)
+    rows = len(mesh.devices)
+
+    def step(elev, pos, band_mask, rem_src, rem_dst, valid, perm, pm12):
+        elev, perm, pm12 = _tensor(elev), _tensor(perm), _tensor(pm12)
+        b, npd = elev.shape
+        if b % rows:
+            raise ValueError(f"a batch of {b} does not split over {rows} "
+                             "seed rows")
+        per = b // rows
+        bands = (band_off, None, rem_src, rem_dst)
+        out = []
+        for r in range(rows):
+            lay = _layout(mesh, r, npd, bands)
+            rg = _row_graph(lay, _tensor(pos), _tensor(band_mask),
+                            _tensor(valid))
+            e_rows = lay.split(elev[r * per:(r + 1) * per], 1)
+            seeds = []
+            for k in range(r * per, (r + 1) * per):
+                tabs = {str(d): Tables(perm[k].to(d).long(),
+                                       pm12[k].to(d).long())
+                        for d in lay.devices}
+                seeds.append(_split_step(
+                    rg, [w[k - r * per] for w in e_rows],
+                    [tabs[str(d)] for d in lay.devices]))
+            out.append(CellShards(lay, [torch.stack([s[c] for s in seeds])
+                                        for c in range(lay.n_shards)], 1))
+        return MeshShards(tuple(out), True)
+
+    return step

@@ -118,6 +118,42 @@ def test_flow_accumulation_matches_jax(kind):
     assert_bits(got.numpy(), want)
 
 
+@pytest.mark.parametrize("kind", KINDS + ["cycle"])
+def test_monotonic_enforce_matches_jax(kind):
+    """The flood carve's max-plus doubling ``elev'[r] = max_k(g[d^k(r)] +
+    k·ε)`` against the JAX function, bit for bit. On drain pointers that
+    lead into a cycle (the ``cycle`` forest: a 3-cycle fed by a chain) the
+    doubling never reaches the sink and runs its whole round cap R =
+    ceil(log2 N) + 2 in both packages, adding (2^R - 1)·ε to every cell
+    leading into the cycle: a rise set by the mesh size, not the terrain
+    (the growth of the elevation maximum with N, ROADMAP §3 item 6)."""
+    from planet_heightmap_generation_tpu.erosion import flood as jfd
+    from planet_heightmap_generation_torch.erosion import flood as tfd
+    from planet_heightmap_generation_torch.erosion.fluvial import log_rounds
+
+    rcv, rounds = forest("pits" if kind == "cycle" else kind)
+    ring = [100, 101, 102]
+    rng = np.random.default_rng(4)
+    elev = rng.random(N).astype(np.float32)
+    is_ocean = rng.random(N) < 0.1
+    valid = rng.random(N) < 0.97
+    if kind == "cycle":
+        rcv[ring] = [101, 102, 100]
+        rcv[103:110] = 102            # a few cells drain into the cycle
+        is_ocean[ring], valid[ring] = False, True
+    want = jfd.monotonic_enforce(jnp.asarray(elev), jnp.asarray(
+        rcv.astype(np.int32)), jnp.asarray(is_ocean), jnp.asarray(valid),
+        rounds=rounds)
+    got = tfd.monotonic_enforce(torch.as_tensor(elev), torch.as_tensor(rcv),
+                                torch.as_tensor(is_ocean),
+                                torch.as_tensor(valid), rounds=rounds)
+    assert_bits(got.numpy(), want)
+    if kind == "cycle":
+        rise = got.numpy()[ring] - elev[ring].max()
+        np.testing.assert_allclose(rise, (2 ** log_rounds(N) - 1) * tfd.EPS,
+                                   rtol=1e-3)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_downstream_accumulate_matches_jax(kind):
     from planet_heightmap_generation_tpu.erosion import flood as jfd

@@ -14,10 +14,13 @@ star row past the ranking limit, a fixed-round ice flow with -0.0 values)
 and its one-round form (few targets, long rows), and the components
 launch on a 2000-cell mesh (every cell, a subset, a sparse subset), and
 every staged launch at chip_smoke.py's synthetic shapes past 204K, whose
-chunks the window cap binds (``plan_checks``). It
+chunks the window cap binds (``plan_checks``), and the eight loops split
+over three windows of a 2000-cell mesh (parallel/loops.py) against their
+unsplit plain loops (``split_checks``). It
 checks indexing, barriers, shuffles and loop control before a run on the
 card; it says nothing about speed. Exits 1 on any difference.
 """
+import contextlib
 import os
 import re
 import subprocess
@@ -66,6 +69,7 @@ def use_library(lib: str) -> None:
     sc._on_cpu = lambda x: False
     torch.cuda.current_stream = lambda *a: types.SimpleNamespace(
         cuda_stream=0)
+    torch.cuda.device = lambda *a: contextlib.nullcontext()
 
 
 def plain(fn, *args):
@@ -188,10 +192,38 @@ def plan_checks() -> bool:
     return True
 
 
+def split_checks() -> bool:
+    """The eight loops split over three windows (parallel/loops.py: the
+    kernels on every window, per sweep or in stale-halo rounds) against
+    their unsplit plain loops, on a 2000-cell mesh: the checks of
+    tests/test_torch_sharding.py with the emulated kernels in the split
+    loops' wrappers."""
+    from planet_heightmap_generation_torch.mesh.build import build_sphere
+    from planet_heightmap_generation_torch.mesh.device import to_device
+    from planet_heightmap_generation_torch.ops.rng import ParkMiller
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_sharding as t
+
+    g = to_device(build_sphere(2000, 0.75, rng=ParkMiller(42)), "cpu")
+    csr = banded.rem_csr(g.rem_src, g.rem_dst, g.n_padded)
+    t.sphere_graph = lambda: (g, *csr)
+    ok = True
+    for name, fn in t.LOOPS.items():
+        try:
+            fn(3)
+            print(f"split {name} over 3 windows: bit-identical", flush=True)
+        except AssertionError as e:
+            print(f"split {name} over 3 windows: DIFFERS {e}", flush=True)
+            ok = False
+    return ok
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         use_library(build(d))
-        ok = accumulate_checks() & components_checks() & plan_checks()
+        ok = (accumulate_checks() & components_checks() & plan_checks()
+              & split_checks())
     print("all bit-identical" if ok else "DIFFERENCES FOUND")
     return 0 if ok else 1
 
