@@ -131,13 +131,27 @@ Phases (any failure exits non-zero with its traceback):
    ``LOOP_SITES``; the distance BFS at F=4, cap 119) replayed split over
    four windows of ``cuda:0`` (parallel/loops.py) against its one launch,
    bit for bit, in its count too where the split runs the same sweeps,
-   with its launches, exchanges and wall beside the one launch's µs.
+   with its launches, exchanges and wall beside the one launch's µs;
+11. the split generate: the default generate (204K, climate on) under
+   ``PlanetEngine(device="cuda:0", mesh=cells_mesh(4, ["cuda:0"] * 4))``
+   (parallel/spmd.py: a thread per window, the stages unchanged, their
+   neighbour reads after an exchange, their kernel loops by the split
+   routes of phase 10, their global reductions on gathered arrays), cold
+   then warm, against a single-device generate: elevation within 2e-3,
+   no NaN, the plate count, every climate field finite and every Köppen
+   code valid; each output's largest difference and bit equality, the
+   warm split's kernel launches (the components loop's split route
+   launches ``bfs_relax``, not ``components``), exchanges, collectives,
+   gathered calls and bytes and peak device memory; then a reapply on the
+   split engine, which runs unsplit on ``cuda:0``, against the single
+   engine's under the same gate. Over ``cuda:0..3`` where the machine has
+   four cards, else one line says why not.
 
 Before the last line come JSON objects of the commands' wall times, the
 sizes past 204K, the 4M sweep, the plans past 204K, the product
-surfaces' wall times and the split, a JSON object with one entry per
+surfaces' wall times, the split and the split generate, a JSON object with one entry per
 kernel (each with its ``sharded`` record: equal, launches, exchanges,
-ms) and the card's name and power limit; the last line is
+ms; and ``split_generate_launches``, its launches in phase 11's warm split) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with
 code 1 before printing any result.
 """
@@ -2057,6 +2071,125 @@ def split_loop_checks(calls, devices=None, reps: int = 20):
     return out
 
 
+# ── phase 11: the split generate ──────────────────────────────────────
+
+# the terrain outputs phase 11 holds against the single generate
+SPLIT_OUTPUTS = ("elevation", "pre_post_elevation", "r_plate", "stress",
+                 "mountain_mask", "coastline_mask", "ocean_seed_mask",
+                 "t_elevation")
+# the slider change of the reapply after the split generate
+SPLIT_SCULPT = dict(smoothing=0.6, terrain_warp=0.3)
+
+
+def split_outputs(res):
+    """(name, tensor) of every output phase 11 compares: the terrain ones
+    and each climate field."""
+    for name in SPLIT_OUTPUTS:
+        yield name, getattr(res, name)
+    for part in ("wind", "ocean", "precip", "temp"):
+        for k, v in res.climate[part].items():
+            if torch.is_tensor(v):
+                yield f"{part}.{k}", v
+    yield "koppen", res.climate["koppen"]
+
+
+def split_compare(res, ref, label: str) -> dict:
+    """Print each output's largest difference against ``ref`` and whether
+    every bit matches; gate the elevation at 2e-3 (JAX
+    tests/test_parallel.py:168). Returns {name: [max |d|, equal]}."""
+    want = dict(split_outputs(ref))
+    out = {}
+    for name, v in split_outputs(res):
+        w = want[name]
+        assert v.shape == w.shape and v.dtype == w.dtype, name
+        a, b = v.double(), w.double()
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(b)), name
+        d = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+        out[name] = [d, bool(torch.equal(v, w))]
+    for name, (d, eq) in out.items():
+        print(f"  {label} {name}: max |d| {d:.3g}, bit-identical {eq}",
+              flush=True)
+    assert out["elevation"][0] < 2e-3, out["elevation"]
+    return out
+
+
+def split_generate_checks(dev, params, devices, ref=None):
+    """The default generate (204K, climate on) under ``PlanetEngine(
+    device=devices[0], mesh=cells_mesh(4, devices))``, cold then warm,
+    against a single-device generate of ``dev`` (``ref``, else run here):
+    the 2e-3 elevation gate, no NaN, the plate count, every climate field
+    finite and every Köppen code valid, each output's largest difference
+    and bit equality, the kernels launched by the warm split (the counts
+    set to 0 just before it and read just after), its exchanges,
+    collectives, gathered calls and bytes, its peak device memory; then a
+    reapply on both engines, which must run on ``devices[0]`` and pass the
+    same gate. Returns a record."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+    from planet_heightmap_generation_torch.parallel.sharding import (
+        cells_mesh)
+    from planet_heightmap_generation_torch.pipeline.engine import PlanetEngine
+
+    single = PlanetEngine(device=dev, timing=False)
+    if ref is None:
+        ref, single_s = timed(lambda: single.generate(params))
+    else:
+        single.generate(params)
+        single_s = None
+    label = f"split over {len(devices)} windows of " + ",".join(
+        sorted({str(d) for d in devices}))
+    eng = PlanetEngine(device=devices[0], timing=False,
+                       mesh=cells_mesh(len(devices), devices))
+    _, cold_s = timed(lambda: eng.generate(params))
+    torch.cuda.reset_peak_memory_stats()
+    sweep_cuda.reset_launches()
+    res, warm_s = timed(lambda: eng.generate(params))
+    launches = dict(sweep_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(eng.split_stats)
+    print(f"{label}: generate 204K (default, climate on) cold {cold_s:.2f} "
+          f"s, warm {warm_s:.3f} s; single generate "
+          + ("(phase 11) " + f"{single_s:.3f} s" if single_s is not None
+             else "of phase 3 above"), flush=True)
+    assert res.error is None, res.error
+    diag, plates = check_planet(res, params.n_plates)
+    print(f"  diagnostics: {diag}, plates {plates}; climate: "
+          + check_climate(res), flush=True)
+    diffs = split_compare(res, ref, "split")
+    print(f"  kernels launched by the warm split generate: "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    # the components loop's split route is min-label sweeps of bfs_relax
+    # (parallel/loops.py sharded_components_relax): it launches no
+    # components kernel
+    missing = [k for k, v in launches.items() if v == 0 and k != "components"]
+    assert not missing, f"kernels not launched by the split: {missing}"
+    print(f"  {stats['exchanges']} exchanges, {stats['collectives']} "
+          f"collectives, {stats['launches']} split kernel loops, "
+          f"{stats['gathered_calls']} gathered calls moving "
+          f"{stats['gathered_bytes'] / 2 ** 20:.1f} MiB; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    spent = sorted(stats["leader_s"].items(), key=lambda kv: -kv[1])
+    print(f"  leader time in collectives (host s; the other shards wait): "
+          f"{sum(stats['leader_s'].values()):.3f} of {warm_s:.3f} s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spent[:12]), flush=True)
+    want_r = single.reapply(SPLIT_SCULPT)
+    got_r, reapply_s = timed(lambda: eng.reapply(SPLIT_SCULPT))
+    assert got_r.elevation.device == torch.device(devices[0]), \
+        got_r.elevation.device
+    assert got_r.error is None and want_r.error is None
+    check_climate(got_r)
+    print(f"  reapply {SPLIT_SCULPT} after the split generate: on "
+          f"{got_r.elevation.device}, {reapply_s:.3f} s", flush=True)
+    r_diffs = split_compare(got_r, want_r, "reapply")
+    return dict(devices=[str(d) for d in devices], cold_s=cold_s,
+                warm_s=warm_s, single_s=single_s, launches=launches,
+                split=stats, peak_bytes=peak, diagnostics=diag,
+                outputs=diffs, bit_identical=all(e for _, e in
+                                                 diffs.values()),
+                reapply_s=reapply_s, reapply_outputs=r_diffs,
+                reapply_bit_identical=all(e for _, e in r_diffs.values()))
+
+
 # ── phase 8: the product surfaces on the default planet ──────────────
 
 def to_cpu(x):
@@ -2408,6 +2541,21 @@ def main() -> int:
     split = split_step_checks(g)
     split_rows = split_loop_checks(loop_calls)
     assert split_rows["bfs_relax"]["cap"] == 119, split_rows["bfs_relax"]
+
+    phase(t_run, 11)
+    # 11. the split generate: the default generate (climate on) under
+    # PlanetEngine(mesh=cells_mesh(4, ["cuda:0"] * 4)) against a single
+    # generate, then a reapply; over four cards where there are four
+    split_gen = {"one_card": split_generate_checks(
+        dev, params, [torch.device("cuda", 0)] * SPLIT_SHARDS)}
+    if torch.cuda.device_count() >= SPLIT_SHARDS:
+        split_gen["cards"] = split_generate_checks(
+            dev, params, [torch.device("cuda", i)
+                          for i in range(SPLIT_SHARDS)])
+    else:
+        print(f"split generate over {SPLIT_SHARDS} cards not run: this "
+              f"machine has {torch.cuda.device_count()} CUDA device(s)",
+              flush=True)
     phase(t_run, "end")
 
     # the row's times and bound are those of its phase-2 shape (configs /
@@ -2427,6 +2575,7 @@ def main() -> int:
         path_device_ms=None if prof is None else prof["device_ms"][k],
         **({"path_sweeps": swept[k]} if k in swept else {}),
         sharded=split_rows[k],
+        split_generate_launches=split_gen["one_card"]["launches"][k],
         **{x: v for x, v in r.items() if x not in top})
         for k, r in records.items()]
     print(json.dumps({"commands_wall_s": walls,
@@ -2436,6 +2585,7 @@ def main() -> int:
     print(json.dumps({"plans_past_204K": plan_records}))
     print(json.dumps({"api_wall_s": api_walls}))
     print(json.dumps({"split": split}))
+    print(json.dumps({"split_generate": split_gen}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ per-cell pipeline torch, and the banded sweep loops and ordered sums
 hand-written CUDA kernels (ops/sweep_cuda.py, csrc/sweeps.cu).
 """
 
+__version__ = "0.1.0"
+
 from .config import GenerationParams, detail_from_slider, slider_from_detail
 from .pipeline import PlanetEngine, PlanetResult, WorkerProtocol
 

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from ..ops.banded import banded_sum, dot3, smooth_passes
+from ..ops.banded import banded_sum, dot3, smooth_passes, smooth_field_banded
 from .util import smoothstep, elev_to_height_km, itcz_lookup
 
 DEG = math.pi / 180.0
@@ -80,6 +80,25 @@ def west_coast_signal(pos, is_land, coast_dist_land, east, band_off,
     c = 1 + banded_sum(land_f, band_off, band_mask, rem_src, rem_dst)
     return smooth_passes(west_coast, c, band_off, band_mask, rem_src,
                          rem_dst, wc_passes, gate=land_f, upd=land_f)
+
+
+def heuristic_precip_season(pos, lat, lon, elev, is_land, continentality,
+                            coast_dist_land, elev_grad_e, elev_grad_n,
+                            east, itcz_lats, band_off, band_mask, rem_src,
+                            rem_dst, avg_edge_km: float, wc_passes: int,
+                            smooth_passes: int, is_summer: bool):
+    """One season of the heuristic model (js/heuristic-precip.js:119-266):
+    :func:`west_coast_signal`, :func:`heuristic_precip_raw`, then
+    ``smooth_passes`` smoothing passes."""
+    west_coast = west_coast_signal(pos, is_land, coast_dist_land, east,
+                                   band_off, band_mask, rem_src, rem_dst,
+                                   wc_passes)
+    raw = heuristic_precip_raw(lat, lon, elev, is_land, continentality,
+                               coast_dist_land, elev_grad_e, elev_grad_n,
+                               west_coast, itcz_lats, avg_edge_km,
+                               is_summer)
+    return smooth_field_banded(raw, band_off, band_mask, rem_src, rem_dst,
+                               smooth_passes)
 
 
 def heuristic_precip_raw(lat, lon, elev, is_land, continentality,

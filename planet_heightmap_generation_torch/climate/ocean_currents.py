@@ -16,8 +16,9 @@ import torch
 from ..mesh.device import DeviceGraph
 from ..ops.banded import (bfs_hops_multi_banded, smooth_masked_banded,
                           banded_sum, dot3)
-from .util import smoothstep, percentile, itcz_lookup
+from .util import smoothstep, percentile95, itcz_lookup
 from .wind import coast_threshold, climate_coast_cap
+from ..parallel import spmd
 
 DEG = math.pi / 180.0
 
@@ -51,6 +52,12 @@ def _circumpolar(lat, lon, is_ocean, valid, target_lat, band):
     b = torch.where(in_band, b, nb)
     hits = torch.bincount(b, minlength=nb + 1)[:nb]
     return torch.all(hits > 0)
+
+
+def _circumpolar2(lat, lon, is_ocean, valid):
+    """(northern, southern) circumpolar channels at ±60°."""
+    return (_circumpolar(lat, lon, is_ocean, valid, 60 * DEG, 5 * DEG),
+            _circumpolar(lat, lon, is_ocean, valid, -60 * DEG, 5 * DEG))
 
 
 def _season_vectors(lat, lon, is_ocean, itcz_lats, west_dist, east_dist,
@@ -137,8 +144,8 @@ def compute_ocean_currents(g: DeviceGraph, elev, wind: Dict,
     d_west = torch.where(torch.isfinite(coast_d[:, 1]), coast_d[:, 1], -1.0)
     d_east = torch.where(torch.isfinite(coast_d[:, 2]), coast_d[:, 2], -1.0)
 
-    circ_nh = _circumpolar(lat, lon, is_ocean, g.valid, 60 * DEG, 5 * DEG)
-    circ_sh = _circumpolar(lat, lon, is_ocean, g.valid, -60 * DEG, 5 * DEG)
+    circ_nh, circ_sh = spmd.gathered(_circumpolar2, lat, lon, is_ocean,
+                                     g.valid)
 
     thr = coast_threshold(n)
     warmth_range = thr * 2
@@ -166,7 +173,7 @@ def compute_ocean_currents(g: DeviceGraph, elev, wind: Dict,
     for s, name in enumerate(("summer", "winter")):
         cur_e, cur_n = cur4[:, 2 * s], cur4[:, 2 * s + 1]
         speed = torch.sqrt(cur_e * cur_e + cur_n * cur_n)
-        p95 = percentile(speed, 0.95, is_ocean & (speed > 0))
+        p95 = spmd.gathered(percentile95, speed, is_ocean & (speed > 0))
         speed = torch.clamp(speed / p95, max=1.0)
         result[f"r_ocean_current_east_{name}"] = cur_e
         result[f"r_ocean_current_north_{name}"] = cur_n

@@ -22,8 +22,10 @@ from ..mesh.device import DeviceGraph
 from ..ops import sweep_cuda
 from ..ops.banded import (banded_sum, banded_count, band_shift, dot3,
                           pack_band_bits, rem_csr, smooth_field_banded,
-                          compute_gradients_banded, rem_add)
-from .util import smoothstep, percentile, elev_to_height_km, itcz_lookup
+                          compute_gradients_banded, rem_add, rem_gather)
+from ..parallel import spmd
+from .util import (smoothstep, percentile95, elev_to_height_km,
+                   itcz_lookup)
 from .heuristic_precip import (heuristic_wind_field, heuristic_precip_raw,
                                west_coast_signal)
 
@@ -62,7 +64,8 @@ def _upwind_band_w(pos, wind3d2, off, mask_d):
 
 def _upwind_rem_w(pos, wind3d2, rem_src, rem_dst):
     """Remainder-edge upwind weights [M,2]."""
-    wr = _dot_sc(wind3d2[rem_dst], pos[rem_src] - pos[rem_dst])
+    wr = _dot_sc(rem_gather(wind3d2, rem_dst),
+                 pos[rem_src] - rem_gather(pos, rem_dst))
     return torch.where(wr > 0, wr, 0.0)
 
 
@@ -98,7 +101,8 @@ def _advect_moisture2(pos, height_km, is_land, wind3d2, warmth2,
         out = torch.zeros_like(field2)
         for d, off in enumerate(band_off):
             out = out + up_wb[d] * band_shift(field2, off)
-        return rem_add(out, up_wr * field2[rem_dst], rem_src, rem_dst)
+        return rem_add(out, up_wr * rem_gather(field2, rem_dst), rem_src,
+                       rem_dst)
 
     up_sum2 = wsum(torch.ones((n, 2), dtype=torch.float32,
                               device=pos.device))
@@ -263,9 +267,9 @@ def _rain_shadow2(pos, elev, height_km, is_land, wind3d2, wdg2, band_off,
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, pos.shape[0])
     retain_s, retain_w = shadow_retain(shadow_hops, windward_hops)
-    state, _ = sweep_cuda.shadow_relax(state, aux, land, bits, band_off,
-                                       ptr, nbr, retain_s, retain_w,
-                                       shadow_hops, windward_hops)
+    state, _ = spmd.launch("shadow_relax", sweep_cuda.shadow_relax, state,
+                           aux, land, bits, band_off, ptr, nbr, retain_s,
+                           retain_w, shadow_hops, windward_hops)
     f = state.T
     shadow2 = torch.minimum(f[:, :2], seed2)
     windward2 = torch.maximum(f[:, 2:], seed2)
@@ -369,7 +373,7 @@ def compute_precipitation(g: DeviceGraph, elev, wind: Dict, ocean: Dict,
     result = {}
     for s, name in enumerate(("summer", "winter")):
         blended = blended2[:, s]
-        p95 = percentile(blended, 0.95, g.valid)
+        p95 = spmd.gathered(percentile95, blended, g.valid)
         blended = torch.clamp(blended / p95, max=1.0)
         blended = torch.where(is_land & (cont > 0.5),
                               torch.minimum(blended, cap), blended)

@@ -87,6 +87,12 @@ def percentile(values, p: float, mask):
     return torch.where(out == 0, 1.0, out)
 
 
+def percentile95(values, mask):
+    """:func:`percentile` at 0.95, the climate's speed and precipitation
+    normaliser."""
+    return percentile(values, 0.95, mask)
+
+
 def elev_to_height_km(elev):
     """Hybrid S-curve elevation → km (js/color-map.js:7-13)."""
     t = torch.clamp(elev, 0.0, 1.0)

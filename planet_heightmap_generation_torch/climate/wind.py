@@ -29,7 +29,8 @@ from ..ops.banded import (bfs_hops_multi_banded, smooth_field_banded,
                           banded_sum, compute_gradients_banded, dot3,
                           ordered_index_sum)
 from ..erosion.flood import open_ocean_mask, connected_components_banded
-from .util import (GeoFrame, geo_frame, smoothstep, percentile,
+from ..parallel import spmd
+from .util import (GeoFrame, geo_frame, smoothstep, percentile95,
                    elev_to_height_km)
 
 DEG = math.pi / 180.0
@@ -257,12 +258,20 @@ def climate_coast_cap(n: int) -> int:
                2 * coast_threshold(n) + 2)
 
 
+def _seeded_component(member, lab, seed):
+    """Members whose component (label ``lab``, at most N) holds a
+    ``seed`` cell."""
+    has_seed = torch.zeros(lab.shape[0] + 1, dtype=torch.int32,
+                           device=lab.device).scatter_reduce(
+        0, lab, seed.to(torch.int32), "amax")
+    return member & (has_seed[lab] > 0)
+
+
 def climate_coast_fields(g: DeviceGraph, elev, plate_is_ocean, r_plate):
     """coast_bfs_seeds → hop-capped 5-field BFS → exact saturation
     fix-ups. Returns (d5 [N,5] f32, aux)."""
     seeds5, barriers5, aux = coast_bfs_seeds(g, elev, plate_is_ocean,
                                              r_plate)
-    npad = seeds5.shape[0]
     cap = climate_coast_cap(g.n_cells)
     d5 = bfs_hops_multi_banded(seeds5, barriers5, *g.bands, max_hops=cap)
     capf = float(cap + 1)
@@ -271,14 +280,12 @@ def climate_coast_fields(g: DeviceGraph, elev, plate_is_ocean, r_plate):
     # land (in the land component of a main-ocean coast seed) saturates;
     # land unreachable from the main-ocean coast stays inf
     lab = connected_components_banded(aux["is_land"], *g.bands).long()
-    has_seed = torch.zeros(npad + 1, dtype=torch.int32,
-                           device=g.device).scatter_reduce(
-        0, lab, seeds5[:, 0].to(torch.int32), "amax")
-    reach0 = aux["is_land"] & (has_seed[lab] > 0)
+    reach0 = spmd.gathered(_seeded_component, aux["is_land"], lab,
+                           seeds5[:, 0])
     d0 = torch.where(torch.isfinite(d5[:, 0]), d5[:, 0],
                      torch.where(reach0, capf, math.inf))
     # col 1 — plate continentality: reachable ⟺ any seed exists
-    reach1 = aux["plate_land"] & torch.any(seeds5[:, 1])
+    reach1 = aux["plate_land"] & spmd.gathered(torch.any, seeds5[:, 1])
     d1 = torch.where(torch.isfinite(d5[:, 1]), d5[:, 1],
                      torch.where(reach1, capf, math.inf))
     # cols 2-4 (ocean all/west/east coast): weights are exactly 0 beyond
@@ -353,7 +360,7 @@ def compute_wind(g: DeviceGraph, elev, plate_is_ocean, r_plate,
                                         *g.bands)
     for s, name in enumerate(("summer", "winter")):
         we, wn, speed = _pressure_to_wind(ge2[:, s], gn2[:, s], gf.sin_lat)
-        p95 = percentile(speed, 0.95, g.valid)
+        p95 = spmd.gathered(percentile95, speed, g.valid)
         speed = torch.clamp(speed / p95, max=1.0)
         result[f"r_pressure_{name}"] = press2[:, s] - 1013.0
         result[f"r_wind_east_{name}"] = we

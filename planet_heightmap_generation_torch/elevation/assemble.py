@@ -24,6 +24,7 @@ import torch
 from ..mesh.device import DeviceGraph
 from ..ops.noise import Tables, tables, noise3, fbm, ridged_fbm
 from ..ops.graph import hash01
+from ..parallel import spmd
 from ..ops.banded import (bfs_hops_multi_banded, band_gate, rem_gate_eq,
                           propagate_stress_banded, band_bfs_banded,
                           banded_sum)
@@ -80,7 +81,7 @@ def _blend_collisions(small: CollisionResult, sup: CollisionResult):
     ocean = sup.ocean | small.ocean
     coastline = (sup.coastline | small.coastline) & (~mountain)
 
-    max_super = torch.max(sup.stress)
+    max_super = spmd.gathered(torch.max, sup.stress)
     inv_max = torch.where(max_super > 1e-6, 1.0 / max_super, 0.0)
     proximity = torch.clamp(sup.stress * inv_max * 3.0, max=1.0)
     eff_small = SMALL_W * (SMALL_W + (1.0 - SMALL_W) * proximity)
@@ -562,14 +563,16 @@ def assign_elevation(
 
     # plate interior representatives
     in_any = mountain | coastline | ocean_seeds
-    ocean_seeds, coastline = _plate_reps(
-        r_plate, in_any, g.valid, plate_is_ocean, coastline,
-        ocean_seeds, num_plates=int(plate_is_ocean.shape[0]))
+    ocean_seeds, coastline = spmd.gathered(
+        lambda rp, seeds, valid, co, oc: _plate_reps(
+            rp, seeds, valid, plate_is_ocean, co, oc,
+            num_plates=int(plate_is_ocean.shape[0])),
+        r_plate, in_any, g.valid, coastline, ocean_seeds)
 
     stress_mountain = mountain & (subduct < 0.55)
     stop_r = stress_mountain | coastline | ocean_seeds
 
-    idx = torch.arange(npad, device=dev)
+    idx = spmd.arange(npad, device=dev)
 
     def rand_cost(k):
         return 0.5 + hash01(idx, seed + k)
@@ -600,7 +603,8 @@ def assign_elevation(
     def _saturate(d, seed_col, barrier, cap):
         # finite → clamp at cap; capped-out → cap (unless a barrier cell or
         # the field has no seeds at all)
-        far = torch.where(barrier | ~torch.any(seed_col), INF, cap)
+        far = torch.where(barrier | ~spmd.gathered(torch.any, seed_col),
+                          INF, cap)
         return torch.where(torch.isfinite(d), torch.clamp(d, max=cap),
                            far).to(torch.float32)
 
@@ -619,7 +623,7 @@ def assign_elevation(
                                     dists_dc[:, 0], 0.0)
         return _probe_result(g, probe, col, stress, subduct)
 
-    max_stress = _stress_p97(stress, g.valid)
+    max_stress = spmd.gathered(_stress_p97, stress, g.valid)
 
     # structural band widths (js/elevation.js:429-438, 460, 475, 512, 543,
     # 571, 601-603, 1057)

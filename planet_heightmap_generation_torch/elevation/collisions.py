@@ -15,8 +15,8 @@ from typing import NamedTuple
 import torch
 
 from ..mesh.device import DeviceGraph
-from ..ops.banded import band_shift
-from ..ops.graph import mul_u32
+from ..ops.banded import band_shift, rem_gather
+from ..ops.graph import gather_nbrs, mul_u32
 from ..ops.noise import Tables, fbm
 
 COLLISION_THRESHOLD = 0.75  # js/elevation.js:25
@@ -90,10 +90,10 @@ def find_collisions(g: DeviceGraph, r_plate, plate_is_ocean, plate_pole,
 
     # remainder edges (pole fan, jitter outliers): two-phase scatter-max
     src, dst = g.rem_src, g.rem_dst
-    plate_r = r_plate[dst]
+    plate_r = rem_gather(r_plate, dst)
     foreign_r = plate_r != r_plate[src]
     comp_r, normal_r = edge_metrics(tuple(c[src] for c in me),
-                                    tuple(c[dst] for c in me))
+                                    tuple(rem_gather(c, dst) for c in me))
     comp_r = torch.where(foreign_r, comp_r, -INF)
     w = torch.full((n,), -INF, device=pos.device).scatter_reduce(
         0, src, comp_r, "amax")
@@ -147,3 +147,72 @@ def find_collisions(g: DeviceGraph, r_plate, plate_is_ocean, plate_pole,
         mountain=mountain, coastline=coastline, ocean=ocean,
         stress=stress, subduct=subduct, btype=btype,
         both_ocean=both_ocean, has_ocean=has_ocean)
+
+
+def propagate_stress_multi(stress, subduct, same, ocean_cell, nbr_idx,
+                           decay, subduct_decay, num_passes: int):
+    """G independent gather-form stress propagations in one sweep loop
+    (the JAX ``propagate_stress_multi``, the oracle of the banded stress
+    loop): per sweep every layer packs its propagated stress, sendability
+    and subduct factor into one [N, 3G] neighbour gather; each cell takes
+    its first strongest sendable same-plate neighbour and adopts it where
+    it beats its own stress, the subduct factor riding along; until no
+    layer changed or ``num_passes`` sweeps ran. stress / subduct /
+    ocean_cell [N, G]; same [N, K, G] same-plate edge masks. Returns
+    (stress, subduct) [N, G] f32."""
+    active = stress > 0.01
+    st = stress.to(torch.float32)
+    sf = subduct.to(torch.float32)
+    g = st.shape[1]
+    i, changed = 0, True
+    while changed and i < int(num_passes):
+        prop = st * torch.where(sf > 0.5, subduct_decay, decay)
+        sendable = active & (~ocean_cell) & (prop >= 0.005)
+        gp = gather_nbrs(torch.cat([prop, sendable.to(torch.float32), sf], 1),
+                         nbr_idx)                                # [N,K,3G]
+        cand = torch.where(same & (gp[:, :, g:2 * g] > 0.5), gp[:, :, :g],
+                           -INF)
+        best = torch.argmax(cand, dim=1, keepdim=True)            # [N,1,G]
+        best_val = torch.gather(cand, 1, best)[:, 0, :]
+        src_sf = torch.gather(gp[:, :, 2 * g:], 1, best)[:, 0, :]
+        upd = best_val > st
+        st = torch.where(upd, best_val, st)
+        sf = torch.where(upd, src_sf, sf)
+        active = active | upd
+        i += 1
+        changed = bool(upd.any())
+    return st, sf
+
+
+def propagate_stress(stress, subduct, r_plate, plate_is_ocean, nbr_idx,
+                     nbr_mask, decay, subduct_decay, num_passes: int):
+    """Frontier stress diffusion inward through the same plate
+    (js/elevation.js:127-159) as synchronous gather-form max-relaxation
+    sweeps (the JAX ``propagate_stress``): each cell takes the strongest
+    propagated stress among its same-plate neighbours (a source decays by
+    ``subduct_decay`` when its subduct factor > 0.5, else by ``decay``;
+    nothing below 0.005 and nothing from ocean-plate cells propagates),
+    the subduct factor riding along, until a sweep changes nothing or
+    ``num_passes`` sweeps ran. Returns (stress, subduct) [N] f32."""
+    rp = r_plate.long()
+    ocean_cell = plate_is_ocean[rp]
+    same = (gather_nbrs(r_plate, nbr_idx) == r_plate[:, None]) & nbr_mask
+    active = stress > 0.01
+    st = stress.to(torch.float32)
+    sf = subduct.to(torch.float32)
+    i, changed = 0, True
+    while changed and i < int(num_passes):
+        prop = st * torch.where(sf > 0.5, subduct_decay, decay)
+        sendable = active & (~ocean_cell) & (prop >= 0.005)
+        cand = torch.where(same & gather_nbrs(sendable, nbr_idx),
+                           gather_nbrs(prop, nbr_idx), -INF)
+        best = torch.argmax(cand, dim=1, keepdim=True)
+        best_val = torch.gather(cand, 1, best)[:, 0]
+        src = torch.gather(nbr_idx, 1, best)[:, 0]
+        upd = best_val > st
+        st = torch.where(upd, best_val, st)
+        sf = torch.where(upd, sf[src], sf)
+        active = active | upd
+        i += 1
+        changed = bool(upd.any())
+    return st, sf

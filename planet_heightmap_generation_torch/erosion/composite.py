@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 
 from ..mesh.device import DeviceGraph
-from ..ops.banded import band_nbr_dist
+from ..ops.banded import band_nbr_dist, rem_gather
+from ..parallel import spmd
 from .flood import priority_flood_carve, open_ocean_mask
 from .fluvial import steepest_receivers, flow_accumulation, stream_power_solve
 from .thermal import thermal_step
@@ -35,7 +36,8 @@ def _edge_lengths(g: DeviceGraph):
     """([N,D] banded edge lengths, [M] remainder edge lengths)."""
     band_dist = band_nbr_dist(g.pos, g.band_off, g.band_mask)
     rem_dist = torch.linalg.vector_norm(
-        g.pos[g.rem_src] - g.pos[g.rem_dst], dim=1).to(torch.float32)
+        g.pos[g.rem_src] - rem_gather(g.pos, g.rem_dst),
+        dim=1).to(torch.float32)
     return band_dist, rem_dist
 
 
@@ -90,9 +92,10 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
                 elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
                 g.rem_src, g.rem_dst, rem_dist)
             flow = flow_accumulation(land, rcv, is_pit)
-            elev = stream_power_solve(
-                elev, is_ocean, valid, rcv, dist, is_pit, flow,
-                _f32(k_coeff, g), _f32(m_exp, g), _f32(dt, g))
+            elev = spmd.gathered(
+                stream_power_solve, elev, is_ocean, valid, rcv, dist,
+                is_pit, flow, k_coeff=_f32(k_coeff, g),
+                m_exp=_f32(m_exp, g), dt=_f32(dt, g))
         if it < t_iters:
             elev = thermal_step(
                 elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,

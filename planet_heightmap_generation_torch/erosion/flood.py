@@ -28,7 +28,8 @@ from ..ops import sweep_cuda
 from ..ops.graph import hash01
 from ..ops.banded import (banded_sum, banded_count, band_shift, band_gate,
                           pack_band_bits, components_core, rem_csr,
-                          pointer_accumulate)
+                          rem_gather, pointer_accumulate)
+from ..parallel import spmd
 from .fluvial import log_rounds
 
 EPS = 1e-6  # reference uses 1e-7; promoted one decade so the increment
@@ -41,7 +42,7 @@ def open_ocean_mask(is_ocean, valid, band_off, band_mask, rem_src, rem_dst):
     """Largest connected ocean component (js/terrain-post.js:64-94)."""
     labels = connected_components_banded(
         is_ocean & valid, band_off, band_mask, rem_src, rem_dst)
-    return largest_component_mask(is_ocean & valid, labels)
+    return spmd.gathered(largest_component_mask, is_ocean & valid, labels)
 
 
 def largest_component_mask(in_set, labels):
@@ -59,9 +60,9 @@ def connected_components_banded(in_set, band_off, band_mask, rem_src,
     non-members get label N. Returns [N] int32."""
     n = band_mask.shape[0]
     gate = band_gate(in_set, band_off, band_mask) & in_set[:, None]
-    rem_ok = in_set[rem_src] & in_set[rem_dst]
-    init = torch.where(in_set, torch.arange(n, dtype=torch.float32,
-                                            device=in_set.device), float(n))
+    rem_ok = in_set[rem_src] & rem_gather(in_set, rem_dst)
+    init = torch.where(in_set, spmd.arange(n, torch.float32, in_set.device),
+                       float(spmd.total(n)))
     return components_core(init, in_set, pack_band_bits(gate), rem_ok,
                            band_off, rem_src, rem_dst)
 
@@ -100,9 +101,9 @@ def epsilon_fill(elev, is_ocean, open_ocean, valid, band_off, band_mask,
     inland_f = inland.to(torch.float32).contiguous()
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, band_mask.shape[0])
-    surface, _ = sweep_cuda.flood_relax(surface0.contiguous(), inland_f,
-                                        elev_baked, bits, band_off, ptr, nbr,
-                                        BIG, EPS)
+    surface, _ = spmd.launch("flood_relax", sweep_cuda.flood_relax,
+                             surface0.contiguous(), inland_f, elev_baked,
+                             bits, band_off, ptr, nbr, BIG, EPS)
     return _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean,
                         valid, band_off, band_mask, rem_src, rem_dst)
 
@@ -121,18 +122,18 @@ def _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean, valid,
     # decreases surface and the pointers form a forest. Banded argmin in two
     # sweeps over the bands: first whether a strictly-lower passable
     # neighbour exists, then the min-key neighbour under the matching key.
-    noise = hash01(torch.arange(n, device=dev), 7919) * 0.01
+    noise = hash01(spmd.arange(n, device=dev), 7919) * 0.01
     surf_key = torch.where(inland, INF, surface)             # impassable
     lower_bound = surface - EPS * 0.5
     has_lower = torch.zeros(n, dtype=torch.bool, device=dev)
     for d, off in enumerate(band_off):
         sj = torch.where(band_mask[:, d], band_shift(surf_key, off), INF)
         has_lower = has_lower | (sj < lower_bound)
-    rl = surf_key[rem_dst] < lower_bound[rem_src]
+    rl = rem_gather(surf_key, rem_dst) < lower_bound[rem_src]
     has_lower = has_lower | (torch.zeros(n, dtype=torch.int64, device=dev)
                              .index_add(0, rem_src, rl.to(torch.int64)) > 0)
 
-    idx_f = torch.arange(n, dtype=torch.float32, device=dev)
+    idx_f = spmd.arange(n, torch.float32, dev)
     best_key = torch.full((n,), INF, device=dev)
     best_drain = torch.full((n,), -1.0, device=dev)
 
@@ -150,15 +151,17 @@ def _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean, valid,
         best_key = torch.where(upd, k, best_key)
         best_drain = torch.where(upd, idx_f + off, best_drain)
     src = rem_src
-    sj_r = surf_key[rem_dst]
+    sj_r = rem_gather(surf_key, rem_dst)
     lower_r = sj_r < lower_bound[src]
     k_r = torch.where(has_lower[src],
                       torch.where(lower_r, sj_r + noise[rem_dst], INF), sj_r)
-    k_r = torch.where(seed[src] & (~open_ocean[rem_dst]), INF, k_r)
+    k_r = torch.where(seed[src] & (~rem_gather(open_ocean, rem_dst)), INF,
+                      k_r)
+    dst_f = spmd.global_index(rem_dst).to(torch.float32)
     w = torch.full((n,), INF, device=dev).scatter_reduce(0, src, k_r, "amin")
     win_r = (k_r == w[src]) & torch.isfinite(k_r)
     d_r = torch.full((n,), -INF, device=dev).scatter_reduce(
-        0, src, torch.where(win_r, rem_dst.to(torch.float32), -INF), "amax")
+        0, src, torch.where(win_r, dst_f, -INF), "amax")
     upd = w < best_key
     best_key = torch.where(upd, w, best_key)
     best_drain = torch.where(upd, d_r, best_drain)
@@ -172,12 +175,12 @@ def _fill_finish(surface, elev, inland, seed, is_ocean, open_ocean, valid,
         u = sj < lr_key
         lr_key = torch.where(u, sj, lr_key)
         lr_drain = torch.where(u, idx_f + off, lr_drain)
-    sj_r2 = surface[rem_dst]
+    sj_r2 = rem_gather(surface, rem_dst)
     w2 = torch.full((n,), INF, device=dev).scatter_reduce(0, src, sj_r2,
                                                           "amin")
     win2 = (sj_r2 == w2[src]) & torch.isfinite(sj_r2)
     d2 = torch.full((n,), -INF, device=dev).scatter_reduce(
-        0, src, torch.where(win2, rem_dst.to(torch.float32), -INF), "amax")
+        0, src, torch.where(win2, dst_f, -INF), "amax")
     lr_drain = torch.where(w2 < lr_key, d2, lr_drain)
     best_drain = torch.where(torch.isinf(best_key), lr_drain, best_drain)
 
@@ -194,7 +197,7 @@ def downstream_accumulate(values, pointers, sink_mask, rounds: int = 0):
     whole loop one launch (ops.banded.pointer_accumulate). Cells where
     ``sink_mask`` holds (and negative pointers) route to a virtual sink,
     which is never summed."""
-    n = values.shape[0]
+    n = spmd.total(values.shape[0])
     rounds = rounds if rounds > 0 else log_rounds(n)
     p = torch.where(sink_mask | (pointers < 0), n, pointers.to(torch.int64))
     return pointer_accumulate(values.contiguous(), p, rounds)
@@ -252,5 +255,5 @@ def priority_flood_carve(elev, is_ocean, valid, band_off, band_mask,
     elev3 = torch.clamp(elev2 - carve, min=0.0)
     elev3 = torch.where(land, elev3, elev2)
 
-    out = monotonic_enforce(elev3, drain, is_ocean, valid)
+    out = spmd.gathered(monotonic_enforce, elev3, drain, is_ocean, valid)
     return torch.where(valid, out, elev).to(torch.float32), drain, surface

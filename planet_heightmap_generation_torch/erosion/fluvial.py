@@ -26,6 +26,7 @@ import torch
 
 from ..ops.banded import (banded_select, band_off_tensor, ordered_index_sum,
                           pointer_accumulate)
+from ..parallel import spmd
 
 
 def log_rounds(n: int) -> int:
@@ -45,7 +46,7 @@ def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
     n = band_mask.shape[0]
     dev = elev.device
     land = (~is_ocean) & valid
-    idx_f = (torch.arange(n, dtype=torch.float32, device=dev)
+    idx_f = (spmd.arange(n, torch.float32, dev)
              if index_base is None else index_base)
     band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f, dist_f) = banded_select(
@@ -66,7 +67,7 @@ def flow_accumulation(land, rcv, is_pit, rounds: int = 0):
     sink so pointer cycles cannot inflate flow. The counts add as int32
     (exact in any order: the JAX f32 counts are integers below 2^24) and
     return as float32."""
-    n = land.shape[0]
+    n = spmd.total(land.shape[0])
     rounds = rounds if rounds > 0 else log_rounds(n)
     p = torch.where(land & (rcv >= 0) & (~is_pit), rcv, n)
     return pointer_accumulate(land.to(torch.int32), p,

@@ -18,7 +18,9 @@ import math
 import torch
 
 from ..ops.banded import (banded_sum, band_shift, banded_select,
-                          band_off_tensor, pointer_accumulate, rem_add)
+                          band_off_tensor, pointer_accumulate, rem_add,
+                          rem_gather)
+from ..parallel import spmd
 
 G_FLOW_THRESHOLD = 0.1
 G_FJORD_THRESHOLD = 0.5
@@ -55,14 +57,14 @@ def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
     strictly lower (banded argmin, ties by band order), and the flow is
     ``glac_idx`` accumulated downstream by ``ICE_FLOW_STEPS`` pointer
     doublings into a virtual sink that is never summed."""
-    n = band_mask.shape[0]
+    n = spmd.total(band_mask.shape[0])
     dev = elev.device
-    idx_f = torch.arange(n, dtype=torch.float32, device=dev)
+    idx_f = spmd.arange(band_mask.shape[0], torch.float32, dev)
     band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f,) = banded_select(
         elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,
         edge_payloads=[band_idx],
-        rem_edge_payloads=[rem_dst.to(torch.float32)])
+        rem_edge_payloads=[spmd.global_index(rem_dst).to(torch.float32)])
     best_drop = elev - min_elev
     has_target = (land & (glac_idx > 0) & (best_drop > 0)
                   & torch.isfinite(min_elev))
@@ -93,7 +95,7 @@ def glacial_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
 
     # valley widening + moraines + tributary count, one banded sweep set.
     # points_at_me[edge j→i]: ice_target[j] == i.
-    cells = torch.arange(n, dtype=torch.int32, device=dev)
+    cells = spmd.arange(n, torch.int32, dev)
     num_upstream = torch.zeros(n, dtype=torch.int32, device=dev)
     widen = torch.zeros(n, dtype=torch.float32, device=dev)
     deposit = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -117,19 +119,20 @@ def glacial_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
         deposit = deposit + torch.where(dep_ok, band_shift(moraine_amt, off),
                                         0.0)
     # remainder edges (receiver = rem_src, sender = rem_dst), in edge order
-    points_r = ice_target[rem_dst] == src
+    points_r = rem_gather(ice_target, rem_dst) == spmd.global_index(src)
     num_upstream = num_upstream.index_add(0, src,
                                           points_r.to(torch.int32))
-    slope_r = torch.abs(elev[src] - elev[rem_dst]) / torch.clamp(rem_dist,
-                                                                 min=1e-6)
+    slope_r = torch.abs(elev[src] - rem_gather(elev, rem_dst)) / torch.clamp(
+        rem_dist, min=1e-6)
     widen = rem_add(widen, torch.where(
-        carving[rem_dst] & land[src] & land[rem_dst],
-        deepening[rem_dst] * 0.4 * torch.clamp(1 - slope_r, min=0.0), 0.0),
+        rem_gather(carving, rem_dst) & land[src] & rem_gather(land, rem_dst),
+        rem_gather(deepening, rem_dst) * 0.4
+        * torch.clamp(1 - slope_r, min=0.0), 0.0),
         rem_src, rem_dst)
-    dep_ok_r = (points_r & land[src] & flow_ok[rem_dst]
-                & (glac_idx[src] < glac_idx[rem_dst] * 0.3))
-    deposit = rem_add(deposit, torch.where(dep_ok_r, moraine_amt[rem_dst],
-                                           0.0), rem_src, rem_dst)
+    dep_ok_r = (points_r & land[src] & rem_gather(flow_ok, rem_dst)
+                & (glac_idx[src] < rem_gather(glac_idx, rem_dst) * 0.3))
+    deposit = rem_add(deposit, torch.where(
+        dep_ok_r, rem_gather(moraine_amt, rem_dst), 0.0), rem_src, rem_dst)
 
     delta = delta - widen
     delta = delta - torch.where(

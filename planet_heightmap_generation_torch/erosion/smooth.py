@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.banded import banded_sum, banded_count, band_shift, rem_add
+from ..ops.banded import (banded_sum, banded_count, band_shift, rem_add,
+                          rem_gather)
 
 
 def smooth_elevation(elev, is_ocean, valid, band_off, band_mask,
@@ -32,7 +33,7 @@ def smooth_elevation(elev, is_ocean, valid, band_off, band_mask,
                             1.0 / (1.0 + torch.abs(nh - elev) * 8.0), 0.0)
             w_sum = w_sum + w
             hw = hw + nh * w
-        nh_r = elev[rem_dst]
+        nh_r = rem_gather(elev, rem_dst)
         w_r = 1.0 / (1.0 + torch.abs(nh_r - elev[rem_src]) * 8.0)
         w_sum = rem_add(w_sum, w_r, rem_src, rem_dst)
         hw = rem_add(hw, nh_r * w_r, rem_src, rem_dst)

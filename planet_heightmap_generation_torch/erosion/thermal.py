@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.banded import band_shift, rem_add
+from ..ops.banded import band_shift, rem_add, rem_gather
 
 
 def _edge_excess(h_me, h_nb, d, ok, talus_slope):
@@ -38,10 +38,10 @@ def thermal_shed(elev, is_ocean, valid, band_off, band_mask, band_dist,
         ok = band_mask[:, d] & land & band_shift(land, off)
         total_excess = total_excess + _edge_excess(
             elev, band_shift(elev, off), band_dist[:, d], ok, talus_slope)
-    ok_r = land[rem_src] & land[rem_dst]
+    ok_r = land[rem_src] & rem_gather(land, rem_dst)
     total_excess = rem_add(
-        total_excess, _edge_excess(elev[rem_src], elev[rem_dst], rem_dist,
-                                   ok_r, talus_slope),
+        total_excess, _edge_excess(elev[rem_src], rem_gather(elev, rem_dst),
+                                   rem_dist, ok_r, talus_slope),
         rem_src, rem_dst)
 
     transfer = k_thermal * total_excess * 0.5
@@ -66,10 +66,11 @@ def thermal_receive(elev, is_ocean, valid, band_off, band_mask, band_dist,
         recv = recv + excess_in * band_shift(nb_share, off)
     # remainder: every directed edge appears exactly once across bands +
     # remainder, so one (src ← dst) pass covers all remaining flow
-    ok_r = land[rem_src] & land[rem_dst]
-    excess_in_r = _edge_excess(elev[rem_dst], elev[rem_src], rem_dist, ok_r,
-                               talus_slope)
-    recv = rem_add(recv, excess_in_r * nb_share[rem_dst], rem_src, rem_dst)
+    ok_r = land[rem_src] & rem_gather(land, rem_dst)
+    excess_in_r = _edge_excess(rem_gather(elev, rem_dst), elev[rem_src],
+                               rem_dist, ok_r, talus_slope)
+    recv = rem_add(recv, excess_in_r * rem_gather(nb_share, rem_dst),
+                   rem_src, rem_dst)
 
     out = elev + torch.where(land, recv - shed, 0.0)
     return out.to(torch.float32)

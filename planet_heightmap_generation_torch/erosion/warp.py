@@ -25,6 +25,7 @@ import torch
 from ..ops import sweep_cuda
 from ..ops.banded import pack_band_bits, rem_csr
 from ..ops.noise import Tables, fbm
+from ..parallel import spmd
 
 
 def warp_targets(pos, noise_t: Tables, strength):
@@ -78,22 +79,27 @@ def warp_sources(pos, w, band_off, band_mask, rem_src, rem_dst,
     cell after at most ``max_steps`` sweeps (fewer when a sweep changes
     nothing)."""
     n = pos.shape[0]
-    state = torch.cat([torch.arange(n, dtype=torch.float32,
-                                    device=pos.device)[None],
+    state = torch.cat([spmd.arange(n, torch.float32, pos.device)[None],
                        pos.T]).contiguous()                      # [4, N]
     wt = w.T.contiguous()                                        # [3, N]
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, n)
-    state, _ = sweep_cuda.warp_relax(state, wt, bits, band_off, ptr, nbr,
-                                     max_steps)
+    state, _ = spmd.launch("warp_relax", sweep_cuda.warp_relax, state, wt,
+                           bits, band_off, ptr, nbr, max_steps)
     return state[0]
+
+
+def source_elevation(elev, src_idx):
+    """``elev`` at each cell's source cell (a global index that may lie
+    anywhere: a cells split runs this on gathered arrays)."""
+    n = elev.shape[0]
+    return elev[torch.clamp(src_idx, 0, n - 1).to(torch.int64)]
 
 
 def warp_terrain(elev, pos, valid, band_off, band_mask, rem_src, rem_dst,
                  noise_t: Tables, strength, hotspot, max_steps: int):
-    n = pos.shape[0]
     w = warp_targets(pos, noise_t, strength)
     src_idx = warp_sources(pos, w, band_off, band_mask, rem_src, rem_dst,
                            max_steps)
-    cur = torch.clamp(src_idx, 0, n - 1).to(torch.int64)
-    return warp_merge(elev, elev[cur], valid, strength, hotspot)
+    return warp_merge(elev, spmd.gathered(source_elevation, elev, src_idx),
+                      valid, strength, hotspot)

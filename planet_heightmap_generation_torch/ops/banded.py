@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import sweep_cuda
+from ..parallel import spmd
 
 CHECK_EVERY = 8
 INF = float("inf")
@@ -65,7 +66,7 @@ def relax(step, state, cap=None):
             else:
                 state = step(state, None)
         done += k
-        if int(flag.item()) == 0:
+        if not spmd.flag_any(flag):
             break
     return state, done
 
@@ -81,7 +82,12 @@ def _expand(mask, field):
 
 def band_shift(field, off):
     """field[i + off] along the cell axis (wrap killed by band masks)."""
-    return torch.roll(field, -int(off), dims=0)
+    return torch.roll(spmd.fresh(field), -int(off), dims=0)
+
+
+def rem_gather(field, rem_dst):
+    """Remainder-edge neighbour values, [M] or [M,F]: ``field[rem_dst]``."""
+    return spmd.fresh(field)[rem_dst]
 
 
 def pack_band_bits(band_mask):
@@ -140,7 +146,7 @@ def banded_min(field, band_off, band_mask, rem_src, rem_dst, fill=INF,
         m = band_mask[:, d] if gate is None else gate[:, d]
         out = torch.minimum(out, torch.where(_expand(m, field),
                                              band_shift(field, off), fill))
-    return _scatter(out, rem_src, field[rem_dst], "amin")
+    return _scatter(out, rem_src, rem_gather(field, rem_dst), "amin")
 
 
 def banded_max(field, band_off, band_mask, rem_src, rem_dst, fill=-INF,
@@ -150,7 +156,7 @@ def banded_max(field, band_off, band_mask, rem_src, rem_dst, fill=-INF,
         m = band_mask[:, d] if gate is None else gate[:, d]
         out = torch.maximum(out, torch.where(_expand(m, field),
                                              band_shift(field, off), fill))
-    return _scatter(out, rem_src, field[rem_dst], "amax")
+    return _scatter(out, rem_src, rem_gather(field, rem_dst), "amax")
 
 
 def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
@@ -162,7 +168,7 @@ def banded_sum(field, band_off, band_mask, rem_src, rem_dst, gate=None):
     for d, off in enumerate(band_off):
         m = band_mask[:, d] if gate is None else gate[:, d]
         out = out + torch.where(_expand(m, field), band_shift(field, off), 0)
-    return rem_add(out, field[rem_dst], rem_src, rem_dst)
+    return rem_add(out, rem_gather(field, rem_dst), rem_src, rem_dst)
 
 
 def rem_add(out, edge_vals, rem_src, rem_dst):
@@ -188,7 +194,8 @@ def ordered_index_sum(n_out: int, idx, vals):
     ``vals`` is [K] or [K, F] float32. On a CUDA tensor one launch of the
     accumulate kernel's one-round form (ops/sweep_cuda.py ``ordered_sum``),
     with no sort: the CPU's bits on every run."""
-    return sweep_cuda.ordered_sum(n_out, idx, vals)
+    return spmd.launch("ordered_sum", sweep_cuda.ordered_sum, n_out, idx,
+                       vals)
 
 
 def pointer_accumulate(s, p, rounds: int, stop_at_sink: bool = True):
@@ -202,7 +209,8 @@ def pointer_accumulate(s, p, rounds: int, stop_at_sink: bool = True):
     change nothing. On a CUDA tensor the whole loop is one launch of the
     accumulate kernel (ops/sweep_cuda.py ``accumulate_relax``) with no host
     sync. Returns the sums."""
-    return sweep_cuda.accumulate_relax(s, p, rounds, stop_at_sink)[0]
+    return spmd.launch("accumulate", sweep_cuda.accumulate_relax, s, p,
+                       rounds, stop_at_sink)[0]
 
 
 # The remainder walk of each (rem_src, rem_dst) pair in use, keyed by the
@@ -259,7 +267,7 @@ def banded_count(band_mask, rem_src, gate=None, dtype=torch.int32):
 
 def rem_gate_eq(cell_value, rem_src, rem_dst):
     """[M] remainder-edge equality gate matching :func:`band_gate`."""
-    return cell_value[rem_src] == cell_value[rem_dst]
+    return cell_value[rem_src] == rem_gather(cell_value, rem_dst)
 
 
 def banded_select(key_src, payloads, band_off, band_mask, rem_src, rem_dst,
@@ -287,7 +295,7 @@ def banded_select(key_src, payloads, band_off, band_mask, rem_src, rem_dst,
         best_epay = [torch.where(upd, ep[:, d], bep)
                      for ep, bep in zip(edge_payloads, best_epay)]
 
-    rk = key_src[rem_dst]
+    rk = rem_gather(key_src, rem_dst)
     w = _scatter(torch.full_like(key_src, fill), rem_src, rk,
                  "amin" if minimize else "amax")
     is_win = rk == w[rem_src]
@@ -299,7 +307,7 @@ def banded_select(key_src, payloads, band_off, band_mask, rem_src, rem_dst,
         return _scatter(torch.full(w.shape, -INF, dtype=cand.dtype,
                                    device=w.device), rem_src, c, "amax")
 
-    best_pay = [torch.where(upd, pick(p[rem_dst]), bp)
+    best_pay = [torch.where(upd, pick(rem_gather(p, rem_dst)), bp)
                 for p, bp in zip(payloads, best_pay)]
     best_epay = [torch.where(upd, pick(rep), bep)
                  for rep, bep in zip(rem_edge_payloads or [], best_epay)]
@@ -327,8 +335,8 @@ def bfs_hops_multi_banded(seeds, barrier, band_off, band_mask, rem_src,
     cost = torch.where(barrier.T & ~seeds_t, INF, cost).contiguous()
     bits = pack_band_bits(band_mask)
     ptr, nbr = rem_csr(rem_src, rem_dst, band_mask.shape[0])
-    dist, _ = sweep_cuda.bfs_relax(dist, cost, bits, band_off, ptr, nbr,
-                                   int(max_hops))
+    dist, _ = spmd.launch("bfs_relax", sweep_cuda.bfs_relax, dist, cost,
+                          bits, band_off, ptr, nbr, int(max_hops))
     return dist.T
 
 
@@ -350,9 +358,10 @@ def propagate_stress_banded(stress, subduct, gate_stack, rem_gate,
     state, ocean, bits, ptr, nbr, rgate = stress_planes(
         stress, subduct, gate_stack, rem_gate, ocean_cell, band_mask,
         rem_src, rem_dst)
-    state, _ = sweep_cuda.stress_relax(
-        state, ocean, bits, band_off, ptr, nbr, rgate, float(decay),
-        float(subduct_decay), int(num_passes))
+    state, _ = spmd.launch(
+        "stress_relax", sweep_cuda.stress_relax, state, ocean, bits,
+        band_off, ptr, nbr, rgate, float(decay), float(subduct_decay),
+        int(num_passes))
     return state[:, 0].T, state[:, 1].T
 
 
@@ -423,7 +432,9 @@ def band_bfs_banded(seeds, carried, band_off, band_mask, rem_src, rem_dst,
     def step(state, flag):
         dist, tie_c, carr = state
         nd_src = dist + 1
-        key_src = torch.where(nd_src <= cap, pack(nd_src, tie_c), INF)
+        key_src = spmd.fresh(torch.where(nd_src <= cap, pack(nd_src, tie_c),
+                                         INF), 1)
+        carr = [spmd.fresh(p, 1) for p in carr]
         best_key = torch.full((f, n), INF, device=dev)
         best_pay = [torch.zeros((f, n), device=dev) for _ in range(c)]
         for d, off in enumerate(band_off):
@@ -483,7 +494,8 @@ def components_core(init_lab, member, gate_bits, rem_ok, band_off, rem_src,
     n = init_lab.shape[0]
     ptr, nbr = rem_csr(torch.where(rem_ok, rem_src, n), rem_dst, n)
     mem = None if member is None else member.to(torch.uint8).contiguous()
-    lab, _ = sweep_cuda.components_relax(
+    lab, _ = spmd.launch(
+        "components_relax", sweep_cuda.components_relax,
         init_lab.to(torch.float32).contiguous(), mem, gate_bits, band_off,
         ptr, nbr)
     return lab.to(torch.int32)
@@ -496,7 +508,7 @@ def connected_components_gated(labels_eq, band_off, band_mask, rem_src,
     n = band_mask.shape[0]
     gate = band_gate(labels_eq, band_off, band_mask)
     return components_core(
-        torch.arange(n, dtype=torch.float32, device=band_mask.device), None,
+        spmd.arange(n, torch.float32, band_mask.device), None,
         pack_band_bits(gate), rem_gate_eq(labels_eq, rem_src, rem_dst),
         band_off, rem_src, rem_dst)
 
@@ -559,8 +571,8 @@ def smooth_passes(field, c, band_off, band_mask, rem_src, rem_dst,
     c = c.to(torch.float32).contiguous()
     gate = None if gate is None else gate.to(torch.float32).contiguous()
     upd = None if upd is None else upd.to(torch.float32).contiguous()
-    planes = sweep_cuda.smooth_relax(planes, c, bits, band_off, ptr, nbr,
-                                     passes, gate, upd)
+    planes = spmd.launch("smooth_relax", sweep_cuda.smooth_relax, planes,
+                         c, bits, band_off, ptr, nbr, passes, gate, upd)
     return planes[0] if one_d else planes.T
 
 

@@ -17,13 +17,15 @@ import math
 
 import torch
 
+from ..parallel import spmd
+
 _U32 = 0xFFFFFFFF
 INF = math.inf
 
 
 def gather_nbrs(field, nbr_idx):
     """[N] field → [N, K] neighbour values (self where padded)."""
-    return field[nbr_idx]
+    return spmd.fresh(field)[nbr_idx]
 
 
 def masked_min_nbr(field, nbr_idx, nbr_mask, fill=INF):
@@ -50,7 +52,7 @@ def majority_smooth(labels, nbr_idx, nbr_mask, protect, num_passes: int = 3,
     pair = nbr_mask[:, None, :] & nbr_mask[:, :, None]
     for p in range(num_passes):
         thr = first_threshold if p == 0 else threshold
-        nl = labels[nbr_idx]                                   # [N, K]
+        nl = gather_nbrs(labels, nbr_idx)                      # [N, K]
         same = (nl[:, :, None] == nl[:, None, :]) & pair       # [N, K, K]
         counts = torch.where(nbr_mask, same.sum(2), -1)
         best_slot = torch.argmax(counts, dim=1, keepdim=True)

@@ -103,6 +103,31 @@ def ridged_fbm(t: Tables, x, y, z, octaves: int = 6, lacunarity: float = 2.0,
     return total / norm
 
 
+class SimplexNoise:
+    """Seeded simplex noise field evaluator: the object wrapper over
+    :func:`tables`, :func:`noise3`, :func:`fbm` and :func:`ridged_fbm`
+    (the JAX package's ``SimplexNoise``). Methods take tensors of one
+    shape and return that shape."""
+
+    def __init__(self, seed: float, device="cpu"):
+        self.tables = tables(seed, device)
+        self.perm = self.tables.perm
+        self.pm12 = self.tables.pm12
+        self.grad = torch.as_tensor(_GRAD, device=device)
+
+    def noise3(self, x, y, z):
+        return noise3(self.tables, x, y, z)
+
+    def fbm(self, x, y, z, octaves: int = 5,
+            persistence: float = 2.0 / 3.0):
+        return fbm(self.tables, x, y, z, octaves, persistence)
+
+    def ridged_fbm(self, x, y, z, octaves: int = 6, lacunarity: float = 2.0,
+                   gain: float = 0.5, offset: float = 1.0):
+        return ridged_fbm(self.tables, x, y, z, octaves, lacunarity, gain,
+                          offset)
+
+
 def noise3_np(perm: np.ndarray, pm12: np.ndarray, x, y, z):
     """Host (numpy) mirror of :func:`_noise3` for prologue-side scalar/point
     evaluations (hotspot placement, host point projection) — keeps the

@@ -1,7 +1,22 @@
-from .sharding import (make_planet_mesh, cells_mesh, shard_cells, replicate,
-                       batched_terrain_step, terrain_step)
-from .batch import generate_batch, sweep_heightmaps
+"""Multi-device scaling: the cells × seed split (sharding.py, windows.py,
+loops.py), the split generate's runtime (spmd.py) and seed batches
+(batch.py). The public names load on first use, so ``from ..parallel
+import spmd`` in the stage modules pulls in nothing of the stages."""
 
-__all__ = ["make_planet_mesh", "cells_mesh", "shard_cells", "replicate",
-           "batched_terrain_step", "terrain_step",
-           "generate_batch", "sweep_heightmaps"]
+_NAMES = {
+    "make_planet_mesh": "sharding", "cells_mesh": "sharding",
+    "shard_cells": "sharding", "replicate": "sharding",
+    "batched_terrain_step": "sharding", "terrain_step": "sharding",
+    "generate_batch": "batch", "sweep_heightmaps": "batch",
+}
+
+__all__ = list(_NAMES)
+
+
+def __getattr__(name):
+    mod = _NAMES.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f".{mod}", __name__), name)

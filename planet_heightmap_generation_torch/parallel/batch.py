@@ -22,14 +22,14 @@ from ..pipeline.engine import PlanetEngine, PlanetResult
 
 def _engine(devices: Optional[Sequence], engine: Optional[PlanetEngine]
             ) -> PlanetEngine:
-    """The engine the seeds run on: ``engine``, or a new one on the one
-    device of ``devices`` (default the card)."""
+    """The engine the seeds run on: ``engine``, or a new one on the first
+    device of ``devices`` (default the card). The JAX package accepts any
+    device list and runs on its default device; the port's analogue is
+    the list's first device, so it never runs on a device the caller did
+    not list."""
     if engine is not None:
         return engine
     devices = list(devices or [])
-    if len(devices) > 1:
-        raise ValueError("generate_batch runs on one device; got "
-                         f"{len(devices)}")
     return PlanetEngine(device=devices[0] if devices else None)
 
 
@@ -43,8 +43,8 @@ def generate_batch(params: GenerationParams, seeds: Sequence[int],
     """Run the full generation pipeline for every seed in ``seeds``.
 
     ``params.seed`` is ignored; each run uses ``params.replace(seed=s)``,
-    one after another on ``engine`` (or a new engine on the one device of
-    ``devices``, default the card), so every result equals
+    one after another on ``engine`` (or a new engine on the first device
+    of ``devices``, default the card), so every result equals
     ``engine.generate`` of its seed. ``vmap_chunk`` is accepted for the
     JAX package's signature and changes nothing: there is no vmap.
 
@@ -92,7 +92,7 @@ def sweep_heightmaps(params: GenerationParams, seeds: Sequence[int],
                      devices: Optional[Sequence] = None
                      ) -> Iterator[Tuple[int, PlanetResult, np.ndarray]]:
     """Config-5 workload: S full generations (lean) + an equirect heightmap
-    export each, on the one device of ``devices`` (default the card). With
+    export each, on the first device of ``devices`` (default the card). With
     ``jitter=0`` the mesh is seed-independent, so ONE rasterized cell-id
     map is shared by every seed's export (the reference's exportMapBatch
     geometry sharing, js/planet-mesh.js:1965-2180); jittered meshes differ

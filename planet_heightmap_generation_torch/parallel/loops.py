@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import sweep_cuda
-from .windows import CellShards
+from .windows import CellShards, WindowGraph
 
 
 def chunks_changed(layout, old, new) -> bool:
@@ -103,8 +103,10 @@ def sharded_stress_relax(state, ocean, wg, rem_gate, decay: float,
                          sub_decay: float, cap: int):
     """:func:`sweep_cuda.stress_relax` per sweep (a capped argmax with
     payload ties: no schedule but the Jacobi one gives its values).
-    ``rem_gate`` [G, M] is the global gate in CSR order."""
-    gates = [wg.edge_rows(rem_gate, c) for c in range(len(wg.shards))]
+    ``rem_gate`` [G, M] is the global gate in CSR order, or a list of each
+    window's [G, M_c] gates in its own CSR order."""
+    gates = (list(rem_gate) if isinstance(rem_gate, (list, tuple))
+             else [wg.edge_rows(rem_gate, c) for c in range(len(wg.shards))])
     step = _each(lambda c, x, _: sweep_cuda.stress_relax(
         x, ocean.windows[c], wg.bits(c), wg.band_off, *wg.csr(c), gates[c],
         decay, sub_decay, 1)[0])
@@ -232,3 +234,119 @@ def sharded_ordered_sum(n_out: int, idx, vals):
     if int(n_out) == lay.n_padded:
         return CellShards(lay, lay.split(out, 0), 0)
     return out
+
+
+# ── the split generate's kernel routes (parallel/spmd.py ``launch``) ───────
+# Each takes the layout and, per shard, the arguments its window passed to
+# the one-launch wrapper (its own band bits and remainder CSR, built by the
+# unchanged caller on the window graph), exchanges the cell planes the
+# caller built on its window, runs the split loop and returns per shard
+# what the wrapper returns.
+
+def _graph(layout, vals, bits: int, ptr: int, band_off: int = 3):
+    return WindowGraph(layout, tuple(int(o) for o in vals[0][band_off]),
+                       tuple((v[bits], v[ptr], v[ptr + 1], None)
+                             for v in vals))
+
+
+def _planes(layout, vals, i: int) -> CellShards:
+    wins = [v[i] for v in vals]
+    layout.exchange(wins, -1)
+    return CellShards(layout, wins, -1)
+
+
+def _with_count(out: CellShards, n: int) -> list:
+    return [(w, torch.tensor([int(n)], dtype=torch.int32, device=w.device))
+            for w in out.windows]
+
+
+def _route_bfs(layout, vals):
+    # cur, cost, bits, band_off, rem_ptr, rem_nbr, cap
+    out, n = sharded_bfs_relax(_planes(layout, vals, 0),
+                               _planes(layout, vals, 1),
+                               _graph(layout, vals, 2, 4), vals[0][6])
+    return _with_count(out, n)
+
+
+def _route_stress(layout, vals):
+    # state, ocean, bits, band_off, rem_ptr, rem_nbr, rem_gate, decay,
+    # sub_decay, cap
+    v0 = vals[0]
+    out, n = sharded_stress_relax(
+        _planes(layout, vals, 0), _planes(layout, vals, 1),
+        _graph(layout, vals, 2, 4), [v[6] for v in vals], v0[7], v0[8],
+        v0[9])
+    return _with_count(out, n)
+
+
+def _route_warp(layout, vals):
+    # state, w, bits, band_off, rem_ptr, rem_nbr, cap
+    out, n = sharded_warp_relax(_planes(layout, vals, 0),
+                                _planes(layout, vals, 1),
+                                _graph(layout, vals, 2, 4), vals[0][6])
+    return _with_count(out, n)
+
+
+def _route_flood(layout, vals):
+    # surf, inland, elev_baked, bits, band_off, rem_ptr, rem_nbr, big, eps
+    out, n = sharded_flood_relax(
+        _planes(layout, vals, 0), _planes(layout, vals, 1),
+        _planes(layout, vals, 2), _graph(layout, vals, 3, 5, 4),
+        vals[0][7], vals[0][8])
+    return _with_count(out, n)
+
+
+def _route_smooth(layout, vals):
+    # field, c, bits, band_off, rem_ptr, rem_nbr, passes, gate, upd
+    opt = [None if vals[0][i] is None else _planes(layout, vals, i)
+           for i in (7, 8)]
+    return sharded_smooth_relax(_planes(layout, vals, 0),
+                                _planes(layout, vals, 1),
+                                _graph(layout, vals, 2, 4), vals[0][6],
+                                *opt).windows
+
+
+def _route_shadow(layout, vals):
+    # state, aux, land, bits, band_off, rem_ptr, rem_nbr, retain_s,
+    # retain_w, shadow_hops, windward_hops
+    v0 = vals[0]
+    out, n = sharded_shadow_relax(
+        _planes(layout, vals, 0), _planes(layout, vals, 1),
+        _planes(layout, vals, 2), _graph(layout, vals, 3, 5, 4), v0[7],
+        v0[8], v0[9], v0[10])
+    return _with_count(out, n)
+
+
+def _route_components(layout, vals):
+    # lab, member, bits, band_off, rem_ptr, rem_nbr
+    out, n = sharded_components_relax(_planes(layout, vals, 0),
+                                      _graph(layout, vals, 2, 4))
+    return _with_count(out, n)
+
+
+def _route_accumulate(layout, vals):
+    # s, p, rounds, stop_at_sink: the gather route
+    out, n = sharded_accumulate_relax(
+        CellShards(layout, [v[0] for v in vals], 0),
+        CellShards(layout, [v[1] for v in vals], 0), vals[0][2], vals[0][3])
+    return _with_count(out, n)
+
+
+def _route_ordered_sum(layout, vals):
+    # n_out, idx, vals: the gather route; bins come back whole to every
+    # shard, cell-indexed sums as windows
+    out = sharded_ordered_sum(
+        vals[0][0], CellShards(layout, [v[1] for v in vals], 0),
+        CellShards(layout, [v[2] for v in vals], 0))
+    if isinstance(out, CellShards):
+        return out.windows
+    return [out.to(d) for d in layout.devices]
+
+
+ROUTES = {
+    "bfs_relax": _route_bfs, "stress_relax": _route_stress,
+    "warp_relax": _route_warp, "flood_relax": _route_flood,
+    "smooth_relax": _route_smooth, "shadow_relax": _route_shadow,
+    "components_relax": _route_components, "accumulate": _route_accumulate,
+    "ordered_sum": _route_ordered_sum,
+}

@@ -25,8 +25,9 @@ the visible CUDA devices.
   the single-device step bit for bit on the same device type.
 
 JAX's ``no_persistent_cache`` guards its compile cache, which the port
-does not have; ``shard_fused_args`` places the engine's fused arguments
-and comes with ``PlanetEngine(mesh=)``.
+does not have. :func:`shard_fused_args` places the engine's arguments for
+``PlanetEngine(mesh=)``, whose split generate runs the unchanged stages on
+each shard's window through the collectives of parallel/spmd.py.
 """
 
 from __future__ import annotations
@@ -187,6 +188,30 @@ def gather_cells(x, device=None):
         return x.rows[0].gather(device)
     dev = x.rows[0].layout.devices[0] if device is None else device
     return torch.cat([r.gather(dev) for r in x.rows], 0)
+
+
+def shard_fused_args(mesh: CellsMesh, setup):
+    """Place a ``PlanetSetup`` (pipeline/engine.py) on the mesh's first
+    row of devices for the split generate, as the JAX ``shard_fused_args``
+    places the fused program's arguments: every tensor with an ``[NP]``
+    leading axis splits over ``cells`` (the graph becomes each shard's
+    window graph, ``WindowLayout.window_graphs``), every other tensor is
+    replicated onto each shard's device (plate and super-plate tables,
+    hotspot domes, noise tables, the projection's coarse tables); host
+    values are shared. Returns (the row's :class:`WindowLayout`, one
+    setup per shard)."""
+    g = setup.g
+    lay = mesh.layout(0, g.n_padded, g.band_off, g.rem_src, g.rem_dst)
+    graphs = lay.window_graphs(g)
+    out = [dataclasses.replace(
+        setup, g=graphs[c], domes=lay.place(setup.domes, c),
+        noise_pack=lay.place(setup.noise_pack, c),
+        warp_t=lay.place(setup.warp_t, c),
+        projection=lay.place(setup.projection, c),
+        plate_arrays=lay.place(setup.plate_arrays, c),
+        super_arrays=lay.place(setup.super_arrays, c))
+        for c in range(lay.n_shards)]
+    return lay, out
 
 
 def _f32(x, device):

@@ -150,6 +150,47 @@ class WindowLayout:
         return torch.cat([self.chunk(w, c, axis).to(dev)
                           for c, w in enumerate(wins)], dim=axis)
 
+    def place(self, x, c: int):
+        """Shard ``c``'s part of ``x``, a tensor or a tuple, named tuple,
+        list or dict of them: every tensor with an ``[NP]`` leading axis as
+        its window, every other tensor whole, on the shard's device; other
+        values as they are."""
+        if torch.is_tensor(x):
+            if x.dim() >= 1 and x.shape[0] == self.n_padded:
+                x = x.index_select(0, self._t(c, "index", x.device))
+            return x.to(self.devices[c])
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(self.place(v, c) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.place(v, c) for v in x)
+        if isinstance(x, dict):
+            return {k: self.place(v, c) for k, v in x.items()}
+        return x
+
+    def gather_tree(self, parts, device=None):
+        """The inverse of :meth:`place` over each shard's ``parts`` (one
+        structure per shard): a tensor whose leading axis is every shard's
+        window length is gathered from the chunk rows in cell order, any
+        other value is shard 0's; tensors land on ``device`` (the first
+        shard's by default)."""
+        dev = self.devices[0] if device is None else _norm_device(device)
+        first = parts[0]
+        if torch.is_tensor(first):
+            if first.dim() >= 1 and all(p.shape[0] == self.length(c)
+                                        for c, p in enumerate(parts)):
+                return self.gather(parts, 0, dev)
+            return first.to(dev)
+        if isinstance(first, tuple) and hasattr(first, "_fields"):
+            return type(first)(*(self.gather_tree(list(z), dev)
+                                 for z in zip(*parts)))
+        if isinstance(first, (tuple, list)):
+            return type(first)(self.gather_tree(list(z), dev)
+                               for z in zip(*parts))
+        if isinstance(first, dict):
+            return {k: self.gather_tree([p[k] for p in parts], dev)
+                    for k in first}
+        return first
+
     def exchange(self, wins, axis: int = 0) -> None:
         """Copy the owners' chunk rows into every window's halo and slot
         rows, in place (chunk rows are read, never written)."""
@@ -214,6 +255,48 @@ class WindowLayout:
                            nbr.to(torch.int32).to(d).contiguous(),
                            torch.arange(a, b, device=dv).to(d)))
         return WindowGraph(self, self.band_off, tuple(shards))
+
+
+    def window_graphs(self, g) -> list:
+        """Per shard the :class:`~..mesh.device.DeviceGraph` of its window
+        of the whole graph ``g`` (the layout's graph): positions and
+        validity sliced to the window; band masks and bits on the chunk
+        rows only; the chunk rows' remainder edges as window positions, in
+        global edge order; the gather form ``nbr_idx`` / ``nbr_mask`` with
+        window-local neighbours on the chunk rows and each other row
+        pointing to itself, unmasked; ``n_cells`` the whole planet's. The
+        stage functions run on it unchanged (parallel/spmd.py). Raises if a
+        chunk row's neighbour lies outside its window and slots."""
+        from ..mesh.device import DeviceGraph
+        from ..ops.banded import pack_band_bits, rem_walk_edges
+
+        if tuple(g.band_off) != self.band_off:
+            raise ValueError("window graphs: band offsets differ from the "
+                             "layout's")
+        masks = self.band_mask(g.band_mask)
+        out = []
+        for c, d in enumerate(self.devices):
+            idx = self._t(c, "index", g.device)
+            chunk = self._t(c, "chunk", g.device)
+            where = self._t(c, "where", g.device).long()
+            local = where[g.nbr_idx.index_select(0, idx)]
+            mask = g.nbr_mask.index_select(0, idx) & chunk[:, None]
+            if bool((mask & (local < 0)).any()):
+                raise ValueError(f"window graphs: shard {c} has neighbours "
+                                 "outside its window and slots")
+            own = torch.arange(idx.shape[0], device=g.device)[:, None]
+            nbr = torch.where(chunk[:, None] & (local >= 0), local, own)
+            src, dst = self._t(c, "src"), self._t(c, "dst")
+            wg = DeviceGraph(
+                pos=g.pos.index_select(0, idx).to(d).contiguous(),
+                nbr_idx=nbr.to(d).contiguous(), nbr_mask=mask.to(d),
+                valid=g.valid.index_select(0, idx).to(d),
+                band_mask=masks[c], band_bits=pack_band_bits(masks[c]),
+                rem_src=src, rem_dst=dst, n_cells=g.n_cells,
+                band_off=self.band_off)
+            rem_walk_edges(wg.rem_src, wg.rem_dst)
+            out.append(wg)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,6 +29,7 @@ import os
 import threading
 import time
 import traceback
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -54,9 +55,14 @@ from ..climate import (compute_wind, compute_ocean_currents,
                        compute_precipitation, compute_temperature,
                        classify_koppen)
 from ..climate.wind import climate_coast_fields
+from ..parallel import spmd
 from .timing import StageTimer
 
 MAX_SUPER = 32
+# Above this many cells the JAX engine leaves its fused program for the
+# staged one, which it never splits (JAX pipeline/engine.py:167); the
+# port's generate splits over a mesh only at or below it, as JAX does.
+FUSED_MAX_CELLS = int(os.environ.get("PLANET_FUSED_MAX_CELLS", 3_000_000))
 
 
 @dataclasses.dataclass
@@ -115,21 +121,30 @@ def smooth_and_reconnect(g: DeviceGraph, r_plate, num_p: int,
                               num_passes=num_passes)
 
     labels = connected_components_gated(r_plate, *g.bands).long()
+    in_main = spmd.gathered(_largest_pieces, labels, r_plate, g.valid,
+                            num_p=num_p)
+    val, _ = flood_assign_banded(r_plate.to(torch.int32), in_main, *g.bands)
+    return torch.where(g.valid, val, r_plate).to(torch.int32)
+
+
+def _largest_pieces(labels, r_plate, valid, num_p: int):
+    """The cells of each plate's largest connected piece (component
+    labels are cell indices; ties toward the smallest label)."""
+    n = labels.shape[0]
     rp = r_plate.long()
-    sizes = torch.zeros(n, dtype=torch.int64, device=g.device).index_add(
-        0, labels, g.valid.to(torch.int64))
+    sizes = torch.zeros(n, dtype=torch.int64, device=labels.device).index_add(
+        0, labels, valid.to(torch.int64))
     comp_size = sizes[labels]
     imin = torch.iinfo(torch.int64).min
     max_per_plate = torch.full((num_p,), imin, dtype=torch.int64,
-                               device=g.device).scatter_reduce(
-        0, rp, torch.where(g.valid, comp_size, 0), "amax")
+                               device=labels.device).scatter_reduce(
+        0, rp, torch.where(valid, comp_size, 0), "amax")
     is_max = comp_size == max_per_plate[rp]
     min_tied = torch.full((num_p,), torch.iinfo(torch.int64).max,
-                          dtype=torch.int64, device=g.device).scatter_reduce(
-        0, rp, torch.where(is_max & g.valid, labels, n), "amin")
-    in_main = is_max & (labels == min_tied[rp]) & g.valid
-    val, _ = flood_assign_banded(r_plate.to(torch.int32), in_main, *g.bands)
-    return torch.where(g.valid, val, r_plate).to(torch.int32)
+                          dtype=torch.int64,
+                          device=labels.device).scatter_reduce(
+        0, rp, torch.where(is_max & valid, labels, n), "amin")
+    return is_max & (labels == min_tied[rp]) & valid
 
 
 @dataclasses.dataclass
@@ -304,7 +319,7 @@ def prefetch_mesh(params: GenerationParams) -> None:
             if not params.toggled_indices:
                 holder["products"] = host_products(
                     params, graph, StageTimer(sync_enabled=False))
-        except BaseException as e:  # noqa: BLE001 — raised on adoption
+        except Exception as e:  # noqa: BLE001 — reported on adoption
             holder["error"] = e
 
     t = threading.Thread(target=build, daemon=True, name="prefetch-mesh")
@@ -314,18 +329,21 @@ def prefetch_mesh(params: GenerationParams) -> None:
 
 def _take_prefetched_mesh(params: GenerationParams):
     """(graph | None, HostProducts | None) of a prefetch of ``params``,
-    joining its thread if it is still running. A build that failed raises
-    its error here; nothing falls back to a silent rebuild."""
+    joining its thread if it is still running: whatever the thread
+    finished, as in the JAX package. A build that failed is reported with
+    a warning and yields ``(None, None)`` where the mesh itself failed, so
+    ``host_setup`` builds again on the caller's thread and a deterministic
+    error surfaces from that build."""
     with _MESH_LOCK:
         holder = _MESH_PREFETCH.pop(_prefetch_key(params), None)
     if holder is None:
         return None, None
     holder["thread"].join()
     if "error" in holder:
-        raise RuntimeError(
-            f"the mesh prefetch of seed {params.seed} "
-            f"({params.n_cells} cells) failed: {holder['error']!r}"
-        ) from holder["error"]
+        warnings.warn(
+            f"the mesh prefetch of seed {params.seed} ({params.n_cells} "
+            f"cells) failed and is rebuilt: {holder['error']!r}",
+            RuntimeWarning, stacklevel=3)
     return holder.get("graph"), holder.get("products")
 
 
@@ -382,6 +400,13 @@ def prime_device_transfer(device) -> None:
     threading.Thread(target=go, daemon=True, name="prime-d2h").start()
 
 
+def _norm_device(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -428,13 +453,32 @@ class PlanetEngine:
     ``timing=True`` (default: ``PLANET_TIMING=1``) synchronizes the device
     after every stage for true per-stage times; otherwise a command
     enqueues its device work without stage syncs and synchronizes once,
-    at its end. The mode changes no result."""
+    at its end. The mode changes no result.
 
-    def __init__(self, device=None, timing: Optional[bool] = None):
+    ``mesh`` (``parallel.cells_mesh``): ``generate`` splits its device
+    pipeline, terrain and climate, over the mesh's first row of devices
+    (the JAX engine's sharded fused branch; not in timing mode and not
+    above ``FUSED_MAX_CELLS`` cells, which run unsplit as in JAX), and
+    gathers every product and the retained state to ``device``, so the
+    other commands run unsplit. ``device`` is then None (the mesh's first
+    device) or that device; any other raises."""
+
+    def __init__(self, device=None, timing: Optional[bool] = None,
+                 mesh=None):
+        if mesh is not None:
+            first = mesh.devices[0][0]
+            if device is None:
+                device = first
+            elif _norm_device(device) != first:
+                raise ValueError(
+                    f"PlanetEngine(device={device!r}) with a mesh must run "
+                    f"on the mesh's first device, {first}")
         self.device = _resolve_device(device)
         if timing is None:
             timing = os.environ.get("PLANET_TIMING", "0") == "1"
         self._timing = bool(timing)
+        self._mesh = mesh
+        self.split_stats: Optional[dict] = None
         self._w: Optional[dict] = None
         prime_device_transfer(self.device)
 
@@ -485,16 +529,18 @@ class PlanetEngine:
 
     @classmethod
     def load_session(cls, path: str, device=None,
-                     timing: Optional[bool] = None) -> "PlanetEngine":
+                     timing: Optional[bool] = None,
+                     mesh=None) -> "PlanetEngine":
         """An engine with the retained state of a ``save_session`` file
         (of either package): ``host_setup`` replays the prologue, the
-        stored arrays fill in the generate products."""
+        stored arrays fill in the generate products. ``mesh`` is kept for
+        the engine's later generates, as in JAX."""
         data = np.load(path)
         pd = json.loads(str(data["params_json"]))
         pd["toggled_indices"] = tuple(pd.get("toggled_indices", ()))
         params = GenerationParams(**pd)
 
-        eng = cls(device=device, timing=timing)
+        eng = cls(device=device, timing=timing, mesh=mesh)
         dev = eng.device
         s = host_setup(params, dev, StageTimer(sync_enabled=False),
                        _no_progress)
@@ -554,12 +600,61 @@ class PlanetEngine:
                               stack=traceback.format_exc())
 
     # ── generate ─────────────────────────────────────────────────────
+    def _splits(self, params: GenerationParams) -> bool:
+        """Whether ``generate`` runs split over the mesh: where JAX shards,
+        on its fused branch (not in timing mode, at most
+        ``FUSED_MAX_CELLS`` cells)."""
+        return (self._mesh is not None and not self._timing
+                and params.n_cells <= FUSED_MAX_CELLS)
+
     def generate(self, params: GenerationParams,
                  on_progress: Optional[Callable] = None) -> PlanetResult:
-        """The reference generate (js/planet-worker.js:136-339)."""
+        """The reference generate (js/planet-worker.js:136-339). With a
+        mesh (and where :meth:`_splits`), the device pipeline runs split
+        over its cells windows and every product is gathered to
+        ``device``."""
         timer = self._timer()
         prog = on_progress or _no_progress
         s = host_setup(params, self.device, timer, prog)
+        self.split_stats = None
+        if self._splits(params):
+            out = self._split_pipeline(s, params, timer, prog)
+        else:
+            out = self._device_pipeline(s, params, timer, prog)
+        elev_res, climate = out["elev"], out["climate"]
+        r_plate, elevation, debug = out["r_plate"], out["elevation"], \
+            out["debug"]
+
+        self._w = dict(
+            graph=s.graph, g=s.g, params=params, seed=params.seed,
+            coarse=s.coarse, r_plate=r_plate, plates=s.plates,
+            super_sp=s.super_sp, original_is_ocean=s.original_is_ocean,
+            noise_pack=s.noise_pack, warp_t=s.warp_t,
+            pre_post=elev_res.elevation, elevation_final=elevation,
+            mountain=elev_res.mountain, coastline=elev_res.coastline,
+            ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
+            hotspot=debug.get("hotspot"),
+            cached_wind=(climate or {}).get("wind"),
+            cached_ocean=(climate or {}).get("ocean"),
+        )
+        self._finish(timer, params, "generate")
+        return PlanetResult(
+            graph=s.graph, params=params, r_plate=r_plate,
+            plate_seeds=s.plates.seeds, plate_is_ocean=s.plates.is_ocean,
+            plate_density=s.plates.density,
+            pre_post_elevation=elev_res.elevation, elevation=elevation,
+            t_elevation=out["t_elev"], stress=elev_res.stress,
+            mountain_mask=elev_res.mountain,
+            coastline_mask=elev_res.coastline,
+            ocean_seed_mask=elev_res.ocean_seeds,
+            climate=climate, debug=debug, timing=timer, error=out["error"])
+
+    def _device_pipeline(self, s: PlanetSetup, params: GenerationParams,
+                         timer: StageTimer, prog: Callable,
+                         triangles: bool = True) -> Dict:
+        """Projection → smoothing and reconnection → elevation → erosion →
+        (triangle elevations) → climate on ``s.g``: the whole graph, or one
+        window of a split. Returns the products as a dict."""
         g = s.g
         p_ocean, p_pole, p_omega, p_dens = s.plate_arrays
 
@@ -591,8 +686,10 @@ class PlanetEngine:
                 hotspot=elev_res.debug.get("hotspot"),
                 avg_edge=_nominal_edge(s.graph), warp_t=s.warp_t)
 
-        with timer.stage("Triangle elevations", sync=True):
-            t_elev = triangle_elevations(elevation, s.graph)
+        t_elev = None
+        if triangles:
+            with timer.stage("Triangle elevations", sync=True):
+                t_elev = triangle_elevations(elevation, s.graph)
 
         debug = dict(elev_res.debug)
         debug["erosionDelta"] = erosion_delta
@@ -601,30 +698,38 @@ class PlanetEngine:
             climate, stage_error = self._climate_seam(
                 g, elevation, p_ocean, r_plate, params.seed, params, timer,
                 prog, debug)
+        return dict(r_plate=r_plate, elev=elev_res, elevation=elevation,
+                    t_elev=t_elev, debug=debug, climate=climate,
+                    error=stage_error)
 
-        self._w = dict(
-            graph=s.graph, g=g, params=params, seed=params.seed,
-            coarse=s.coarse, r_plate=r_plate, plates=s.plates,
-            super_sp=s.super_sp, original_is_ocean=s.original_is_ocean,
-            noise_pack=s.noise_pack, warp_t=s.warp_t,
-            pre_post=elev_res.elevation, elevation_final=elevation,
-            mountain=elev_res.mountain, coastline=elev_res.coastline,
-            ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
-            hotspot=debug.get("hotspot"),
-            cached_wind=(climate or {}).get("wind"),
-            cached_ocean=(climate or {}).get("ocean"),
-        )
-        self._finish(timer, params, "generate")
-        return PlanetResult(
-            graph=s.graph, params=params, r_plate=r_plate,
-            plate_seeds=s.plates.seeds, plate_is_ocean=s.plates.is_ocean,
-            plate_density=s.plates.density,
-            pre_post_elevation=elev_res.elevation, elevation=elevation,
-            t_elevation=t_elev, stress=elev_res.stress,
-            mountain_mask=elev_res.mountain,
-            coastline_mask=elev_res.coastline,
-            ocean_seed_mask=elev_res.ocean_seeds,
-            climate=climate, debug=debug, timing=timer, error=stage_error)
+    def _split_pipeline(self, s: PlanetSetup, params: GenerationParams,
+                        timer: StageTimer, prog: Callable) -> Dict:
+        """:meth:`_device_pipeline` split over the mesh's cells windows
+        (parallel/spmd.py): one thread per shard runs it on its window
+        graph and its copies of the tables (``shard_fused_args``); the
+        products are gathered to ``device``, where the triangle elevations
+        are taken. ``split_stats`` keeps the split's counts."""
+        from ..parallel.sharding import shard_fused_args
+
+        with timer.stage("Split placement", sync=True):
+            lay, shards = shard_fused_args(self._mesh, s)
+        exchanges = lay.exchanges
+
+        def shard(c, sc):
+            if c == 0:
+                return self._device_pipeline(sc, params, timer, prog,
+                                             triangles=False)
+            return self._device_pipeline(
+                sc, params, StageTimer(sync_enabled=False), _no_progress,
+                triangles=False)
+
+        parts, stats = spmd.run(lay, shard, [(sc,) for sc in shards])
+        with timer.stage("Split gather", sync=True):
+            out = lay.gather_tree(parts, self.device)
+            out["t_elev"] = triangle_elevations(out["elevation"], s.graph)
+        self.split_stats = dict(stats, exchanges=lay.exchanges - exchanges,
+                                shards=lay.n_shards)
+        return out
 
     # ── reapply (sculpting) ──────────────────────────────────────────
     def reapply(self, sculpt: Optional[dict] = None,

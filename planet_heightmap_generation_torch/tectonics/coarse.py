@@ -156,6 +156,18 @@ def projection_inputs(coarse: CoarsePlates, seed: int, num_plates: int,
                                  device)
 
 
+def project_coarse_plates(graph, coarse: CoarsePlates, seed: int,
+                          num_plates: int, device="cpu"):
+    """Project the coarse plate slots onto the hi-res mesh ``graph`` (a
+    ``SphereGraph``): :func:`projection_inputs` and :func:`project_kernel`
+    in one call, on ``device``. Returns [NP] int32 plate ids."""
+    perm, pm12, amp, bi, bm, bp, cp = projection_inputs(coarse, seed,
+                                                        num_plates, device)
+    pos = torch.as_tensor(np.asarray(graph.pos, np.float32), device=device)
+    return project_kernel(pos, perm, pm12, amp, bi, bm, bp, cp,
+                          coarse.bins.n_lat, coarse.bins.n_lon)
+
+
 def projection_from_numpy(perm, pm12, perturb_amp, cand_idx, cand_mask,
                           points, coarse_plate, device="cpu"):
     """Tensors of the projection inputs from their numpy arrays."""

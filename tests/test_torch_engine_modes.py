@@ -12,7 +12,8 @@ Contracts:
 - ``prefetch_mesh`` then ``generate`` adopts the prefetched graph and
   host products and equals a generate without prefetch bit for bit;
   toggled params prefetch the mesh only; an error raised in the prefetch
-  thread surfaces from ``generate`` (it is not swallowed into a rebuild).
+  thread is reported with a warning and the mesh rebuilt on the caller's
+  thread, as in the JAX engine, so only an error of the rebuild raises.
 - ``prime_device_transfer`` starts nothing on the CPU.
 """
 
@@ -118,19 +119,34 @@ def test_prefetch_of_toggled_params_builds_the_mesh_only(reference):
     assert eng_mod._take_prefetched_mesh(toggled) == (None, None)
 
 
-def test_prefetch_error_surfaces_from_generate(monkeypatch):
+def test_prefetch_error_surfaces_from_generate(monkeypatch, reference):
+    """A build that fails only on the prefetch thread is reported with a
+    warning and rebuilt on the caller's thread, as the JAX engine rebuilds:
+    the planet equals an unprefetched generate. A build that fails on both
+    threads raises from ``generate``."""
     build = eng_mod.build_sphere
 
-    def failing(*args, **kw):
+    def fails_in_thread(*args, **kw):
         if threading.current_thread() is not threading.main_thread():
             raise ValueError("mesh build failed in the prefetch thread")
         return build(*args, **kw)
 
-    monkeypatch.setattr(eng_mod, "build_sphere", failing)
+    monkeypatch.setattr(eng_mod, "build_sphere", fails_in_thread)
     prefetch_mesh(PARAMS)
-    with pytest.raises(RuntimeError, match="prefetch") as info:
-        PlanetEngine(device="cpu").generate(PARAMS)
-    assert isinstance(info.value.__cause__, ValueError)
+    with pytest.warns(RuntimeWarning, match="prefetch"):
+        res = PlanetEngine(device="cpu").generate(PARAMS)
+    assert not eng_mod._MESH_PREFETCH
+    for name in ("elevation", "pre_post_elevation", "r_plate", "stress"):
+        assert torch.equal(getattr(res, name), getattr(reference, name))
+
+    def fails_always(*args, **kw):
+        raise ValueError("mesh build failed")
+
+    monkeypatch.setattr(eng_mod, "build_sphere", fails_always)
+    prefetch_mesh(PARAMS)
+    with pytest.warns(RuntimeWarning, match="prefetch"):
+        with pytest.raises(ValueError, match="mesh build failed"):
+            PlanetEngine(device="cpu").generate(PARAMS)
 
 
 def test_prime_device_transfer_is_a_no_op_on_the_cpu(monkeypatch):
