@@ -24,6 +24,7 @@ from ..ops.banded import (banded_sum, banded_count, band_shift, dot3,
                           pack_band_bits, rem_csr, smooth_field_banded,
                           compute_gradients_banded, rem_add, rem_gather)
 from ..parallel import spmd
+from ..pipeline.timing import span
 from .util import (smoothstep, percentile95, elev_to_height_km,
                    itcz_lookup)
 from .heuristic_precip import (heuristic_wind_field, heuristic_precip_raw,
@@ -291,13 +292,14 @@ def compute_precipitation(g: DeviceGraph, elev, wind: Dict, ocean: Dict,
     east, north = wind["r_east"], wind["r_north"]
 
     # smoothed elevation gradients (js/precipitation.js:216-233)
-    elev_passes = max(2, round(200 / avg_edge_km))
-    elev_sm = smooth_field_banded(elev.to(torch.float32), *g.bands,
-                                  elev_passes)
-    elev_sm = elev_sm * 0.6 + elev * 0.4
-    grad_e, grad_n = compute_gradients_banded(g.pos, elev_sm, east, north,
-                                              *g.bands)
-    height_km = elev_to_height_km(torch.clamp(elev, min=0.0))
+    with span("Precipitation: gradients"):
+        elev_passes = max(2, round(200 / avg_edge_km))
+        elev_sm = smooth_field_banded(elev.to(torch.float32), *g.bands,
+                                      elev_passes)
+        elev_sm = elev_sm * 0.6 + elev * 0.4
+        grad_e, grad_n = compute_gradients_banded(g.pos, elev_sm, east, north,
+                                                  *g.bands)
+        height_km = elev_to_height_km(torch.clamp(elev, min=0.0))
 
     conv_passes = max(3, round(400 / avg_edge_km))
     shadow_hops = max(8, round(2500 / avg_edge_km))
@@ -308,75 +310,82 @@ def compute_precipitation(g: DeviceGraph, elev, wind: Dict, ocean: Dict,
 
     # per-season wind (50-50 blend with the heuristic zonal wind,
     # js/precipitation.js:262-270), stacked [N,2]
-    we_l, wn_l, itcz_l = [], [], []
-    for name in ("summer", "winter"):
-        itcz_lats = wind[f"itcz_lats_{name}"]
-        h_we, h_wn = heuristic_wind_field(lat, lon, itcz_lats)
-        we_l.append(0.5 * wind[f"r_wind_east_{name}"] + 0.5 * h_we)
-        wn_l.append(0.5 * wind[f"r_wind_north_{name}"] + 0.5 * h_wn)
-        itcz_l.append(itcz_lookup(itcz_lats, lon))
-    we2 = torch.stack(we_l, 1)
-    wn2 = torch.stack(wn_l, 1)
-    dist_itcz2 = torch.abs(lat[:, None] - torch.stack(itcz_l, 1)) / DEG
-    wind3d2 = (we2[:, :, None] * east[:, None, :]
-               + wn2[:, :, None] * north[:, None, :])            # [N,2,3]
-    warmth2 = torch.stack([ocean["r_ocean_warmth_summer"],
-                           ocean["r_ocean_warmth_winter"]], 1)
-    pressure2 = torch.stack([wind["r_pressure_summer"],
-                             wind["r_pressure_winter"]], 1)
+    with span("Precipitation: seasonal blend"):
+        we_l, wn_l, itcz_l = [], [], []
+        for name in ("summer", "winter"):
+            itcz_lats = wind[f"itcz_lats_{name}"]
+            h_we, h_wn = heuristic_wind_field(lat, lon, itcz_lats)
+            we_l.append(0.5 * wind[f"r_wind_east_{name}"] + 0.5 * h_we)
+            wn_l.append(0.5 * wind[f"r_wind_north_{name}"] + 0.5 * h_wn)
+            itcz_l.append(itcz_lookup(itcz_lats, lon))
+        we2 = torch.stack(we_l, 1)
+        wn2 = torch.stack(wn_l, 1)
+        dist_itcz2 = torch.abs(lat[:, None] - torch.stack(itcz_l, 1)) / DEG
+        wind3d2 = (we2[:, :, None] * east[:, None, :]
+                   + wn2[:, :, None] * north[:, None, :])            # [N,2,3]
+        warmth2 = torch.stack([ocean["r_ocean_warmth_summer"],
+                               ocean["r_ocean_warmth_winter"]], 1)
+        pressure2 = torch.stack([wind["r_pressure_summer"],
+                                 wind["r_pressure_winter"]], 1)
 
-    conv2 = _wind_convergence2(g.pos, wind3d2, *g.bands)
-    conv2 = smooth_field_banded(conv2, *g.bands, conv_passes)
+    with span("Precipitation: convergence"):
+        conv2 = _wind_convergence2(g.pos, wind3d2, *g.bands)
+        conv2 = smooth_field_banded(conv2, *g.bands, conv_passes)
 
-    moisture2 = _advect_moisture2(g.pos, height_km, is_land, wind3d2,
-                                  warmth2, coast_dist, *g.bands, max_hops)
+    with span("Precipitation: moisture advection"):
+        moisture2 = _advect_moisture2(g.pos, height_km, is_land, wind3d2,
+                                      warmth2, coast_dist, *g.bands, max_hops)
 
-    f32 = np.float32
-    precip2 = _mechanisms2(
-        lat, lon, elev, height_km, is_land, cont, coast_dist,
-        moisture2, conv2, pressure2, we2, wn2, grad_e, grad_n, dist_itcz2,
-        float(f32(avg_edge_rad)), float(f32(avg_edge_km)),
-        float(f32(precipitation_offset)), float(f32(land_coverage)),
-        max_hops, max(2, round(200 / avg_edge_km)))
+    with span("Precipitation: mechanisms"):
+        f32 = np.float32
+        precip2 = _mechanisms2(
+            lat, lon, elev, height_km, is_land, cont, coast_dist,
+            moisture2, conv2, pressure2, we2, wn2, grad_e, grad_n, dist_itcz2,
+            float(f32(avg_edge_rad)), float(f32(avg_edge_km)),
+            float(f32(precipitation_offset)), float(f32(land_coverage)),
+            max_hops, max(2, round(200 / avg_edge_km)))
 
-    wdg2 = we2 * grad_e[:, None] + wn2 * grad_n[:, None]
-    rs2 = _rain_shadow2(g.pos, elev, height_km, is_land, wind3d2, wdg2,
-                        *g.bands, shadow_hops, windward_hops)
-    rs2 = smooth_field_banded(rs2, *g.bands, rs_passes)
+    with span("Precipitation: rain shadow"):
+        wdg2 = we2 * grad_e[:, None] + wn2 * grad_n[:, None]
+        rs2 = _rain_shadow2(g.pos, elev, height_km, is_land, wind3d2, wdg2,
+                            *g.bands, shadow_hops, windward_hops)
+        rs2 = smooth_field_banded(rs2, *g.bands, rs_passes)
 
-    # apply propagated shadow (js/precipitation.js:616-627)
-    strength = torch.clamp(-rs2 * 2.25, max=1.0)
-    precip2 = torch.where(is_land[:, None] & (rs2 < -0.01),
-                          precip2 * torch.clamp(1 - strength * 0.92,
-                                                min=0.02),
-                          precip2)
-    precip2 = torch.where(is_land[:, None] & (rs2 > 0.01),
-                          precip2 + rs2 * 1.2, precip2)
+        # apply propagated shadow (js/precipitation.js:616-627)
+        strength = torch.clamp(-rs2 * 2.25, max=1.0)
+        precip2 = torch.where(is_land[:, None] & (rs2 < -0.01),
+                              precip2 * torch.clamp(1 - strength * 0.92,
+                                                    min=0.02),
+                              precip2)
+        precip2 = torch.where(is_land[:, None] & (rs2 > 0.01),
+                              precip2 + rs2 * 1.2, precip2)
 
-    precip2 = smooth_field_banded(precip2, *g.bands, precip_passes)
+    with span("Precipitation: heuristic blend"):
+        precip2 = smooth_field_banded(precip2, *g.bands, precip_passes)
 
-    # heuristic blend (js/precipitation.js:644-679): the west-coast signal
-    # is season-independent; both seasons smooth stacked
-    west_coast = west_coast_signal(g.pos, is_land, coast_dist, east,
-                                   *g.bands, wc_passes)
-    heur2 = torch.stack([
-        heuristic_precip_raw(lat, lon, elev, is_land, cont, coast_dist,
-                             grad_e, grad_n, west_coast,
-                             wind[f"itcz_lats_{name}"], avg_edge_km,
-                             name == "summer")
-        for name in ("summer", "winter")], 1)
-    heur2 = smooth_field_banded(heur2, *g.bands, precip_passes)
+        # heuristic blend (js/precipitation.js:644-679): the west-coast signal
+        # is season-independent; both seasons smooth stacked
+        west_coast = west_coast_signal(g.pos, is_land, coast_dist, east,
+                                       *g.bands, wc_passes)
+        heur2 = torch.stack([
+            heuristic_precip_raw(lat, lon, elev, is_land, cont, coast_dist,
+                                 grad_e, grad_n, west_coast,
+                                 wind[f"itcz_lats_{name}"], avg_edge_km,
+                                 name == "summer")
+            for name in ("summer", "winter")], 1)
+        heur2 = smooth_field_banded(heur2, *g.bands, precip_passes)
 
-    blended2 = 0.5 * precip2 + 0.5 * heur2
-    cap = 1.0 - smoothstep(0.5, 1.0, cont) * 0.80
+        blended2 = 0.5 * precip2 + 0.5 * heur2
+        cap = 1.0 - smoothstep(0.5, 1.0, cont) * 0.80
 
-    result = {}
-    for s, name in enumerate(("summer", "winter")):
-        blended = blended2[:, s]
-        p95 = spmd.gathered(percentile95, blended, g.valid)
-        blended = torch.clamp(blended / p95, max=1.0)
-        blended = torch.where(is_land & (cont > 0.5),
-                              torch.minimum(blended, cap), blended)
-        result[f"r_precip_{name}"] = blended.to(torch.float32)
-        result[f"r_rainshadow_{name}"] = rs2[:, s]
+    with span("Precipitation: normalise"):
+        result = {}
+        for s, name in enumerate(("summer", "winter")):
+            blended = blended2[:, s]
+            p95 = spmd.gathered(percentile95, blended, g.valid)
+            blended = torch.clamp(blended / p95, max=1.0)
+            blended = torch.where(is_land & (cont > 0.5),
+                                  torch.minimum(blended, cap), blended)
+            result[f"r_precip_{name}"] = blended.to(torch.float32)
+            result[f"r_rainshadow_{name}"] = rs2[:, s]
     return result

@@ -7,8 +7,8 @@ vectors; the JAX package's climate/wind.py in torch.
   reference's 20-sweep Gauss-Seidel relaxation (js/wind.js:12-71). That is
   1,440 dependent scalar updates: on the card each would be a launch, so
   the port solves it on the host in float32, in the same update order, as
-  an explicit host step (its own ``StageTimer`` line), and evaluates the
-  spline per cell on the device.
+  an explicit host step (its own span, "Wind: ITCZ spline on the host"),
+  and evaluates the spline per cell on the device.
 - Continentality comes from the main-ocean coast BFS (the shared distance
   BFS kernel) through a smoothstep over 2000 km; pressure, least-squares
   gradients and the geostrophic / friction rotation are per-cell maps.
@@ -16,7 +16,6 @@ vectors; the JAX package's climate/wind.py in torch.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict
 
@@ -30,6 +29,7 @@ from ..ops.banded import (bfs_hops_multi_banded, smooth_field_banded,
                           ordered_index_sum)
 from ..erosion.flood import open_ocean_mask, connected_components_banded
 from ..parallel import spmd
+from ..pipeline.timing import span
 from .util import (GeoFrame, geo_frame, smoothstep, percentile95,
                    elev_to_height_km)
 
@@ -296,12 +296,11 @@ def climate_coast_fields(g: DeviceGraph, elev, plate_is_ocean, r_plate):
 
 def compute_wind(g: DeviceGraph, elev, plate_is_ocean, r_plate,
                  noise_t: Tables, seed: int = 0, coast_d=None,
-                 gf=None, is_land=None, plate_land=None,
-                 timer=None) -> Dict:
+                 gf=None, is_land=None, plate_land=None) -> Dict:
     """Full wind stage (js/wind.js:394-687). Returns a dict of tensors.
     ``coast_d`` (+ the aux fields): precomputed columns 0-1 of the merged
-    climate coast BFS; ``timer`` (a StageTimer) times the host spline
-    solve as its own line."""
+    climate coast BFS. Its phases are sub-stage spans of the current
+    timer (pipeline/timing.py ``span``)."""
     n = g.n_cells
     dev = g.device
     avg_edge_km = (math.pi * 6371) / math.sqrt(n)
@@ -311,68 +310,72 @@ def compute_wind(g: DeviceGraph, elev, plate_is_ocean, r_plate,
     if is_land is None:
         is_land = (elev > 0) & g.valid
 
-    cnt, land_cnt, esum = _bin_aggregates(gf.lat, gf.lon, elev, is_land,
-                                          g.valid)
-    lats2 = torch.stack([_itcz_latitudes(cnt, land_cnt, esum, 1.0),
-                         _itcz_latitudes(cnt, land_cnt, esum, -1.0)])
-    stage = (timer.stage("  ITCZ spline on the host (part of Wind)")
-             if timer is not None else contextlib.nullcontext())
-    with stage:
+    with span("Wind: ITCZ bins"):
+        cnt, land_cnt, esum = _bin_aggregates(gf.lat, gf.lon, elev, is_land,
+                                              g.valid)
+        lats2 = torch.stack([_itcz_latitudes(cnt, land_cnt, esum, 1.0),
+                             _itcz_latitudes(cnt, land_cnt, esum, -1.0)])
+    with span("Wind: ITCZ spline on the host"):
         lats_np = lats2.cpu().numpy()
         sp_summer, sp_winter = (
             spline_to_device(_build_periodic_spline(lats_np[s]), dev)
             for s in range(2))
 
-    if coast_d is None:
-        d5, aux = climate_coast_fields(g, elev, plate_is_ocean, r_plate)
-        coast_d = d5[:, :2]
-        plate_land = aux["plate_land"]
-    coast_dist, p_dist = coast_d[:, 0], coast_d[:, 1]
-    cont2 = torch.stack([
-        torch.where(is_land & torch.isfinite(coast_dist),
-                    smoothstep(0.0, 2000.0, coast_dist * avg_edge_km), 0.0),
-        torch.where(plate_land & torch.isfinite(p_dist),
-                    smoothstep(0.0, 2000.0, p_dist * avg_edge_km), 0.0),
-    ], 1).to(torch.float32)
-    cont_passes = max(1, round(100 / avg_edge_km))
-    cont2 = smooth_field_banded(cont2, *g.bands, cont_passes)
-    cont, p_cont = cont2[:, 0], cont2[:, 1]
+    with span("Wind: continentality"):
+        if coast_d is None:
+            d5, aux = climate_coast_fields(g, elev, plate_is_ocean, r_plate)
+            coast_d = d5[:, :2]
+            plate_land = aux["plate_land"]
+        coast_dist, p_dist = coast_d[:, 0], coast_d[:, 1]
+        cont2 = torch.stack([
+            torch.where(is_land & torch.isfinite(coast_dist),
+                        smoothstep(0.0, 2000.0, coast_dist * avg_edge_km),
+                        0.0),
+            torch.where(plate_land & torch.isfinite(p_dist),
+                        smoothstep(0.0, 2000.0, p_dist * avg_edge_km), 0.0),
+        ], 1).to(torch.float32)
+        cont_passes = max(1, round(100 / avg_edge_km))
+        cont2 = smooth_field_banded(cont2, *g.bands, cont_passes)
+        cont, p_cont = cont2[:, 0], cont2[:, 1]
 
-    result = dict(
-        r_lat=gf.lat, r_lon=gf.lon, r_sin_lat=gf.sin_lat,
-        r_east=gf.east, r_north=gf.north,
-        r_is_land=is_land,
-        r_continentality=cont,
-        r_coast_dist_land=torch.where(torch.isfinite(coast_dist),
-                                      coast_dist, -1.0),
-        r_plate_continentality=p_cont,
-    )
+        result = dict(
+            r_lat=gf.lat, r_lon=gf.lon, r_sin_lat=gf.sin_lat,
+            r_east=gf.east, r_north=gf.north,
+            r_is_land=is_land,
+            r_continentality=cont,
+            r_coast_dist_land=torch.where(torch.isfinite(coast_dist),
+                                          coast_dist, -1.0),
+            r_plate_continentality=p_cont,
+        )
 
-    press_passes = max(1, round(75 / avg_edge_km))
-    # both seasons' pressure fields smooth + differentiate stacked
-    press2 = torch.stack([
-        _pressure_kernel(g.pos, gf, sp_summer, cont, elev, noise_t,
-                         is_summer=True),
-        _pressure_kernel(g.pos, gf, sp_winter, cont, elev, noise_t,
-                         is_summer=False)], 1)
-    press2 = smooth_field_banded(press2, *g.bands, press_passes)
-    ge2, gn2 = compute_gradients_banded(g.pos, press2, gf.east, gf.north,
-                                        *g.bands)
-    for s, name in enumerate(("summer", "winter")):
-        we, wn, speed = _pressure_to_wind(ge2[:, s], gn2[:, s], gf.sin_lat)
-        p95 = spmd.gathered(percentile95, speed, g.valid)
-        speed = torch.clamp(speed / p95, max=1.0)
-        result[f"r_pressure_{name}"] = press2[:, s] - 1013.0
-        result[f"r_wind_east_{name}"] = we
-        result[f"r_wind_north_{name}"] = wn
-        result[f"r_wind_speed_{name}"] = speed
+    with span("Wind: pressure and flow"):
+        press_passes = max(1, round(75 / avg_edge_km))
+        # both seasons' pressure fields smooth + differentiate stacked
+        press2 = torch.stack([
+            _pressure_kernel(g.pos, gf, sp_summer, cont, elev, noise_t,
+                             is_summer=True),
+            _pressure_kernel(g.pos, gf, sp_winter, cont, elev, noise_t,
+                             is_summer=False)], 1)
+        press2 = smooth_field_banded(press2, *g.bands, press_passes)
+        ge2, gn2 = compute_gradients_banded(g.pos, press2, gf.east, gf.north,
+                                            *g.bands)
+        for s, name in enumerate(("summer", "winter")):
+            we, wn, speed = _pressure_to_wind(ge2[:, s], gn2[:, s], gf.sin_lat)
+            p95 = spmd.gathered(percentile95, speed, g.valid)
+            speed = torch.clamp(speed / p95, max=1.0)
+            result[f"r_pressure_{name}"] = press2[:, s] - 1013.0
+            result[f"r_wind_east_{name}"] = we
+            result[f"r_wind_north_{name}"] = wn
+            result[f"r_wind_speed_{name}"] = speed
 
     # ITCZ samples for downstream lookup + visualization (360 points)
-    m = 360
-    vlons = torch.as_tensor(
-        (-np.pi + (np.arange(m) + 0.5) * (2 * np.pi / m)).astype(np.float32),
-        device=dev)
-    result["itcz_lons"] = vlons
-    result["itcz_lats_summer"] = eval_spline(sp_summer, vlons)
-    result["itcz_lats_winter"] = eval_spline(sp_winter, vlons)
+    with span("Wind: ITCZ samples"):
+        m = 360
+        vlons = torch.as_tensor(
+            (-np.pi + (np.arange(m) + 0.5) * (2 * np.pi / m)).astype(
+                np.float32),
+            device=dev)
+        result["itcz_lons"] = vlons
+        result["itcz_lats_summer"] = eval_spline(sp_summer, vlons)
+        result["itcz_lats_winter"] = eval_spline(sp_winter, vlons)
     return result

@@ -25,6 +25,7 @@ from ..mesh.device import DeviceGraph
 from ..ops.noise import Tables, tables, noise3, fbm, ridged_fbm
 from ..ops.graph import hash01
 from ..parallel import spmd
+from ..pipeline.timing import span
 from ..ops.banded import (bfs_hops_multi_banded, band_gate, rem_gate_eq,
                           propagate_stress_banded, band_bfs_banded,
                           banded_sum)
@@ -516,105 +517,115 @@ def assign_elevation(
     noise_t = nt["base"]
     noise_mag = torch.tensor(noise_mag, dtype=torch.float32, device=dev)
 
-    small = find_collisions(g, r_plate, plate_is_ocean, plate_pole,
-                            plate_omega, plate_density, noise_t, dt, undul_oct)
-    has_super = r_super_plate is not None
-    if has_super:
-        sup = find_collisions(g, r_super_plate, super_is_ocean, super_pole,
-                              super_omega, super_density, noise_t, dt,
-                              undul_oct)
-        col = _blend_collisions(small, sup)
-    else:
-        col = small
+    with span("Elevation: collisions"):
+        small = find_collisions(g, r_plate, plate_is_ocean, plate_pole,
+                                plate_omega, plate_density, noise_t, dt,
+                                undul_oct)
+        has_super = r_super_plate is not None
+        if has_super:
+            sup = find_collisions(g, r_super_plate, super_is_ocean, super_pole,
+                                  super_omega, super_density, noise_t, dt,
+                                  undul_oct)
+            col = _blend_collisions(small, sup)
+        else:
+            col = small
 
     # stress propagation (js/elevation.js:329-362) — small + super layers
-    base_decay = 0.5 + spread * 0.04
-    decay = base_decay ** (1 / sf_res)
-    sub_decay = (base_decay * 0.45) ** (1 / sf_res)
-    num_passes = max(1, round(spread * 3 * sf_res))
+    with span("Elevation: stress propagation"):
+        base_decay = 0.5 + spread * 0.04
+        decay = base_decay ** (1 / sf_res)
+        sub_decay = (base_decay * 0.45) ** (1 / sf_res)
+        num_passes = max(1, round(spread * 3 * sf_res))
 
-    rp = r_plate.long()
-    gate_small = band_gate(r_plate, g.band_off, g.band_mask)
-    rgate_small = rem_gate_eq(r_plate, g.rem_src, g.rem_dst)
-    if has_super:
-        rs = r_super_plate.long()
-        st2, sf2 = propagate_stress_banded(
-            torch.stack([small.stress, sup.stress], 1),
-            torch.stack([small.subduct, sup.subduct], 1),
-            (gate_small, band_gate(r_super_plate, g.band_off, g.band_mask)),
-            torch.stack([rgate_small,
-                         rem_gate_eq(r_super_plate, g.rem_src, g.rem_dst)], 1),
-            torch.stack([plate_is_ocean[rp], super_is_ocean[rs]], 1),
-            *g.bands, decay, sub_decay, num_passes)
-        stress, subduct = _blend_propagated(
-            st2[:, 0], sf2[:, 0], st2[:, 1], sf2[:, 1], col.subduct)
-    else:
-        st2, sf2 = propagate_stress_banded(
-            col.stress[:, None], col.subduct[:, None],
-            (gate_small,), rgate_small[:, None],
-            plate_is_ocean[rp][:, None],
-            *g.bands, decay, sub_decay, num_passes)
-        stress, subduct = st2[:, 0], sf2[:, 0]
+        rp = r_plate.long()
+        gate_small = band_gate(r_plate, g.band_off, g.band_mask)
+        rgate_small = rem_gate_eq(r_plate, g.rem_src, g.rem_dst)
+        if has_super:
+            rs = r_super_plate.long()
+            st2, sf2 = propagate_stress_banded(
+                torch.stack([small.stress, sup.stress], 1),
+                torch.stack([small.subduct, sup.subduct], 1),
+                (gate_small,
+                 band_gate(r_super_plate, g.band_off, g.band_mask)),
+                torch.stack([rgate_small,
+                             rem_gate_eq(r_super_plate, g.rem_src,
+                                         g.rem_dst)], 1),
+                torch.stack([plate_is_ocean[rp], super_is_ocean[rs]], 1),
+                *g.bands, decay, sub_decay, num_passes)
+            stress, subduct = _blend_propagated(
+                st2[:, 0], sf2[:, 0], st2[:, 1], sf2[:, 1], col.subduct)
+        else:
+            st2, sf2 = propagate_stress_banded(
+                col.stress[:, None], col.subduct[:, None],
+                (gate_small,), rgate_small[:, None],
+                plate_is_ocean[rp][:, None],
+                *g.bands, decay, sub_decay, num_passes)
+            stress, subduct = st2[:, 0], sf2[:, 0]
 
     if trunc == "stress":
         return _probe_result(g, stress + subduct, col, stress, subduct)
 
-    mountain, coastline, ocean_seeds = col.mountain, col.coastline, col.ocean
+    with span("Elevation: seeds and masks"):
+        mountain, coastline, ocean_seeds = (col.mountain, col.coastline,
+                                            col.ocean)
 
-    # plate interior representatives
-    in_any = mountain | coastline | ocean_seeds
-    ocean_seeds, coastline = spmd.gathered(
-        lambda rp, seeds, valid, co, oc: _plate_reps(
-            rp, seeds, valid, plate_is_ocean, co, oc,
-            num_plates=int(plate_is_ocean.shape[0])),
-        r_plate, in_any, g.valid, coastline, ocean_seeds)
+        # plate interior representatives
+        in_any = mountain | coastline | ocean_seeds
+        ocean_seeds, coastline = spmd.gathered(
+            lambda rp, seeds, valid, co, oc: _plate_reps(
+                rp, seeds, valid, plate_is_ocean, co, oc,
+                num_plates=int(plate_is_ocean.shape[0])),
+            r_plate, in_any, g.valid, coastline, ocean_seeds)
 
-    stress_mountain = mountain & (subduct < 0.55)
-    stop_r = stress_mountain | coastline | ocean_seeds
+        stress_mountain = mountain & (subduct < 0.55)
+        stop_r = stress_mountain | coastline | ocean_seeds
 
-    idx = spmd.arange(npad, device=dev)
+        idx = spmd.arange(npad, device=dev)
 
-    def rand_cost(k):
-        return 0.5 + hash01(idx, seed + k)
+        def rand_cost(k):
+            return 0.5 + hash01(idx, seed + k)
 
-    r_is_ocean = plate_is_ocean[rp] & g.valid
-    land_mask = (~r_is_ocean) & g.valid
-    land_nb_cnt = banded_sum(land_mask.to(torch.float32), *g.bands)
-    ocean_nb_cnt = banded_sum(r_is_ocean.to(torch.float32), *g.bands)
-    coast_seeds = r_is_ocean & (land_nb_cnt > 0)
-    no_barrier = torch.zeros(npad, dtype=torch.bool, device=dev)
-    land_coast_seeds = land_mask & (ocean_nb_cnt > 0)
+        r_is_ocean = plate_is_ocean[rp] & g.valid
+        land_mask = (~r_is_ocean) & g.valid
+        land_nb_cnt = banded_sum(land_mask.to(torch.float32), *g.bands)
+        ocean_nb_cnt = banded_sum(r_is_ocean.to(torch.float32), *g.bands)
+        coast_seeds = r_is_ocean & (land_nb_cnt > 0)
+        no_barrier = torch.zeros(npad, dtype=torch.bool, device=dev)
+        land_coast_seeds = land_mask & (ocean_nb_cnt > 0)
 
     # the four long-range distance fields (js/elevation.js:365-427) relax
     # together, hop-capped at bfs_hops sweeps (every consumer saturates at
     # h_far); dist_coast (branches at 5/12 hops) runs its own shorter loop
-    interior_band, tectonic_reach, h_far, bfs_hops = distance_bfs_caps(sf_res)
-    dists = bfs_hops_multi_banded(
-        torch.stack([stress_mountain, ocean_seeds, coastline,
-                     land_coast_seeds], 1),
-        torch.stack([ocean_seeds, coastline, stop_r, r_is_ocean], 1),
-        *g.bands, max_hops=bfs_hops,
-        rand_cost=torch.stack([rand_cost(k) for k in (1, 2, 3, 5)], 1))
-    dists_dc = bfs_hops_multi_banded(
-        coast_seeds[:, None], no_barrier[:, None],
-        *g.bands, max_hops=min(bfs_hops, 28),
-        rand_cost=rand_cost(4)[:, None])
+    with span("Elevation: distance BFS"):
+        interior_band, tectonic_reach, h_far, bfs_hops = \
+            distance_bfs_caps(sf_res)
+        dists = bfs_hops_multi_banded(
+            torch.stack([stress_mountain, ocean_seeds, coastline,
+                         land_coast_seeds], 1),
+            torch.stack([ocean_seeds, coastline, stop_r, r_is_ocean], 1),
+            *g.bands, max_hops=bfs_hops,
+            rand_cost=torch.stack([rand_cost(k) for k in (1, 2, 3, 5)], 1))
+    with span("Elevation: coast distance BFS"):
+        dists_dc = bfs_hops_multi_banded(
+            coast_seeds[:, None], no_barrier[:, None],
+            *g.bands, max_hops=min(bfs_hops, 28),
+            rand_cost=rand_cost(4)[:, None])
 
-    def _saturate(d, seed_col, barrier, cap):
-        # finite → clamp at cap; capped-out → cap (unless a barrier cell or
-        # the field has no seeds at all)
-        far = torch.where(barrier | ~spmd.gathered(torch.any, seed_col),
-                          INF, cap)
-        return torch.where(torch.isfinite(d), torch.clamp(d, max=cap),
-                           far).to(torch.float32)
+        def _saturate(d, seed_col, barrier, cap):
+            # finite → clamp at cap; capped-out → cap (unless a barrier cell or
+            # the field has no seeds at all)
+            far = torch.where(barrier | ~spmd.gathered(torch.any, seed_col),
+                              INF, cap)
+            return torch.where(torch.isfinite(d), torch.clamp(d, max=cap),
+                               far).to(torch.float32)
 
-    dist_mountain = _saturate(dists[:, 0], stress_mountain, ocean_seeds,
-                              h_far)
-    dist_ocean = _saturate(dists[:, 1], ocean_seeds, coastline, h_far)
-    dist_coastline = _saturate(dists[:, 2], coastline, stop_r, h_far)
-    dist_coast = dists_dc[:, 0]
-    dist_coast_land = _saturate(dists[:, 3], land_coast_seeds, r_is_ocean,
-                                float(interior_band + 1))
+        dist_mountain = _saturate(dists[:, 0], stress_mountain, ocean_seeds,
+                                  h_far)
+        dist_ocean = _saturate(dists[:, 1], ocean_seeds, coastline, h_far)
+        dist_coastline = _saturate(dists[:, 2], coastline, stop_r, h_far)
+        dist_coast = dists_dc[:, 0]
+        dist_coast_land = _saturate(dists[:, 3], land_coast_seeds, r_is_ocean,
+                                    float(interior_band + 1))
 
     if trunc == "bfs5":
         probe = sum(torch.where(torch.isfinite(dists[:, i]), dists[:, i], 0.0)
@@ -623,71 +634,76 @@ def assign_elevation(
                                     dists_dc[:, 0], 0.0)
         return _probe_result(g, probe, col, stress, subduct)
 
-    max_stress = spmd.gathered(_stress_p97, stress, g.valid)
+    with span("Elevation: coast carry BFS"):
+        max_stress = spmd.gathered(_stress_p97, stress, g.valid)
 
-    # structural band widths (js/elevation.js:429-438, 460, 475, 512, 543,
-    # 571, 601-603, 1057)
-    plateau_start = max(2, round(3 * sf_res))
-    rift_half = max(2, round(4 * sf_res))
-    floor_end = max(1, round(1.5 * sf_res))
-    shoulder_end = max(2, round(2.5 * sf_res))
-    ridge_half = max(2, round(4 * sf_res))
-    fracture_half = max(2, round(3 * sf_res))
-    ba_start = max(1, round(2 * sf_res))
-    ba_peak = max(2, round(3 * sf_res))
-    ba_end = max(3, round(5 * sf_res))
-    max_cd = max(8, round(8 * sf_res))
-    max_arc = max(5, round(5 * sf_res))
+        # structural band widths (js/elevation.js:429-438, 460, 475, 512, 543,
+        # 571, 601-603, 1057)
+        plateau_start = max(2, round(3 * sf_res))
+        rift_half = max(2, round(4 * sf_res))
+        floor_end = max(1, round(1.5 * sf_res))
+        shoulder_end = max(2, round(2.5 * sf_res))
+        ridge_half = max(2, round(4 * sf_res))
+        fracture_half = max(2, round(3 * sf_res))
+        ba_start = max(1, round(2 * sf_res))
+        ba_peak = max(2, round(3 * sf_res))
+        ba_end = max(3, round(5 * sf_res))
+        max_cd = max(8, round(8 * sf_res))
+        max_arc = max(5, round(5 * sf_res))
 
-    # coast-boundary carry BFS (dBdry + stress/subduct/convergent carries)
-    coast_bdry = torch.where(r_is_ocean, land_nb_cnt > 0,
-                             ocean_nb_cnt > 0) & g.valid
-    stress_n = torch.clamp(stress / max_stress, max=1.0)
-    carried0 = torch.stack([
-        torch.where(coast_bdry, stress_n, 0.0),
-        torch.where(coast_bdry, subduct, 0.0),
-        torch.where(coast_bdry, (col.btype == 1).to(torch.float32), 0.0),
-    ])
-    d_bdry2, _, carried = band_bfs_banded(
-        coast_bdry[:, None], carried0[:, :, None], *g.bands,
-        max_hops=max_cd, tie=carried0[0][:, None], num_carry=3)
-    d_bdry = torch.where(torch.isinf(d_bdry2[:, 0]), max_cd + 1.0,
-                         d_bdry2[:, 0])
-    coast_stress, coast_subduct, coast_convergent = (
-        carried[0, :, 0], carried[1, :, 0], carried[2, :, 0])
+        # coast-boundary carry BFS (dBdry + stress/subduct/convergent carries)
+        coast_bdry = torch.where(r_is_ocean, land_nb_cnt > 0,
+                                 ocean_nb_cnt > 0) & g.valid
+        stress_n = torch.clamp(stress / max_stress, max=1.0)
+        carried0 = torch.stack([
+            torch.where(coast_bdry, stress_n, 0.0),
+            torch.where(coast_bdry, subduct, 0.0),
+            torch.where(coast_bdry, (col.btype == 1).to(torch.float32), 0.0),
+        ])
+        d_bdry2, _, carried = band_bfs_banded(
+            coast_bdry[:, None], carried0[:, :, None], *g.bands,
+            max_hops=max_cd, tie=carried0[0][:, None], num_carry=3)
+        d_bdry = torch.where(torch.isinf(d_bdry2[:, 0]), max_cd + 1.0,
+                             d_bdry2[:, 0])
+        coast_stress, coast_subduct, coast_convergent = (
+            carried[0, :, 0], carried[1, :, 0], carried[2, :, 0])
 
     # rift / ridge / fracture / back-arc / island-arc carry BFS — five
     # structural bands in one loop
-    rift_seeds = (col.btype == 2) & (~col.has_ocean) & g.valid
-    ridge_seeds = (col.btype == 2) & col.both_ocean & g.valid
-    frac_seeds = (col.btype == 3) & col.both_ocean & g.valid
-    ba_seeds = (col.btype == 1) & col.has_ocean & (subduct < 0.50) & g.valid
-    arc_seeds = (col.btype == 1) & col.both_ocean & (subduct < 0.45) & g.valid
-    all_cells = torch.ones(npad, dtype=torch.bool, device=dev)
-    zero = torch.zeros(npad, device=dev)
-    band_hops = max(rift_half, ridge_half, fracture_half, ba_end, max_arc)
-    use_gate5 = (True, False, False, True, True)
-    rgate5 = torch.stack([rgate_small if u else torch.ones_like(rgate_small)
-                          for u in use_gate5], 1)
-    band_dist, _, band_carry = band_bfs_banded(
-        torch.stack([rift_seeds, ridge_seeds, frac_seeds, ba_seeds,
-                     arc_seeds], 1),
-        torch.stack([zero, zero, zero,
-                     torch.where(ba_seeds, stress_n, 0.0),
-                     torch.where(arc_seeds, stress_n, 0.0)], 1)[None],
-        *g.bands, max_hops=band_hops,
-        hops_cap=(rift_half, ridge_half, fracture_half, ba_end, max_arc),
-        allow=torch.stack([land_mask, r_is_ocean, r_is_ocean, all_cells,
-                           r_is_ocean], 1),
-        gate_mix=(gate_small, use_gate5), rem_gate=rgate5,
-        num_carry=1)
-    rift_dist = band_dist[:, 0]
-    ridge_dist = band_dist[:, 1]
-    fracture_dist = band_dist[:, 2]
-    backarc_dist = band_dist[:, 3]
-    backarc_stress = band_carry[0, :, 3]
-    arc_dist = band_dist[:, 4]
-    arc_stress = band_carry[0, :, 4]
+    with span("Elevation: structural carry BFS"):
+        rift_seeds = (col.btype == 2) & (~col.has_ocean) & g.valid
+        ridge_seeds = (col.btype == 2) & col.both_ocean & g.valid
+        frac_seeds = (col.btype == 3) & col.both_ocean & g.valid
+        ba_seeds = ((col.btype == 1) & col.has_ocean & (subduct < 0.50)
+                    & g.valid)
+        arc_seeds = ((col.btype == 1) & col.both_ocean & (subduct < 0.45)
+                     & g.valid)
+        all_cells = torch.ones(npad, dtype=torch.bool, device=dev)
+        zero = torch.zeros(npad, device=dev)
+        band_hops = max(rift_half, ridge_half, fracture_half, ba_end, max_arc)
+        use_gate5 = (True, False, False, True, True)
+        rgate5 = torch.stack([rgate_small if u
+                              else torch.ones_like(rgate_small)
+                              for u in use_gate5], 1)
+        band_dist, _, band_carry = band_bfs_banded(
+            torch.stack([rift_seeds, ridge_seeds, frac_seeds, ba_seeds,
+                         arc_seeds], 1),
+            torch.stack([zero, zero, zero,
+                         torch.where(ba_seeds, stress_n, 0.0),
+                         torch.where(arc_seeds, stress_n, 0.0)], 1)[None],
+            *g.bands, max_hops=band_hops,
+            hops_cap=(rift_half, ridge_half, fracture_half, ba_end, max_arc),
+            allow=torch.stack([land_mask, r_is_ocean, r_is_ocean, all_cells,
+                               r_is_ocean], 1),
+            gate_mix=(gate_small, use_gate5), rem_gate=rgate5,
+            num_carry=1)
+        rift_dist = band_dist[:, 0]
+        ridge_dist = band_dist[:, 1]
+        fracture_dist = band_dist[:, 2]
+        backarc_dist = band_dist[:, 3]
+        backarc_stress = band_carry[0, :, 3]
+        arc_dist = band_dist[:, 4]
+        arc_stress = band_carry[0, :, 4]
 
     if trunc == "carry":
         probe = (d_bdry + coast_stress + coast_subduct + coast_convergent
@@ -697,58 +713,64 @@ def assign_elevation(
         return _probe_result(g, probe, col, stress, subduct)
 
     # -------- per-cell assembly --------
-    elev, debug = _main_assembly(
-        g.pos, r_is_ocean, stress, subduct, col.btype,
-        dist_mountain, dist_ocean, dist_coastline, dist_coast, dist_coast_land,
-        rift_dist, ridge_dist, fracture_dist, backarc_dist, backarc_stress,
-        max_stress, plate_pole[rp],
-        noise_t, nt["rift"], nt["fold"], noise_mag,
-        warp_oct, interior_band, tectonic_reach, plateau_start,
-        rift_half, floor_end, shoulder_end, ridge_half, fracture_half,
-        ba_start, ba_peak, ba_end)
+    with span("Elevation: assembly"):
+        elev, debug = _main_assembly(
+            g.pos, r_is_ocean, stress, subduct, col.btype,
+            dist_mountain, dist_ocean, dist_coastline, dist_coast,
+            dist_coast_land,
+            rift_dist, ridge_dist, fracture_dist, backarc_dist, backarc_stress,
+            max_stress, plate_pole[rp],
+            noise_t, nt["rift"], nt["fold"], noise_mag,
+            warp_oct, interior_band, tectonic_reach, plateau_start,
+            rift_half, floor_end, shoulder_end, ridge_half, fracture_half,
+            ba_start, ba_peak, ba_end)
 
     if trunc == "assembly":
         return _probe_result(g, elev, col, stress, subduct)
 
-    # margins debug layer (js/elevation.js:912-917)
-    margins = torch.where(coast_convergent > 0, 0.8, 0.2)
-    margins = torch.where((~torch.isinf(ridge_dist))
-                          & (ridge_dist <= ridge_half), 1.0, margins)
-    margins = torch.where((~torch.isinf(fracture_dist))
-                          & (fracture_dist <= fracture_half), -0.5, margins)
-    debug["margins"] = torch.where(r_is_ocean, margins, 0.0)
+    with span("Elevation: coastal roughening and island arcs"):
+        # margins debug layer (js/elevation.js:912-917)
+        margins = torch.where(coast_convergent > 0, 0.8, 0.2)
+        margins = torch.where((~torch.isinf(ridge_dist))
+                              & (ridge_dist <= ridge_half), 1.0, margins)
+        margins = torch.where((~torch.isinf(fracture_dist))
+                              & (fracture_dist <= fracture_half), -0.5,
+                              margins)
+        debug["margins"] = torch.where(r_is_ocean, margins, 0.0)
 
-    # -------- coastal roughening --------
-    elev, dl_coastal = _coastal_roughening(
-        g.pos, elev, r_is_ocean, stress, max_stress,
-        d_bdry, coast_stress, coast_subduct, coast_convergent,
-        nt["c1"], nt["c2"], nt["c3"], noise_t, noise_mag,
-        coast_roughen_dist=max_cd, island_band=max(4, round(4 * sf_res)))
+        # -------- coastal roughening --------
+        elev, dl_coastal = _coastal_roughening(
+            g.pos, elev, r_is_ocean, stress, max_stress,
+            d_bdry, coast_stress, coast_subduct, coast_convergent,
+            nt["c1"], nt["c2"], nt["c3"], noise_t, noise_mag,
+            coast_roughen_dist=max_cd, island_band=max(4, round(4 * sf_res)))
 
-    # -------- island arcs (band computed above) --------
-    elev, dl_arc = _island_arcs(
-        g.pos, elev, arc_dist, arc_stress, nt["arc"],
-        peak_dist=max(1.5, 1.5 * sf_res), sigma=max(1.5, 1.5 * sf_res),
-        max_arc_dist=max_arc)
-    debug["coastal"] = dl_coastal + dl_arc
+        # -------- island arcs (band computed above) --------
+        elev, dl_arc = _island_arcs(
+            g.pos, elev, arc_dist, arc_stress, nt["arc"],
+            peak_dist=max(1.5, 1.5 * sf_res), sigma=max(1.5, 1.5 * sf_res),
+            max_arc_dist=max_arc)
+        debug["coastal"] = dl_coastal + dl_arc
 
     if trunc == "coastal":
         return _probe_result(g, elev, col, stress, subduct)
 
     # -------- hotspots --------
-    if domes:
-        hs = hotspot_uplift(g.pos, domes, nt["hs1"], nt["hs2"])
-        elev = elev + hs
-        debug["hotspot"] = hs
-    else:
-        debug["hotspot"] = torch.zeros(npad, device=dev)
+    with span("Elevation: hotspots and peaks"):
+        if domes:
+            hs = hotspot_uplift(g.pos, domes, nt["hs1"], nt["hs2"])
+            elev = elev + hs
+            debug["hotspot"] = hs
+        else:
+            debug["hotspot"] = torch.zeros(npad, device=dev)
 
-    # -------- peak compression (js/elevation.js:1377-1382) --------
-    elev = torch.where(elev > 0, torch.clamp(elev, min=1e-20) ** 0.92, elev)
-    elev = torch.where(g.valid, elev, 0.0).to(torch.float32)
+        # -------- peak compression (js/elevation.js:1377-1382) --------
+        elev = torch.where(elev > 0, torch.clamp(elev, min=1e-20) ** 0.92,
+                           elev)
+        elev = torch.where(g.valid, elev, 0.0).to(torch.float32)
 
-    if has_super:
-        debug["superPlates"] = r_super_plate.to(torch.float32)
+        if has_super:
+            debug["superPlates"] = r_super_plate.to(torch.float32)
 
     return ElevationResult(
         elevation=elev,

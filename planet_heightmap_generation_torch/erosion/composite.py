@@ -18,6 +18,7 @@ import torch
 from ..mesh.device import DeviceGraph
 from ..ops.banded import band_nbr_dist, rem_gather
 from ..parallel import spmd
+from ..pipeline.timing import span
 from .flood import priority_flood_carve, open_ocean_mask
 from .fluvial import steepest_receivers, flow_accumulation, stream_power_solve
 from .thermal import thermal_step
@@ -63,44 +64,54 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
         return elev
 
     valid = g.valid
-    band_dist, rem_dist = _edge_lengths(g)
-    land = (~is_ocean) & valid
+    with span("Post: edge lengths"):
+        band_dist, rem_dist = _edge_lengths(g)
+        land = (~is_ocean) & valid
 
     # the ocean mask is frozen for the whole loop → one components call
     # serves both the initial flood and the 75% re-flood
     open_ocean = None
     if h_iters > 0:
-        open_ocean = open_ocean_mask(is_ocean, valid, *g.bands)
-        elev, _, _ = priority_flood_carve(elev, is_ocean, valid, *g.bands,
-                                          _f32(0.5, g), open_ocean=open_ocean)
+        with span("Post: open-ocean mask"):
+            open_ocean = open_ocean_mask(is_ocean, valid, *g.bands)
+        with span("Post: flood carve"):
+            elev, _, _ = priority_flood_carve(
+                elev, is_ocean, valid, *g.bands, _f32(0.5, g),
+                open_ocean=open_ocean)
 
     # the glaciation index of the carved elevation, fixed for the loop
     glac_idx = None
     if g_iters > 0 and glacial_strength > 0:
-        glac_idx = glaciation_index(g.pos, elev, is_ocean, valid,
-                                    _f32(glacial_strength, g))
+        with span("Post: glaciation index"):
+            glac_idx = glaciation_index(g.pos, elev, is_ocean, valid,
+                                        _f32(glacial_strength, g))
     g_scale = 1.0 / g_iters if g_iters > 0 else 0.0
 
     def step(elev, it: int):
         if glac_idx is not None and it < g_iters:
-            elev = glacial_step(
-                elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
-                g.rem_src, g.rem_dst, rem_dist, glac_idx,
-                _f32(glacial_strength, g), _f32(g_scale, g))
+            with span("Post: glacial step"):
+                elev = glacial_step(
+                    elev, is_ocean, valid, g.band_off, g.band_mask,
+                    band_dist, g.rem_src, g.rem_dst, rem_dist, glac_idx,
+                    _f32(glacial_strength, g), _f32(g_scale, g))
         if it < h_iters:
-            rcv, dist, is_pit = steepest_receivers(
-                elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
-                g.rem_src, g.rem_dst, rem_dist)
-            flow = flow_accumulation(land, rcv, is_pit)
-            elev = spmd.gathered(
-                stream_power_solve, elev, is_ocean, valid, rcv, dist,
-                is_pit, flow, k_coeff=_f32(k_coeff, g),
-                m_exp=_f32(m_exp, g), dt=_f32(dt, g))
+            with span("Post: hydraulic receivers"):
+                rcv, dist, is_pit = steepest_receivers(
+                    elev, is_ocean, valid, g.band_off, g.band_mask,
+                    band_dist, g.rem_src, g.rem_dst, rem_dist)
+            with span("Post: flow accumulation"):
+                flow = flow_accumulation(land, rcv, is_pit)
+            with span("Post: stream power"):
+                elev = spmd.gathered(
+                    stream_power_solve, elev, is_ocean, valid, rcv, dist,
+                    is_pit, flow, k_coeff=_f32(k_coeff, g),
+                    m_exp=_f32(m_exp, g), dt=_f32(dt, g))
         if it < t_iters:
-            elev = thermal_step(
-                elev, is_ocean, valid, g.band_off, g.band_mask, band_dist,
-                g.rem_src, g.rem_dst, rem_dist, _f32(talus_slope, g),
-                _f32(k_thermal, g))
+            with span("Post: thermal step"):
+                elev = thermal_step(
+                    elev, is_ocean, valid, g.band_off, g.band_mask,
+                    band_dist, g.rem_src, g.rem_dst, rem_dist,
+                    _f32(talus_slope, g), _f32(k_thermal, g))
         return elev
 
     # the mid-loop re-flood at 75% of iterations (js/terrain-post.js:444-462)
@@ -108,13 +119,16 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
     for it in range(mid):
         elev = step(elev, it)
     if mid < total:
-        elev, _, _ = priority_flood_carve(elev, is_ocean, valid, *g.bands,
-                                          _f32(0.85, g),
-                                          open_ocean=open_ocean)
+        with span("Post: re-flood"):
+            elev, _, _ = priority_flood_carve(elev, is_ocean, valid,
+                                              *g.bands, _f32(0.85, g),
+                                              open_ocean=open_ocean)
         for it in range(mid, total):
             elev = step(elev, it)
     if glac_idx is not None:
-        elev = glacial_post_smooth(elev, is_ocean, valid, *g.bands, glac_idx)
+        with span("Post: glacial post-smooth"):
+            elev = glacial_post_smooth(elev, is_ocean, valid, *g.bands,
+                                       glac_idx)
     return elev
 
 
@@ -136,25 +150,27 @@ def run_post_processing(g: DeviceGraph, elev, seed: int, params: dict,
 
     if tw > 0:
         from ..ops.noise import tables
-        max_amp = 0.12 * tw
-        if avg_edge is None:
-            avg_edge = mean_edge(g)
-        max_steps = int(math.ceil(max_amp / max(avg_edge, 1e-6))) + 8
-        hot = hotspot if hotspot is not None else torch.zeros_like(elev)
-        elev = warp_terrain(elev, g.pos, g.valid, *g.bands,
-                            noise_t=warp_t if warp_t is not None
-                            else tables(seed + 9999, g.device),
-                            strength=_f32(tw, g), hotspot=hot,
-                            max_steps=max_steps)
+        with span("Post: warp"):
+            max_amp = 0.12 * tw
+            if avg_edge is None:
+                avg_edge = mean_edge(g)
+            max_steps = int(math.ceil(max_amp / max(avg_edge, 1e-6))) + 8
+            hot = hotspot if hotspot is not None else torch.zeros_like(elev)
+            elev = warp_terrain(elev, g.pos, g.valid, *g.bands,
+                                noise_t=warp_t if warp_t is not None
+                                else tables(seed + 9999, g.device),
+                                strength=_f32(tw, g), hotspot=hot,
+                                max_steps=max_steps)
 
     # ocean mask frozen BEFORE smoothing/erosion (js/planet-worker.js:51-54)
     is_ocean = (elev <= 0) & g.valid
     pre = elev
 
     if smoothing > 0:
-        elev = smooth_elevation(elev, is_ocean, g.valid, *g.bands,
-                                round(1 + smoothing * 4),
-                                _f32(0.2 + smoothing * 0.5, g))
+        with span("Post: smoothing"):
+            elev = smooth_elevation(elev, is_ocean, g.valid, *g.bands,
+                                    round(1 + smoothing * 4),
+                                    _f32(0.2 + smoothing * 0.5, g))
 
     if glacial > 0 or hydraulic > 0 or thermal > 0:
         elev = erode_composite(
@@ -166,10 +182,12 @@ def run_post_processing(g: DeviceGraph, elev, seed: int, params: dict,
             g_iters=round(glacial * 10), glacial_strength=glacial)
 
     if ridge > 0:
-        elev = sharpen_ridges(elev, is_ocean, g.valid, *g.bands,
-                              round(1 + ridge * 3), _f32(ridge * 0.08, g))
+        with span("Post: ridge sharpening"):
+            elev = sharpen_ridges(elev, is_ocean, g.valid, *g.bands,
+                                  round(1 + ridge * 3), _f32(ridge * 0.08, g))
 
     # soil creep always applied (js/planet-worker.js:92)
-    elev = apply_soil_creep(elev, is_ocean, g.valid, *g.bands,
-                            3, _f32(0.1125, g))
+    with span("Post: soil creep"):
+        elev = apply_soil_creep(elev, is_ocean, g.valid, *g.bands,
+                                3, _f32(0.1125, g))
     return elev, elev - pre

@@ -217,7 +217,7 @@ def monotonic_enforce(elev, drain, is_ocean, valid, rounds: int = 0):
     l = torch.ones(n, dtype=torch.float32, device=dev)
     p = torch.where(land, drain.to(torch.int64), n)
     for _ in range(rounds):
-        if not bool((p != n).any()):
+        if not spmd.flag_any((p != n).any()):
             break
         mp = torch.cat([m, m.new_tensor([-INF])])[p]
         lp = torch.cat([l, l.new_tensor([0.0])])[p]

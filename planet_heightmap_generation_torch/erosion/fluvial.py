@@ -102,7 +102,7 @@ def stream_power_solve(elev, is_ocean, valid, rcv, dist, is_pit, flow,
     active_x = torch.cat([active, active.new_tensor([False])])
     for _ in range(rounds):
         ok = (p < n) & active_x[p]
-        if not bool(ok.any()):
+        if not spmd.flag_any(ok.any()):
             break
         Ap = torch.cat([A, A.new_tensor([0.0])])[p]
         Bp = torch.cat([B, B.new_tensor([1.0])])[p]

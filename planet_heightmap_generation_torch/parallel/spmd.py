@@ -61,6 +61,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..pipeline import timing
+
 # seconds a shard waits for its turn before the split raises
 TIMEOUT = 300.0
 
@@ -292,8 +294,11 @@ def gathered(fn: Callable, *cells, **kw):
 
 
 def flag_any(flag) -> bool:
-    """Whether the change flag (an int [1] device tensor) is set: one host
-    read; on a split, whether any shard's is."""
+    """Whether the change flag (an int [1] device tensor, or a loop's bool
+    stop test) is set: one host read; on a split, whether any shard's is.
+    Each call counts one read on the calling thread's current timer
+    (pipeline/timing.py)."""
+    timing.count_read()
     sh = getattr(_TLS, "shard", None)
     if sh is None:
         return int(flag.item()) != 0

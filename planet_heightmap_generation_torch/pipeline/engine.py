@@ -56,6 +56,7 @@ from ..climate import (compute_wind, compute_ocean_currents,
                        classify_koppen)
 from ..climate.wind import climate_coast_fields
 from ..parallel import spmd
+from . import timing
 from .timing import StageTimer
 
 MAX_SUPER = 32
@@ -577,7 +578,7 @@ class PlanetEngine:
                 t=round(time.time(), 3), kind=kind, n_cells=params.n_cells,
                 seed=params.seed, fused=not self._timing,
                 total_ms=round(timer.total_ms, 1),
-                stages={k: round(v, 2) for k, v in timer.stages})
+                stages={k: round(v, 2) for k, v in timer.totals().items()})
             with open(path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         except OSError:
@@ -614,30 +615,31 @@ class PlanetEngine:
         over its cells windows and every product is gathered to
         ``device``."""
         timer = self._timer()
-        prog = on_progress or _no_progress
-        s = host_setup(params, self.device, timer, prog)
-        self.split_stats = None
-        if self._splits(params):
-            out = self._split_pipeline(s, params, timer, prog)
-        else:
-            out = self._device_pipeline(s, params, timer, prog)
-        elev_res, climate = out["elev"], out["climate"]
-        r_plate, elevation, debug = out["r_plate"], out["elevation"], \
-            out["debug"]
+        with timing.current(timer):
+            prog = on_progress or _no_progress
+            s = host_setup(params, self.device, timer, prog)
+            self.split_stats = None
+            if self._splits(params):
+                out = self._split_pipeline(s, params, timer, prog)
+            else:
+                out = self._device_pipeline(s, params, timer, prog)
+            elev_res, climate = out["elev"], out["climate"]
+            r_plate, elevation, debug = out["r_plate"], out["elevation"], \
+                out["debug"]
 
-        self._w = dict(
-            graph=s.graph, g=s.g, params=params, seed=params.seed,
-            coarse=s.coarse, r_plate=r_plate, plates=s.plates,
-            super_sp=s.super_sp, original_is_ocean=s.original_is_ocean,
-            noise_pack=s.noise_pack, warp_t=s.warp_t,
-            pre_post=elev_res.elevation, elevation_final=elevation,
-            mountain=elev_res.mountain, coastline=elev_res.coastline,
-            ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
-            hotspot=debug.get("hotspot"),
-            cached_wind=(climate or {}).get("wind"),
-            cached_ocean=(climate or {}).get("ocean"),
-        )
-        self._finish(timer, params, "generate")
+            self._w = dict(
+                graph=s.graph, g=s.g, params=params, seed=params.seed,
+                coarse=s.coarse, r_plate=r_plate, plates=s.plates,
+                super_sp=s.super_sp, original_is_ocean=s.original_is_ocean,
+                noise_pack=s.noise_pack, warp_t=s.warp_t,
+                pre_post=elev_res.elevation, elevation_final=elevation,
+                mountain=elev_res.mountain, coastline=elev_res.coastline,
+                ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
+                hotspot=debug.get("hotspot"),
+                cached_wind=(climate or {}).get("wind"),
+                cached_ocean=(climate or {}).get("ocean"),
+            )
+            self._finish(timer, params, "generate")
         return PlanetResult(
             graph=s.graph, params=params, r_plate=r_plate,
             plate_seeds=s.plates.seeds, plate_is_ocean=s.plates.is_ocean,
@@ -716,12 +718,13 @@ class PlanetEngine:
         exchanges = lay.exchanges
 
         def shard(c, sc):
-            if c == 0:
-                return self._device_pipeline(sc, params, timer, prog,
-                                             triangles=False)
-            return self._device_pipeline(
-                sc, params, StageTimer(sync_enabled=False), _no_progress,
-                triangles=False)
+            # shard 0 records into the command's timer, the others into
+            # their own; each thread's reads count on its timer
+            t = timer if c == 0 else StageTimer(sync_enabled=False)
+            with timing.current(t):
+                return self._device_pipeline(
+                    sc, params, t, prog if c == 0 else _no_progress,
+                    triangles=False)
 
         parts, stats = spmd.run(lay, shard, [(sc,) for sc in shards])
         with timer.stage("Split gather", sync=True):
@@ -741,33 +744,34 @@ class PlanetEngine:
             raise RuntimeError("No retained state for reapply")
         w = self._w
         timer = self._timer()
-        prog = on_progress or _no_progress
-        params = w["params"]
-        if sculpt:
-            params = params.replace(**sculpt)
-            w["params"] = params
-        g, graph = w["g"], w["graph"]
+        with timing.current(timer):
+            prog = on_progress or _no_progress
+            params = w["params"]
+            if sculpt:
+                params = params.replace(**sculpt)
+                w["params"] = params
+            g, graph = w["g"], w["graph"]
 
-        prog(20, "Eroding terrain…")
-        with timer.stage("Terrain post-processing", sync=True):
-            elevation, erosion_delta = run_post_processing(
-                g, w["pre_post"], w["seed"], dataclasses.asdict(params),
-                hotspot=w["hotspot"], avg_edge=_nominal_edge(graph),
-                warp_t=w.get("warp_t"))
-        debug = dict(erosionDelta=erosion_delta)
-        climate = stage_error = None
-        if not skip_climate:
-            climate, stage_error = self._climate_seam(
-                g, elevation, torch.as_tensor(w["plates"].is_ocean,
-                                              device=g.device),
-                w["r_plate"], w["seed"], params, timer, prog, debug)
-        with timer.stage("Triangle elevations", sync=True):
-            t_elev = triangle_elevations(elevation, graph)
+            prog(20, "Eroding terrain…")
+            with timer.stage("Terrain post-processing", sync=True):
+                elevation, erosion_delta = run_post_processing(
+                    g, w["pre_post"], w["seed"], dataclasses.asdict(params),
+                    hotspot=w["hotspot"], avg_edge=_nominal_edge(graph),
+                    warp_t=w.get("warp_t"))
+            debug = dict(erosionDelta=erosion_delta)
+            climate = stage_error = None
+            if not skip_climate:
+                climate, stage_error = self._climate_seam(
+                    g, elevation, torch.as_tensor(w["plates"].is_ocean,
+                                                  device=g.device),
+                    w["r_plate"], w["seed"], params, timer, prog, debug)
+            with timer.stage("Triangle elevations", sync=True):
+                t_elev = triangle_elevations(elevation, graph)
 
-        w["elevation_final"] = elevation
-        w["cached_wind"] = (climate or {}).get("wind")
-        w["cached_ocean"] = (climate or {}).get("ocean")
-        self._finish(timer, params, "reapply")
+            w["elevation_final"] = elevation
+            w["cached_wind"] = (climate or {}).get("wind")
+            w["cached_ocean"] = (climate or {}).get("ocean")
+            self._finish(timer, params, "reapply")
         return PlanetResult(
             graph=graph, params=params, r_plate=w["r_plate"],
             plate_seeds=w["plates"].seeds,
@@ -790,72 +794,75 @@ class PlanetEngine:
             raise RuntimeError("No retained state for edit_recompute")
         w = self._w
         timer = self._timer()
-        prog = on_progress or _no_progress
-        params = w["params"]
-        graph, g, seed = w["graph"], w["g"], w["seed"]
-        plates = w["plates"]
+        with timing.current(timer):
+            prog = on_progress or _no_progress
+            params = w["params"]
+            graph, g, seed = w["graph"], w["g"], w["seed"]
+            plates = w["plates"]
 
-        plates.is_ocean = w["original_is_ocean"].copy()
-        for i in toggled_indices:
-            if i < plates.num_plates:
-                plates.is_ocean[i] = not plates.is_ocean[i]
-        assign_plate_densities(plates)
+            plates.is_ocean = w["original_is_ocean"].copy()
+            for i in toggled_indices:
+                if i < plates.num_plates:
+                    plates.is_ocean[i] = not plates.is_ocean[i]
+            assign_plate_densities(plates)
 
-        super_sp = None
-        coarse = w.get("coarse")
-        if plates.num_plates >= 8:
-            with timer.stage("Super plates"):
-                if coarse is not None:
-                    super_sp = build_super_plates(coarse.graph,
-                                                  coarse.r_plate, plates)
-                else:   # imported planets have no coarse map
-                    super_sp = build_super_plates(
-                        graph, w["r_plate"][: graph.n_cells].cpu().numpy(),
-                        plates)
-        w["super_sp"] = super_sp
+            super_sp = None
+            coarse = w.get("coarse")
+            if plates.num_plates >= 8:
+                with timer.stage("Super plates"):
+                    if coarse is not None:
+                        super_sp = build_super_plates(coarse.graph,
+                                                      coarse.r_plate, plates)
+                    else:   # imported planets have no coarse map
+                        super_sp = build_super_plates(
+                            graph, w["r_plate"][: graph.n_cells].cpu().numpy(),
+                            plates)
+            w["super_sp"] = super_sp
 
-        # toggled ocean/land flips the hotspots' ocean boosts → new domes
-        domes = noise_pack = None
-        if coarse is not None:
-            with timer.stage("Hotspot domes", sync=True):
-                domes, noise_pack, _ = host_prologue(
-                    graph, coarse, plates, seed, params.n_plates, g.device)
-                w["noise_pack"] = noise_pack
+            # toggled ocean/land flips the hotspots' ocean boosts → new domes
+            domes = noise_pack = None
+            if coarse is not None:
+                with timer.stage("Hotspot domes", sync=True):
+                    domes, noise_pack, _ = host_prologue(
+                        graph, coarse, plates, seed, params.n_plates, g.device)
+                    w["noise_pack"] = noise_pack
 
-        prog(0, "Rebuilding elevation…")
-        p_ocean, p_pole, p_omega, p_dens = plate_arrays(plates, g.device)
-        with timer.stage("Elevation", sync=True):
-            elev_res = assign_elevation(
-                g, w["r_plate"], p_ocean, p_pole, p_omega, p_dens,
-                seed=seed, noise_mag=params.roughness, spread=params.spread,
-                noise_pack=noise_pack, domes=domes,
-                **_elevation_kw(super_arrays(super_sp, g.device),
-                                w["r_plate"]))
-        pre_post = elev_res.elevation
+            prog(0, "Rebuilding elevation…")
+            p_ocean, p_pole, p_omega, p_dens = plate_arrays(plates, g.device)
+            with timer.stage("Elevation", sync=True):
+                elev_res = assign_elevation(
+                    g, w["r_plate"], p_ocean, p_pole, p_omega, p_dens,
+                    seed=seed, noise_mag=params.roughness,
+                    spread=params.spread,
+                    noise_pack=noise_pack, domes=domes,
+                    **_elevation_kw(super_arrays(super_sp, g.device),
+                                    w["r_plate"]))
+            pre_post = elev_res.elevation
 
-        prog(50, "Eroding terrain…")
-        with timer.stage("Terrain post-processing", sync=True):
-            elevation, erosion_delta = run_post_processing(
-                g, pre_post, seed, dataclasses.asdict(params),
-                hotspot=elev_res.debug.get("hotspot"),
-                avg_edge=_nominal_edge(graph), warp_t=w.get("warp_t"))
-        debug = dict(elev_res.debug)
-        debug["erosionDelta"] = erosion_delta
+            prog(50, "Eroding terrain…")
+            with timer.stage("Terrain post-processing", sync=True):
+                elevation, erosion_delta = run_post_processing(
+                    g, pre_post, seed, dataclasses.asdict(params),
+                    hotspot=elev_res.debug.get("hotspot"),
+                    avg_edge=_nominal_edge(graph), warp_t=w.get("warp_t"))
+            debug = dict(elev_res.debug)
+            debug["erosionDelta"] = erosion_delta
 
-        climate = None
-        if not skip_climate:
-            climate = self._run_climate(g, elevation, p_ocean, w["r_plate"],
-                                        seed, params, timer, prog, debug)
-        with timer.stage("Triangle elevations", sync=True):
-            t_elev = triangle_elevations(elevation, graph)
+            climate = None
+            if not skip_climate:
+                climate = self._run_climate(
+                    g, elevation, p_ocean, w["r_plate"], seed, params, timer,
+                    prog, debug)
+            with timer.stage("Triangle elevations", sync=True):
+                t_elev = triangle_elevations(elevation, graph)
 
-        w["cached_wind"] = (climate or {}).get("wind")
-        w["cached_ocean"] = (climate or {}).get("ocean")
-        w.update(pre_post=pre_post, elevation_final=elevation,
-                 mountain=elev_res.mountain, coastline=elev_res.coastline,
-                 ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
-                 hotspot=debug.get("hotspot"))
-        self._finish(timer, params, "edit_recompute")
+            w["cached_wind"] = (climate or {}).get("wind")
+            w["cached_ocean"] = (climate or {}).get("ocean")
+            w.update(pre_post=pre_post, elevation_final=elevation,
+                     mountain=elev_res.mountain, coastline=elev_res.coastline,
+                     ocean_seeds=elev_res.ocean_seeds, stress=elev_res.stress,
+                     hotspot=debug.get("hotspot"))
+            self._finish(timer, params, "edit_recompute")
         return PlanetResult(
             graph=graph, params=params, r_plate=w["r_plate"],
             plate_seeds=plates.seeds, plate_is_ocean=plates.is_ocean,
@@ -879,29 +886,31 @@ class PlanetEngine:
             raise RuntimeError("No retained state for compute_climate")
         w = self._w
         timer = self._timer()
-        prog = on_progress or _no_progress
-        params = w["params"]
-        if temperature_offset is not None:
-            params = params.replace(temperature_offset=temperature_offset)
-        if precipitation_offset is not None:
-            params = params.replace(precipitation_offset=precipitation_offset)
-        w["params"] = params
+        with timing.current(timer):
+            prog = on_progress or _no_progress
+            params = w["params"]
+            if temperature_offset is not None:
+                params = params.replace(temperature_offset=temperature_offset)
+            if precipitation_offset is not None:
+                params = params.replace(
+                    precipitation_offset=precipitation_offset)
+            w["params"] = params
 
-        g = w["g"]
-        elevation = w["elevation_final"]
-        wind, ocean = w.get("cached_wind"), w.get("cached_ocean")
-        if wind is None or ocean is None:
-            prog(0, "Simulating wind patterns…")
-            wind, ocean = climate_wind_ocean(
-                g, elevation,
-                torch.as_tensor(w["plates"].is_ocean, device=g.device),
-                w["r_plate"], tables(w["seed"], g.device), timer)
-            w["cached_wind"], w["cached_ocean"] = wind, ocean
-        prog(50, "Computing precipitation…")
-        precip, temp, koppen = climate_rest(g, elevation, wind, ocean,
-                                            params, timer)
-        prog(95, "Done")
-        self._finish(timer)
+            g = w["g"]
+            elevation = w["elevation_final"]
+            wind, ocean = w.get("cached_wind"), w.get("cached_ocean")
+            if wind is None or ocean is None:
+                prog(0, "Simulating wind patterns…")
+                wind, ocean = climate_wind_ocean(
+                    g, elevation,
+                    torch.as_tensor(w["plates"].is_ocean, device=g.device),
+                    w["r_plate"], tables(w["seed"], g.device), timer)
+                w["cached_wind"], w["cached_ocean"] = wind, ocean
+            prog(50, "Computing precipitation…")
+            precip, temp, koppen = climate_rest(g, elevation, wind, ocean,
+                                                params, timer)
+            prog(95, "Done")
+            self._finish(timer)
         return dict(wind=wind, ocean=ocean, precip=precip, temp=temp,
                     koppen=koppen, timing=timer)
 
@@ -913,60 +922,61 @@ class PlanetEngine:
         """Equirect grayscale → mesh sampling → post → synthetic plates →
         climate (js/planet-worker.js:679-942)."""
         timer = self._timer()
-        prog = on_progress or _no_progress
-        seed = params.seed
+        with timing.current(timer):
+            prog = on_progress or _no_progress
+            seed = params.seed
 
-        prog(0, "Building sphere mesh…")
-        with timer.stage("Sphere mesh", sync=True):
-            graph = build_sphere(params.n_cells, params.jitter,
-                                 rng=ParkMiller(seed))
-            g = to_device(graph, self.device)
+            prog(0, "Building sphere mesh…")
+            with timer.stage("Sphere mesh", sync=True):
+                graph = build_sphere(params.n_cells, params.jitter,
+                                     rng=ParkMiller(seed))
+                g = to_device(graph, self.device)
 
-        prog(20, "Sampling heightmap…")
-        with timer.stage("Sample heightmap", sync=True):
-            image = torch.as_tensor(
-                np.asarray(grayscale, np.float32).reshape(img_h, img_w),
-                device=self.device)
-            pre_post = sample_heightmap(g, image)
+            prog(20, "Sampling heightmap…")
+            with timer.stage("Sample heightmap", sync=True):
+                image = torch.as_tensor(
+                    np.asarray(grayscale, np.float32).reshape(img_h, img_w),
+                    device=self.device)
+                pre_post = sample_heightmap(g, image)
 
-        prog(35, "Processing terrain…")
-        with timer.stage("Terrain post-processing", sync=True):
-            elevation, erosion_delta = run_post_processing(
-                g, pre_post, seed, dataclasses.asdict(params))
+            prog(35, "Processing terrain…")
+            with timer.stage("Terrain post-processing", sync=True):
+                elevation, erosion_delta = run_post_processing(
+                    g, pre_post, seed, dataclasses.asdict(params))
 
-        prog(50, "Deriving plates…")
-        with timer.stage("Synthetic plates", sync=True):
-            r_plate, plates = derive_synthetic_plates(g, elevation)
+            prog(50, "Deriving plates…")
+            with timer.stage("Synthetic plates", sync=True):
+                r_plate, plates = derive_synthetic_plates(g, elevation)
 
-        # seed masks (js/planet-worker.js:812-831)
-        is_ocean = (elevation <= 0) & g.valid
-        mountain_mask = (elevation > 0.5) & g.valid
-        coastline_mask = (elevation > 0) & g.valid & torch.any(
-            is_ocean[g.nbr_idx] & g.nbr_mask, dim=1)
+            # seed masks (js/planet-worker.js:812-831)
+            is_ocean = (elevation <= 0) & g.valid
+            mountain_mask = (elevation > 0.5) & g.valid
+            coastline_mask = (elevation > 0) & g.valid & torch.any(
+                is_ocean[g.nbr_idx] & g.nbr_mask, dim=1)
 
-        debug = dict(erosionDelta=erosion_delta)
-        climate = None
-        if not _skip_climate(params):
-            climate = self._run_climate(
-                g, elevation, torch.as_tensor(plates.is_ocean,
-                                              device=g.device),
-                r_plate, seed, params, timer, prog, debug)
-        with timer.stage("Triangle elevations", sync=True):
-            t_elev = triangle_elevations(elevation, graph)
+            debug = dict(erosionDelta=erosion_delta)
+            climate = None
+            if not _skip_climate(params):
+                climate = self._run_climate(
+                    g, elevation, torch.as_tensor(plates.is_ocean,
+                                                  device=g.device),
+                    r_plate, seed, params, timer, prog, debug)
+            with timer.stage("Triangle elevations", sync=True):
+                t_elev = triangle_elevations(elevation, graph)
 
-        stress = torch.zeros(g.n_padded, dtype=torch.float32,
-                             device=g.device)
-        self._w = dict(
-            graph=graph, g=g, params=params, seed=seed, r_plate=r_plate,
-            plates=plates, super_sp=None,
-            original_is_ocean=plates.is_ocean.copy(),
-            pre_post=pre_post, elevation_final=elevation,
-            mountain=mountain_mask, coastline=coastline_mask,
-            ocean_seeds=is_ocean, stress=stress, hotspot=None,
-            cached_wind=(climate or {}).get("wind"),
-            cached_ocean=(climate or {}).get("ocean"),
-        )
-        self._finish(timer, params, "import_heightmap")
+            stress = torch.zeros(g.n_padded, dtype=torch.float32,
+                                 device=g.device)
+            self._w = dict(
+                graph=graph, g=g, params=params, seed=seed, r_plate=r_plate,
+                plates=plates, super_sp=None,
+                original_is_ocean=plates.is_ocean.copy(),
+                pre_post=pre_post, elevation_final=elevation,
+                mountain=mountain_mask, coastline=coastline_mask,
+                ocean_seeds=is_ocean, stress=stress, hotspot=None,
+                cached_wind=(climate or {}).get("wind"),
+                cached_ocean=(climate or {}).get("ocean"),
+            )
+            self._finish(timer, params, "import_heightmap")
         return PlanetResult(
             graph=graph, params=params, r_plate=r_plate,
             plate_seeds=plates.seeds, plate_is_ocean=plates.is_ocean,
@@ -1048,7 +1058,7 @@ def climate_wind_ocean(g: DeviceGraph, elevation, plate_is_ocean, r_plate,
         wind = compute_wind(g, elevation, plate_is_ocean, r_plate, climate_t,
                             coast_d=d5[:, :2], gf=aux["gf"],
                             is_land=aux["is_land"],
-                            plate_land=aux["plate_land"], timer=timer)
+                            plate_land=aux["plate_land"])
     with timer.stage("Climate: ocean currents", sync=True):
         ocean = compute_ocean_currents(g, elevation, wind, coast_d=d5[:, 2:])
     return wind, ocean

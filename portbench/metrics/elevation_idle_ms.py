@@ -1,0 +1,11 @@
+"""Device idle in the elevation stage, per call: the host time of the
+program's "Elevation" span (its own start and end) in which no device
+event ran, from the profiler's trace (harness/spans.py)."""
+
+from portbench.harness import spans
+
+UNIT = "ms"
+
+
+def read(trace):
+    return spans.idle_ms(trace, lambda name: name == "Elevation")
