@@ -54,7 +54,14 @@ Phases (any failure exits non-zero with its traceback):
    (or refused, only where its windows no longer fit: for smoothing, only
    where one field's window does not), timed, with its plan (T, H,
    windows, grid, shared bytes, capped or not) read back from the
-   library;
+   library. Then the erosion loop's stencils (``erosion_step_checks``):
+   one thermal step at the thermal slider 0.1 and 1.0 and one glacial
+   step at strength 0.2 and 1.0 over the noise terrain, each through its
+   stencil launches, with no host sync, must give the band loop's bits on
+   the card and launch ``thermal`` twice (at most 3 device events a
+   step) or ``glacial`` twice and ``accumulate`` once (at most 25); the
+   launches, device events and ms a step of both forms and each stencil
+   kernel's device µs against its byte bound are printed;
 3. drive the port's main path: the default ``PlanetEngine.generate``
    (``GenerationParams(seed=42)``: 204K cells, 80 plates, climate on),
    cold then warm, with every kernel's launch count (and the launches'
@@ -73,14 +80,13 @@ Phases (any failure exits non-zero with its traceback):
 4. check the 4K planet (seed 123) with climate against the reference's
    pinned c4k_s123 snapshot: terrain distribution and Köppen shares;
 5. the glacial generate (``glacial_erosion=0.2``, 204K, climate on): a
-   first run records the arguments of every float-sum site (thermal,
-   smoothing, ``dep_sum``, the flow counts, ``downstream_accumulate``, the
-   wind bins, the moisture advection's ``wsum``, the ice flow, the glacial
-   step's remainder sums), each replayed on the card twice and on the CPU
-   (bit for bit), beside the cells in which the atomic form the site used
-   before differs from the CPU; then a warm run, counted (``accumulate``
-   must launch), timed, profiled and held to the same gates as the default
-   generate;
+   first run records the arguments of every float-sum site (smoothing,
+   ``dep_sum``, the flow counts, ``downstream_accumulate``, the wind bins,
+   the moisture advection's ``wsum``, the ice flow), each replayed on the
+   card twice and on the CPU (bit for bit), beside the cells in which the
+   atomic form the site used before differs from the CPU; then a warm run,
+   counted (``accumulate`` and ``glacial`` must launch), timed, profiled
+   and held to the same gates as the default generate;
 6. the retained-state commands on the default planet: a no-change
    ``reapply`` equals the generate's elevation bit for bit; a sculpted
    ``reapply`` keeps the pre-post elevation; ``edit_recompute([0])``
@@ -149,7 +155,8 @@ Phases (any failure exits non-zero with its traceback):
 
 Before the last line come JSON objects of the commands' wall times, the
 sizes past 204K, the 4M sweep, the plans past 204K, the product
-surfaces' wall times, the split and the split generate, a JSON object with one entry per
+surfaces' wall times, the split and the split generate, the erosion
+steps of phase 2, a JSON object with one entry per
 kernel (each with its ``sharded`` record: equal, launches, exchanges,
 ms; and ``split_generate_launches``, its launches in phase 11's warm split) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with
@@ -190,10 +197,9 @@ REPLACES = {"bfs_relax": f"{TPU_KERNELS}:171",
 # the float sums routed through the accumulate launch (a whole loop:
 # pointer_accumulate; one round: ordered_index_sum) or the remainder row
 # walk (rem_add), and the int32 flow counts: (module, name it calls) →
-# calls kept when recorded (the glacial step's valley widening and moraines
-# are its two remainder sums)
+# calls kept when recorded (the thermal and glacial steps' sums run inside
+# their stencil launches on the card: erosion_step_checks holds them)
 SUM_SITES = {
-    ("erosion.thermal", "rem_add"): 2,
     ("erosion.smooth", "rem_add"): 2,
     ("erosion.fluvial", "ordered_index_sum"): 1,
     ("erosion.fluvial", "pointer_accumulate"): 1,
@@ -201,7 +207,6 @@ SUM_SITES = {
     ("climate.wind", "ordered_index_sum"): 1,
     ("climate.precipitation", "rem_add"): 1,
     ("erosion.glacial", "pointer_accumulate"): 1,
-    ("erosion.glacial", "rem_add"): 2,
 }
 # the loops that launch the accumulate and components kernels, and the
 # modules that call them: (module, name) → calls kept when recorded
@@ -229,6 +234,9 @@ LOOP_SITES = {
 # sweep, before both became one launch per loop (PERF.md §6 keeps the runs;
 # the host syncs counted by tools/torch_compare_trees.py on that tree)
 BEFORE_LOOP_LAUNCHES = dict(busy_ms=212.167, events=91024, host_syncs=749)
+# the kernels only a slider off by default launches (glacial_erosion 0:
+# no glacial step)
+SLIDER_KERNELS = ("glacial",)
 # smoothing calls of the default generate's climate stack, one launch each:
 # wind 2, ocean currents 2, precipitation 6 (west coast included),
 # temperature 2
@@ -1121,6 +1129,116 @@ def accumulate_record(g, dev, calls, reps: int = 50):
     return row
 
 
+
+# ── phase 2: the erosion loop's stencils (port-only) ─────────────────
+
+# the device functions of the stencil launches, as a trace names them
+STENCIL_FNS = ("thermal_shed_kernel", "thermal_receive_kernel",
+               "ice_argmin_kernel", "glacial_stencil_kernel")
+
+
+def stencil_bytes(g, band_dist, rem_dist) -> dict:
+    """Bytes each stencil launch must move on the mesh ``g``: every input
+    plane read once (float32 and int32 planes 4 bytes a cell, masks 1,
+    ``band_dist`` 4 per band, the remainder CSR and edge lengths once),
+    every output plane written once."""
+    npad, m = g.n_padded, int(g.rem_src.shape[0])
+    graph = npad * (4 + 4) + 4 + m * (4 + 4)      # bits, CSR, rem_dist
+    bands = band_dist.numel() * 4
+    masks = 2 * npad                              # ocean, valid
+    return {"thermal_shed_kernel": graph + bands + masks + npad * 4 * 3,
+            "thermal_receive_kernel": graph + bands + masks + npad * 4 * 4,
+            "ice_argmin_kernel": graph - m * 4 + masks + npad * 4 * 4,
+            "glacial_stencil_kernel": graph + bands + masks
+            + npad * 4 * (1 + 2 + 1 + 4 + 1)}
+
+
+def erosion_step_checks(g, dev, reps: int = 20):
+    """One thermal step (thermal slider 0.1, the default generate's, and
+    1.0) and one glacial step (strength 0.2 and 1.0, over the noise
+    terrain's glaciation index) on the mesh ``g``, each through its
+    stencil launches (ops/sweep_cuda.py section 9): the same bits as the
+    band loop on the card (``*_bands``, the slider constants as float32
+    tensors, as the engine passed them before), with no host sync (a warm
+    call first builds the stencil graph), two ``thermal`` launches a
+    thermal step and two ``glacial`` plus one ``accumulate`` a glacial
+    step, at most 3 / 25 device events a step; the device events and ms a
+    step of both forms (CUDA events over back-to-back steps), and each
+    stencil kernel's device µs against its byte bound. Returns a record
+    per step."""
+    from planet_heightmap_generation_torch.erosion import glacial, thermal
+    from planet_heightmap_generation_torch.erosion.composite import (
+        _edge_lengths)
+    from planet_heightmap_generation_torch.ops import sweep_cuda
+
+    elev = noise_terrain(g)
+    is_ocean = (elev <= 0) & g.valid
+    band_dist, rem_dist = _edge_lengths(g)
+    base = (elev, is_ocean, g.valid, g.band_off, g.band_mask, band_dist,
+            g.rem_src, g.rem_dst, rem_dist)
+
+    def f32(*xs):
+        return [torch.tensor(x, dtype=torch.float32, device=dev) for x in xs]
+
+    steps = []
+    for t in (0.1, 1.0):
+        talus, k = 1.2 - t * 0.4, t * 0.15
+        tt, kt = f32(talus, k)
+        steps.append((
+            f"thermal {t}", 3, {"thermal": 2},
+            lambda talus=talus, k=k: thermal.thermal_step(*base, talus, k),
+            lambda tt=tt, kt=kt: thermal.thermal_receive_bands(
+                *base, tt, *thermal.thermal_shed_bands(*base, tt, kt))))
+    for st in (0.2, 1.0):
+        glac = glacial.glaciation_index(g.pos, elev, is_ocean, g.valid,
+                                        *f32(st))
+        g_scale = 1.0 / round(st * 10)
+        steps.append((
+            f"glacial {st}", 25, {"glacial": 2, "accumulate": 1},
+            lambda glac=glac, st=st, g_scale=g_scale: glacial.glacial_step(
+                *base, glac, st, g_scale),
+            lambda glac=glac, ts=f32(st, g_scale): glacial.glacial_step_bands(
+                *base, glac, *ts)))
+    bound = {k: v / HBM_BYTES_PER_S * 1e6
+             for k, v in stencil_bytes(g, band_dist, rem_dist).items()}
+    out = {}
+    for label, most, expect, kern, bands in steps:
+        kern()
+        sweep_cuda.reset_launches()
+        got = no_host_sync(f"erosion step {label}", kern)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in sweep_cuda.LAUNCHES.items() if v}
+        want = bands()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"erosion step {label}: the stencil path differs from the "
+                f"band loop (max abs err {max_abs_err(got, want)}, "
+                f"{int((got != want).sum())} cells)")
+        if launches != expect:
+            raise AssertionError(f"erosion step {label}: launches "
+                                 f"{launches}, want {expect}")
+        ev_k, ev_b = device_events(kern), device_events(bands)
+        if len(ev_k) > most:
+            raise AssertionError(f"erosion step {label}: {len(ev_k)} device "
+                                 f"events a step, at most {most}")
+        ms_k, ms_b = time_ms(kern, reps), time_ms(bands, 5, warm=1)
+        kernels = {fn: dict(device_us=mean_device_ms(ev_k, fn) * 1e3,
+                            bound_us=bound[fn])
+                   for fn in STENCIL_FNS if mean_device_ms(ev_k, fn)}
+        moved = int((want != elev).sum())
+        print(f"erosion step [{label}]: the stencil path gives the band "
+              f"loop's bits on the card ({moved} cells moved), no host "
+              f"sync; launches {launches}; {len(ev_k)} device events a step "
+              f"(band loop {len(ev_b)}); {ms_k:.3f} ms a step back to back "
+              f"(band loop {ms_b:.3f} ms); "
+              + ", ".join(f"{fn} {v['device_us']:.1f} us (bound "
+                          f"{v['bound_us']:.1f} us)"
+                          for fn, v in kernels.items()), flush=True)
+        out[label] = dict(launches=launches, events=len(ev_k),
+                          band_loop_events=len(ev_b), ms=ms_k,
+                          band_loop_ms=ms_b, moved=moved, kernels=kernels)
+    return out
+
 def components_record(g, dev, calls, reps: int = 50):
     """Phase-2 row of the components launch at the default generate's
     call sites (``calls``: ``components_core``'s arguments, from
@@ -1661,8 +1779,8 @@ def size_checks(dev):
             print("climate: " + check_climate(res), flush=True)
         else:
             assert res.climate is None
-        path = [k for k in launches
-                if climate or k not in ("smooth", "shadow")]
+        path = [k for k in launches if k not in SLIDER_KERNELS
+                and (climate or k not in ("smooth", "shadow"))]
         missing = [k for k in path if launches[k] == 0]
         assert not missing, f"{label}: kernels not launched: {missing}"
         print(kernel_counts(launches, swept), flush=True)
@@ -1748,8 +1866,8 @@ def sweep_checks(dev):
           f"{SWEEP_CELLS / warm_s:.0f} cells/s, peak device memory "
           f"{peak / 2 ** 30:.2f} GiB; diagnostics {diag}, plates {plates}",
           flush=True)
-    missing = [k for k, v in launches.items()
-               if v == 0 and k not in ("smooth", "shadow")]
+    missing = [k for k, v in launches.items() if v == 0
+               and k not in ("smooth", "shadow", *SLIDER_KERNELS)]
     assert not missing, f"4M: kernels not launched: {missing}"
     print(kernel_counts(launches, swept), flush=True)
     plans = plan_lines(npad)
@@ -1819,7 +1937,8 @@ def sweep_checks(dev):
           f"{peak / 2 ** 30:.2f} GiB; diagnostics {diag}, plates {plates}",
           flush=True)
     print("climate: " + check_climate(res), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in SLIDER_KERNELS]
     assert not missing, f"4.5M: kernels not launched: {missing}"
     groups = sweep_cuda.smooth_groups(4, h)
     assert len(groups) > 1, groups
@@ -2161,7 +2280,8 @@ def split_generate_checks(dev, params, devices, ref=None):
     # the components loop's split route is min-label sweeps of bfs_relax
     # (parallel/loops.py sharded_components_relax): it launches no
     # components kernel
-    missing = [k for k, v in launches.items() if v == 0 and k != "components"]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in ("components", *SLIDER_KERNELS)]
     assert not missing, f"kernels not launched by the split: {missing}"
     print(f"  {stats['exchanges']} exchanges, {stats['collectives']} "
           f"collectives, {stats['launches']} split kernel loops, "
@@ -2396,6 +2516,8 @@ def main() -> int:
     print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
     records = kernel_checks(g, to_device(graph, "cpu"), dev)
+    # the erosion loop's stencil launches against the band loops
+    erosion_steps = erosion_step_checks(g, dev)
     # the staged launches past 204K: synthetic meshes whose plans the
     # window cap binds, each launch against its plain loop on CPU copies
     phase(t_run, "2, plans past 204K")
@@ -2425,7 +2547,8 @@ def main() -> int:
     diag, plates = check_planet(res, params.n_plates)
     print(f"diagnostics: {diag}, plates {plates}", flush=True)
     print("climate: " + check_climate(res), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in SLIDER_KERNELS]
     assert not missing, f"kernels not launched on the main path: {missing}"
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f" | relax sweeps bfs_relax={swept['bfs_relax']} "
@@ -2487,11 +2610,10 @@ def main() -> int:
 
     phase(t_run, 5)
     # 5. the glacial generate (204K, glacial 0.2, climate on): a first run
-    # records the arguments of every float-sum site (thermal, smoothing,
-    # dep_sum, downstream_accumulate, the wind bins, wsum, the ice flow and
-    # the glacial step's remainder sums),
-    # which are then replayed against the CPU; a warm run is counted,
-    # timed and profiled
+    # records the arguments of every float-sum site (smoothing, dep_sum,
+    # downstream_accumulate, the wind bins, wsum and the ice flow), which
+    # are then replayed against the CPU; a warm run is counted, timed and
+    # profiled
     glacial = GenerationParams(seed=SEED, glacial_erosion=0.2)
     (res_g, cold_g), calls = record_calls(
         lambda: run_generate(dev, glacial), SUM_SITES)
@@ -2506,6 +2628,7 @@ def main() -> int:
           flush=True)
     stage_table(dev, glacial, "204K glacial 0.2", ref=res_g)
     assert launches_g["accumulate"] > 0, launches_g
+    assert launches_g["glacial"] > 0, launches_g
     assert res_g.error is None, res_g.error
     diag_g, plates_g = check_planet(res_g, glacial.n_plates)
     print(f"glacial diagnostics: {diag_g}, plates {plates_g}; climate: "
@@ -2586,6 +2709,7 @@ def main() -> int:
     print(json.dumps({"api_wall_s": api_walls}))
     print(json.dumps({"split": split}))
     print(json.dumps({"split_generate": split_gen}))
+    print(json.dumps({"erosion_steps": erosion_steps}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

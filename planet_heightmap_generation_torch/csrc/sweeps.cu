@@ -17,10 +17,13 @@
 // number of passes / hops. The host issues one launch and reads nothing
 // back.
 //
-// Besides the sweeps, the pointer-doubling accumulate (end of the file):
-// one cooperative launch runs a whole S <- S + scatter_add(S along P),
-// P <- P[P] loop, each target's float adds in source order (the CPU
-// index_add's bits) with no sort and no host sync.
+// Besides the sweeps, the pointer-doubling accumulate (near the end of
+// the file): one cooperative launch runs a whole S <- S + scatter_add(S
+// along P), P <- P[P] loop, each target's float adds in source order (the
+// CPU index_add's bits) with no sort and no host sync. Last, the erosion
+// loop's one-pass stencils (the thermal step's two passes, the ice flow's
+// argmin and the glacial step's neighbour pass): an ordinary launch, one
+// thread a cell.
 //
 // What bounds these kernels on an H100: memory traffic, never arithmetic
 // for a single sweep. The least a sweep must move is its state and
@@ -1881,6 +1884,292 @@ int launch_accumulate(void (*kern)(AccArgs), AccArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ── One-pass stencils of the erosion loop's glacial and thermal steps ──
+// Port-only (the JAX steps are jnp band loops): each neighbour pass of
+// erosion/thermal.py and erosion/glacial.py is one launch, one thread per
+// cell. A thread walks its cell's set band bits in band order, then its
+// remainder row in edge order (the order of the band loop's sums and of
+// the jnp scatter-add), keeps its accumulators in registers and writes each
+// output plane once. Every float operation is the band loop's own, in its
+// order and with its constants rounded as torch rounds a Python float to
+// float32: with --fmad=false the card gives the band loop's bits. A band
+// or remainder edge whose bit is clear adds nothing: every accumulator
+// starts at +0 and takes only values >= +0, where the band loop adds +0.
+// The per-cell pow terms of the glacial step stay torch's (their f32 pow
+// is the library's), and come in as planes. Land is valid && !ocean.
+// Bound: bytes; every plane read once, each output written once.
+constexpr int kCellThreads = 256;
+
+__device__ __forceinline__ bool is_land(const uint8_t* ocean,
+                                        const uint8_t* valid, int j) {
+  return valid[j] != 0 && ocean[j] == 0;
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+// erosion/thermal.py _edge_excess: the slope excess above the talus slope
+// across one edge of length d, where ok
+__device__ __forceinline__ float edge_excess(float h_me, float h_nb, float d,
+                                             bool ok, float talus) {
+  const float dd = clamp_min(d, (float)1e-6);
+  const float slope = (h_me - h_nb) / dd;
+  return (ok && slope > talus) ? (slope - talus) * dd : 0.0f;
+}
+
+__device__ __forceinline__ uint32_t band_word(const uint32_t* bits, int i,
+                                              int n_bands) {
+  const uint32_t b = bits[i];
+  return n_bands >= 32 ? b : (b & ((1u << n_bands) - 1u));
+}
+
+struct ThermalArgs {
+  const float* elev;
+  const uint8_t* ocean;
+  const uint8_t* valid;
+  const uint32_t* bits;
+  const float* bdist;  // [np, n_bands] band edge lengths
+  const int* rptr;
+  const int* rnbr;
+  const float* rdist;  // [m] remainder edge lengths in CSR order
+  const float* shed;   // receive: the cells' shed [np]
+  const float* share;  // receive: the cells' edge share [np]
+  float* out;          // shed: [2, np] (shed, share); receive: [np]
+  int m, np;
+  float talus, k;
+  Bands bands;
+};
+
+// Pass 1 (thermal_shed): each land cell's total slope excess over its land
+// neighbours, the transfer k * total * 0.5 it sheds and the share of it
+// each edge carries.
+__global__ void __launch_bounds__(kCellThreads)
+thermal_shed_kernel(ThermalArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.np) return;
+  const bool li = is_land(a.ocean, a.valid, i);
+  const float hi = a.elev[i];
+  const float* bd = a.bdist + (size_t)i * a.bands.n;
+  float total = 0.0f;
+  for (uint32_t b = band_word(a.bits, i, a.bands.n); b; b &= b - 1) {
+    const int d = __ffs((int)b) - 1;
+    const int j = wrap(i + a.bands.off[d], a.np);
+    total = total + edge_excess(hi, a.elev[j], bd[d],
+                                li && is_land(a.ocean, a.valid, j), a.talus);
+  }
+  for (int k = row_begin(a.rptr, i, a.m), e = row_end(a.rptr, i, a.m); k < e;
+       ++k) {
+    const int j = a.rnbr[k];
+    if (j < 0 || j >= a.np) continue;
+    total = total + edge_excess(hi, a.elev[j], a.rdist[k],
+                                li && is_land(a.ocean, a.valid, j), a.talus);
+  }
+  const float transfer = a.k * total * 0.5f;
+  a.out[i] = total > 0.0f ? transfer : 0.0f;
+  a.out[a.np + i] =
+      total > 0.0f ? transfer / clamp_min(total, (float)1e-20) : 0.0f;
+}
+
+// Pass 2 (thermal_receive): what each land cell receives from its higher
+// land neighbours (their edge share of the excess across the edge), less
+// what it sheds.
+__global__ void __launch_bounds__(kCellThreads)
+thermal_receive_kernel(ThermalArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.np) return;
+  const bool li = is_land(a.ocean, a.valid, i);
+  const float hi = a.elev[i];
+  const float* bd = a.bdist + (size_t)i * a.bands.n;
+  float recv = 0.0f;
+  for (uint32_t b = band_word(a.bits, i, a.bands.n); b; b &= b - 1) {
+    const int d = __ffs((int)b) - 1;
+    const int j = wrap(i + a.bands.off[d], a.np);
+    const float in = edge_excess(a.elev[j], hi, bd[d],
+                                 li && is_land(a.ocean, a.valid, j), a.talus);
+    recv = recv + in * a.share[j];
+  }
+  for (int k = row_begin(a.rptr, i, a.m), e = row_end(a.rptr, i, a.m); k < e;
+       ++k) {
+    const int j = a.rnbr[k];
+    if (j < 0 || j >= a.np) continue;
+    const float in = edge_excess(a.elev[j], hi, a.rdist[k],
+                                 li && is_land(a.ocean, a.valid, j), a.talus);
+    recv = recv + in * a.share[j];
+  }
+  a.out[i] = hi + (li ? recv - a.shed[i] : 0.0f);
+}
+
+struct IceArgs {
+  const float* elev;
+  const uint8_t* ocean;
+  const uint8_t* valid;  // null: every cell
+  const float* glac;
+  const int* gidx;  // global index of each cell, or null: the cell's own
+  const uint32_t* bits;
+  const int* rptr;
+  const int* rnbr;
+  int* target;  // [np] ice target (global index) or -1
+  int* ptr;     // [np] pointer: the target clamped into [0, n_total), or
+                // n_total (the sink)
+  int m, np, n_total;
+  Bands bands;
+};
+
+// ice_flow's banded argmin: the lowest neighbour, the first best in band
+// order; the remainder row's least key wins only on strict improvement,
+// its ties to the largest target index. A glaciated land cell drains there
+// when that neighbour is strictly lower.
+__global__ void __launch_bounds__(kCellThreads) ice_argmin_kernel(IceArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.np) return;
+  const int gi = a.gidx ? a.gidx[i] : i;
+  float best = INFINITY;
+  int tgt = 0;
+  for (uint32_t b = band_word(a.bits, i, a.bands.n); b; b &= b - 1) {
+    const int d = __ffs((int)b) - 1;
+    const float v = a.elev[wrap(i + a.bands.off[d], a.np)];
+    if (v < best) {
+      best = v;
+      tgt = gi + a.bands.off[d];
+    }
+  }
+  float w = INFINITY;
+  int wt = -1;
+  for (int k = row_begin(a.rptr, i, a.m), e = row_end(a.rptr, i, a.m); k < e;
+       ++k) {
+    const int j = a.rnbr[k];
+    if (j < 0 || j >= a.np) continue;
+    const float v = a.elev[j];
+    const int g = a.gidx ? a.gidx[j] : j;
+    if (v < w) {
+      w = v;
+      wt = g;
+    } else if (v == w && g > wt) {
+      wt = g;
+    }
+  }
+  if (w < best) {
+    best = w;
+    tgt = wt;
+  }
+  const bool land = (a.valid == nullptr || a.valid[i] != 0) && a.ocean[i] == 0;
+  const bool has = land && a.glac[i] > 0.0f && a.elev[i] - best > 0.0f &&
+                   isfinite(best);
+  a.target[i] = has ? tgt : -1;
+  a.ptr[i] = has ? (tgt < 0 ? 0 : (tgt > a.n_total - 1 ? a.n_total - 1 : tgt))
+                 : a.n_total;
+}
+
+struct GlacialArgs {
+  const float* elev;
+  const uint8_t* ocean;
+  const uint8_t* valid;
+  const float* glac;
+  const float* flow;
+  const int* target;  // ice_argmin_kernel's
+  const int* gidx;    // or null
+  const float* p06;   // torch.pow(flow, 0.6)
+  const float* p03;   // torch.pow(flow, 0.3)
+  const float* p04;   // torch.pow(flow, 0.4)
+  const float* p05;   // torch.pow(flow, 0.5)
+  const uint32_t* bits;
+  const float* bdist;
+  const int* rptr;
+  const int* rnbr;
+  const float* rdist;
+  float* out;
+  int m, np;
+  // 0.02, 0.005, 0.01 and 0.015 times g_scale, each a float32 product
+  float c_deep, c_mor, c_trib, c_fjord, strength;
+  Bands bands;
+};
+
+struct GlacialAcc {
+  int nup;
+  float widen, deposit;
+  bool ocean_nb;
+};
+
+// One edge j -> i of the glacial step's neighbour pass: tributaries
+// pointing at i, valley widening from a carving neighbour, moraine deposit
+// at a terminus, and whether an ocean cell borders i.
+__device__ __forceinline__ void glacial_edge(const GlacialArgs& a, int i,
+                                             int gi, bool li, float hi,
+                                             float gl_i, int j, float dist,
+                                             GlacialAcc& s) {
+  const bool lj = is_land(a.ocean, a.valid, j);
+  const float fj = a.flow[j];
+  const bool flow_ok = fj > (float)0.1;
+  const bool carving = lj && flow_ok;
+  const bool pam = a.target[j] == gi;
+  s.nup += pam ? 1 : 0;
+  const float slope = fabsf(hi - a.elev[j]) / clamp_min(dist, (float)1e-6);
+  const float deep = carving ? a.c_deep * a.p06[j] * a.strength : 0.0f;
+  s.widen = s.widen + ((carving && li && lj)
+                           ? deep * (float)0.4 * clamp_min(1.0f - slope, 0.0f)
+                           : 0.0f);
+  const bool dep_ok = pam && li && flow_ok && gl_i < a.glac[j] * (float)0.3;
+  s.deposit = s.deposit + (dep_ok ? a.c_mor * a.p03[j] : 0.0f);
+  s.ocean_nb = s.ocean_nb || a.ocean[j] != 0;
+}
+
+// glacial_step after the ice flow: the neighbour pass, the delta, the
+// fjord carve on glaciated coastal cells and the land clamp.
+__global__ void __launch_bounds__(kCellThreads)
+glacial_stencil_kernel(GlacialArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.np) return;
+  const int gi = a.gidx ? a.gidx[i] : i;
+  const bool li = is_land(a.ocean, a.valid, i);
+  const float hi = a.elev[i];
+  const float gl_i = a.glac[i];
+  const float* bd = a.bdist + (size_t)i * a.bands.n;
+  GlacialAcc s{0, 0.0f, 0.0f, false};
+  for (uint32_t b = band_word(a.bits, i, a.bands.n); b; b &= b - 1) {
+    const int d = __ffs((int)b) - 1;
+    glacial_edge(a, i, gi, li, hi, gl_i, wrap(i + a.bands.off[d], a.np),
+                 bd[d], s);
+  }
+  for (int k = row_begin(a.rptr, i, a.m), e = row_end(a.rptr, i, a.m); k < e;
+       ++k) {
+    const int j = a.rnbr[k];
+    if (j < 0 || j >= a.np) continue;
+    glacial_edge(a, i, gi, li, hi, gl_i, j, a.rdist[k], s);
+  }
+  const float fi = a.flow[i];
+  const bool carving = li && fi > (float)0.1;
+  const float deep = carving ? a.c_deep * a.p06[i] * a.strength : 0.0f;
+  float delta = -deep;
+  delta = delta - s.widen;
+  delta = delta - ((carving && s.nup >= 2) ? a.c_trib * a.p04[i] : 0.0f);
+  delta = delta + s.deposit;
+  float nw = hi + (li ? delta : 0.0f);
+  if (li && s.ocean_nb && gl_i > (float)0.2 && fi > (float)0.5)
+    nw = clamp_min(nw - a.c_fjord * a.p05[i], 0.0f);
+  a.out[i] = li ? clamp_min(nw, 0.0f) : nw;
+}
+
+// The remainder edges a stencil walks: none without a CSR.
+int rem_csr_m(const int* rptr, const int* rnbr, int m) {
+  return (rptr != nullptr && rnbr != nullptr && m > 0) ? m : 0;
+}
+
+template <class A>
+int launch_cells(void (*kern)(A), A a, int np, cudaStream_t stream) {
+  void* args[] = {&a};
+  const int e = (int)cudaLaunchKernel(
+      (const void*)kern, dim3((np + kCellThreads - 1) / kCellThreads),
+      dim3(kCellThreads), args, 0, stream);
+  if (e != 0) {
+    cudaGetLastError();
+    return e;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
@@ -2100,6 +2389,69 @@ int accumulate(const void* s, const void* p, int p64, int k, int n_out,
     case 3: return launch_accumulate(accumulate_relax_kernel<3>, a, st);
     default: return launch_accumulate(accumulate_relax_kernel<4>, a, st);
   }
+}
+
+// The erosion stencils (one thread a cell, no grid barrier). Planes are
+// [np]; ocean and valid uint8 0/1; bdist [np, n_offs] band edge lengths;
+// the remainder CSR with rdist [m], its edge lengths in CSR order.
+// thermal_shed writes out [2, np] (shed, share).
+int thermal_shed(const float* elev, const uint8_t* ocean, const uint8_t* valid,
+                 const uint32_t* bits, const float* bdist, const int* rem_ptr,
+                 const int* rem_nbr, const float* rdist, int m, float* out,
+                 int np, const int* offs, int n_offs, float talus, float k,
+                 void* stream) {
+  if (bad_shape(np, 1, n_offs)) return (int)cudaErrorInvalidValue;
+  ThermalArgs a{elev, ocean, valid, bits, bdist, rem_ptr, rem_nbr, rdist,
+                nullptr, nullptr, out, rem_csr_m(rem_ptr, rem_nbr, m), np,
+                talus, k, make_bands(offs, n_offs)};
+  return launch_cells(thermal_shed_kernel, a, np, (cudaStream_t)stream);
+}
+
+// shed, share: thermal_shed's planes; out [np] the new elevation.
+int thermal_receive(const float* elev, const uint8_t* ocean,
+                    const uint8_t* valid, const uint32_t* bits,
+                    const float* bdist, const int* rem_ptr, const int* rem_nbr,
+                    const float* rdist, int m, const float* shed,
+                    const float* share, float* out, int np, const int* offs,
+                    int n_offs, float talus, void* stream) {
+  if (bad_shape(np, 1, n_offs)) return (int)cudaErrorInvalidValue;
+  ThermalArgs a{elev, ocean, valid, bits, bdist, rem_ptr, rem_nbr, rdist,
+                shed, share, out, rem_csr_m(rem_ptr, rem_nbr, m), np,
+                talus, 0.0f, make_bands(offs, n_offs)};
+  return launch_cells(thermal_receive_kernel, a, np, (cudaStream_t)stream);
+}
+
+// valid and gidx may be null; target, ptr [np] int32; n_total the sink.
+int ice_argmin(const float* elev, const uint8_t* ocean, const uint8_t* valid,
+               const float* glac, const int* gidx, const uint32_t* bits,
+               const int* rem_ptr, const int* rem_nbr, int m, int* target,
+               int* ptr, int np, int n_total, const int* offs, int n_offs,
+               void* stream) {
+  if (bad_shape(np, 1, n_offs) || n_total < 1)
+    return (int)cudaErrorInvalidValue;
+  IceArgs a{elev, ocean, valid, glac, gidx, bits, rem_ptr, rem_nbr, target,
+            ptr, rem_csr_m(rem_ptr, rem_nbr, m), np, n_total,
+            make_bands(offs, n_offs)};
+  return launch_cells(ice_argmin_kernel, a, np, (cudaStream_t)stream);
+}
+
+// p06, p03, p04, p05: torch.pow(flow, 0.6 / 0.3 / 0.4 / 0.5); gidx may be
+// null; out [np] the new elevation.
+int glacial_stencil(const float* elev, const uint8_t* ocean,
+                    const uint8_t* valid, const float* glac, const float* flow,
+                    const int* target, const int* gidx, const float* p06,
+                    const float* p03, const float* p04, const float* p05,
+                    const uint32_t* bits, const float* bdist,
+                    const int* rem_ptr, const int* rem_nbr, const float* rdist,
+                    int m, float* out, int np, const int* offs, int n_offs,
+                    float c_deep, float c_mor, float c_trib, float c_fjord,
+                    float strength, void* stream) {
+  if (bad_shape(np, 1, n_offs)) return (int)cudaErrorInvalidValue;
+  GlacialArgs a{elev, ocean, valid, glac, flow, target, gidx, p06, p03, p04,
+                p05, bits, bdist, rem_ptr, rem_nbr, rdist, out,
+                rem_csr_m(rem_ptr, rem_nbr, m), np, c_deep, c_mor, c_trib,
+                c_fjord, strength, make_bands(offs, n_offs)};
+  return launch_cells(glacial_stencil_kernel, a, np, (cudaStream_t)stream);
 }
 
 // The cached launch plans (the last kPlanSlots), kPlanFields ints each:

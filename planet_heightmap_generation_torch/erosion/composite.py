@@ -87,13 +87,19 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
                                         _f32(glacial_strength, g))
     g_scale = 1.0 / g_iters if g_iters > 0 else 0.0
 
+    # the slider constants, each made once per call: a float32 tensor on
+    # the card is an upload, which waits for the device; the glacial and
+    # thermal steps take Python numbers (kernel arguments on the card)
+    if h_iters > 0:
+        k_coeff_t, m_exp_t, dt_t = (_f32(x, g) for x in (k_coeff, m_exp, dt))
+
     def step(elev, it: int):
         if glac_idx is not None and it < g_iters:
             with span("Post: glacial step"):
                 elev = glacial_step(
                     elev, is_ocean, valid, g.band_off, g.band_mask,
                     band_dist, g.rem_src, g.rem_dst, rem_dist, glac_idx,
-                    _f32(glacial_strength, g), _f32(g_scale, g))
+                    glacial_strength, g_scale)
         if it < h_iters:
             with span("Post: hydraulic receivers"):
                 rcv, dist, is_pit = steepest_receivers(
@@ -104,14 +110,13 @@ def erode_composite(g: DeviceGraph, elev, is_ocean,
             with span("Post: stream power"):
                 elev = spmd.gathered(
                     stream_power_solve, elev, is_ocean, valid, rcv, dist,
-                    is_pit, flow, k_coeff=_f32(k_coeff, g),
-                    m_exp=_f32(m_exp, g), dt=_f32(dt, g))
+                    is_pit, flow, k_coeff=k_coeff_t, m_exp=m_exp_t, dt=dt_t)
         if it < t_iters:
             with span("Post: thermal step"):
                 elev = thermal_step(
                     elev, is_ocean, valid, g.band_off, g.band_mask,
                     band_dist, g.rem_src, g.rem_dst, rem_dist,
-                    _f32(talus_slope, g), _f32(k_thermal, g))
+                    talus_slope, k_thermal)
         return elev
 
     # the mid-loop re-flood at 75% of iterations (js/terrain-post.js:444-462)

@@ -9,6 +9,15 @@ target's adds in source order, the whole loop one launch
 widening and moraine deposition are taken from the receiving cell's side
 over the Fibonacci roll bands, the remainder edges added in edge order
 (ops.banded.rem_add).
+
+:func:`ice_flow` and :func:`glacial_step` have two forms, with the same
+bits: on CPU tensors the band loop (``*_bands``); on CUDA tensors the
+stencil form (``*_stencil``), whose neighbour passes are one launch each
+of ops/sweep_cuda.py ``ice_argmin`` and ``glacial_stencil``, with the ice
+flow's pointer-doubling launch and the four ``pow`` terms between them.
+``strength`` and ``g_scale`` are float32 scalar tensors or Python numbers;
+on the card numbers, which the kernel takes as arguments (a tensor there
+is a host read).
 """
 
 from __future__ import annotations
@@ -17,9 +26,11 @@ import math
 
 import torch
 
+from ..ops import sweep_cuda
 from ..ops.banded import (banded_sum, band_shift, banded_select,
-                          band_off_tensor, pointer_accumulate, rem_add,
-                          rem_gather)
+                          band_off_tensor, f32_mul, host_f32,
+                          pointer_accumulate, rem_add, rem_gather,
+                          stencil_graph)
 from ..parallel import spmd
 
 G_FLOW_THRESHOLD = 0.1
@@ -57,6 +68,32 @@ def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
     strictly lower (banded argmin, ties by band order), and the flow is
     ``glac_idx`` accumulated downstream by ``ICE_FLOW_STEPS`` pointer
     doublings into a virtual sink that is never summed."""
+    if sweep_cuda.on_card(elev):
+        return _ice_flow_stencil(elev, ~land, None, glac_idx, band_off,
+                                 band_mask, rem_src, rem_dst)[:2]
+    return ice_flow_bands(elev, land, glac_idx, band_off, band_mask,
+                          rem_src, rem_dst)
+
+
+def _ice_flow_stencil(elev, ocean, valid, glac_idx, band_off, band_mask,
+                      rem_src, rem_dst):
+    """:func:`ice_flow` over the land ``valid & ~ocean`` (``valid`` None:
+    every cell) with one argmin launch; also returns the window's global
+    indices (None off a split)."""
+    npad = band_mask.shape[0]
+    bits, ptr, nbr, _ = stencil_graph(band_mask, rem_src, rem_dst)
+    gidx = spmd.window_index(npad, elev.device)
+    ice_target, p = sweep_cuda.ice_argmin(
+        spmd.fresh(elev), ocean, valid, glac_idx, gidx, bits, band_off, ptr,
+        nbr, spmd.total(npad))
+    s = pointer_accumulate(glac_idx.to(torch.float32).contiguous(), p,
+                           ICE_FLOW_STEPS, stop_at_sink=False)
+    return ice_target, s, gidx
+
+
+def ice_flow_bands(elev, land, glac_idx, band_off, band_mask, rem_src,
+                   rem_dst):
+    """:func:`ice_flow` as the band loop."""
     n = spmd.total(band_mask.shape[0])
     dev = elev.device
     idx_f = spmd.arange(band_mask.shape[0], torch.float32, dev)
@@ -80,13 +117,51 @@ def ice_flow(elev, land, glac_idx, band_off, band_mask, rem_src, rem_dst):
 def glacial_step(elev, is_ocean, valid, band_off, band_mask, band_dist,
                  rem_src, rem_dst, rem_dist, glac_idx, strength, g_scale):
     """One glacial iteration (the JAX ``glacial_step``). ``strength`` and
-    ``g_scale`` = 1/gIters are float32 scalar tensors."""
+    ``g_scale`` = 1/gIters are float32 values."""
+    form = (glacial_step_stencil if sweep_cuda.on_card(elev)
+            else glacial_step_bands)
+    return form(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                rem_src, rem_dst, rem_dist, glac_idx, strength, g_scale)
+
+
+def glacial_step_stencil(elev, is_ocean, valid, band_off, band_mask,
+                         band_dist, rem_src, rem_dst, rem_dist, glac_idx,
+                         strength, g_scale):
+    """:func:`glacial_step` as two stencil launches around the ice flow
+    (their plain versions on CPU tensors): the argmin, the pointer-doubling
+    flow, torch's four ``pow`` terms of the flow, then one pass for the
+    widening, moraines, tributary count, ocean neighbours, delta, fjord
+    carve and clamp."""
+    elev, is_ocean, valid, glac_idx = (
+        spmd.fresh(x) for x in (elev, is_ocean, valid, glac_idx))
+    ice_target, flow, gidx = _ice_flow_stencil(
+        elev, is_ocean, valid, glac_idx, band_off, band_mask, rem_src,
+        rem_dst)
+    bits, ptr, nbr, rd = stencil_graph(band_mask, rem_src, rem_dst, rem_dist)
+    # the pow terms of the band loop, torch's own (the 0.6 and 0.3 terms
+    # are read at the neighbours)
+    p06, p03 = (spmd.fresh(torch.pow(flow, e)) for e in (0.6, 0.3))
+    p04, p05 = (torch.pow(flow, e) for e in (0.4, 0.5))
+    g = host_f32(g_scale)
+    return sweep_cuda.glacial_stencil(
+        elev, is_ocean, valid, glac_idx, spmd.fresh(flow),
+        spmd.fresh(ice_target), gidx, p06, p03, p04, p05, bits, band_off,
+        band_dist, ptr, nbr, rd, f32_mul(0.02, g), f32_mul(0.005, g),
+        f32_mul(0.01, g), f32_mul(0.015, g), host_f32(strength))
+
+
+def glacial_step_bands(elev, is_ocean, valid, band_off, band_mask,
+                       band_dist, rem_src, rem_dst, rem_dist, glac_idx,
+                       strength, g_scale):
+    """:func:`glacial_step` as the band loop."""
     n = band_mask.shape[0]
     dev = elev.device
+    strength, g_scale = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                         for x in (strength, g_scale))
     land = (~is_ocean) & valid
     src = rem_src
-    ice_target, flow = ice_flow(elev, land, glac_idx, band_off, band_mask,
-                                rem_src, rem_dst)
+    ice_target, flow = ice_flow_bands(elev, land, glac_idx, band_off,
+                                      band_mask, rem_src, rem_dst)
 
     carving = land & (flow > G_FLOW_THRESHOLD)
     deepening = torch.where(

@@ -8,13 +8,24 @@ total excess) runs over the Fibonacci roll bands; the remainder edges add
 in edge order (ops.banded.rem_add), as the jnp scatter-add does.
 ``band_dist`` is the [N,D] banded edge length (ops.banded.band_nbr_dist),
 computed once by the composite loop.
+
+Each pass has two forms, with the same bits: on CPU tensors the band loop
+(``*_bands``: a few torch ops per band); on CUDA tensors one launch of
+its stencil kernel (``*_stencil``: ops/sweep_cuda.py ``thermal_shed`` /
+``thermal_receive``, every band and remainder edge of a cell in one
+thread). ``talus_slope`` and ``k_thermal`` are float32 scalar tensors or
+Python numbers; on the card a number, which the kernel takes as an
+argument (a tensor there is a host read).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.banded import band_shift, rem_add, rem_gather
+from ..ops import sweep_cuda
+from ..ops.banded import (band_shift, host_f32, rem_add, rem_gather,
+                          stencil_graph)
+from ..parallel import spmd
 
 
 def _edge_excess(h_me, h_nb, d, ok, talus_slope):
@@ -25,12 +36,42 @@ def _edge_excess(h_me, h_nb, d, ok, talus_slope):
                        (slope - talus_slope) * dd, 0.0)
 
 
+def _scalar(x, like):
+    """A slider constant as a float32 scalar tensor on ``like``'s device
+    (a tensor passes as it is)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
 def thermal_shed(elev, is_ocean, valid, band_off, band_mask, band_dist,
                  rem_src, rem_dst, rem_dist, talus_slope, k_thermal):
     """Pass 1: each cell's total slope excess over its land neighbours →
     (shed, nb_share), ``nb_share`` the share of the excess it sends across
     each edge, which pass 2 reads at the neighbours. A cells split
     exchanges ``nb_share`` between the passes (parallel/sharding.py)."""
+    form = (thermal_shed_stencil if sweep_cuda.on_card(elev)
+            else thermal_shed_bands)
+    return form(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                rem_src, rem_dst, rem_dist, talus_slope, k_thermal)
+
+
+def thermal_shed_stencil(elev, is_ocean, valid, band_off, band_mask,
+                         band_dist, rem_src, rem_dst, rem_dist, talus_slope,
+                         k_thermal):
+    """:func:`thermal_shed` in one launch of its stencil kernel (its plain
+    version on CPU tensors)."""
+    bits, ptr, nbr, rd = stencil_graph(band_mask, rem_src, rem_dst, rem_dist)
+    return sweep_cuda.thermal_shed(
+        spmd.fresh(elev), spmd.fresh(is_ocean), spmd.fresh(valid), bits,
+        band_off, band_dist, ptr, nbr, rd, host_f32(talus_slope),
+        host_f32(k_thermal))
+
+
+def thermal_shed_bands(elev, is_ocean, valid, band_off, band_mask,
+                       band_dist, rem_src, rem_dst, rem_dist, talus_slope,
+                       k_thermal):
+    """:func:`thermal_shed` as the band loop."""
+    talus_slope = _scalar(talus_slope, elev)
+    k_thermal = _scalar(k_thermal, elev)
     n = band_mask.shape[0]
     land = (~is_ocean) & valid
     total_excess = torch.zeros(n, device=elev.device)
@@ -56,6 +97,29 @@ def thermal_receive(elev, is_ocean, valid, band_off, band_mask, band_dist,
                     rem_src, rem_dst, rem_dist, talus_slope, shed, nb_share):
     """Pass 2: received from each higher neighbour — the neighbour's
     transfer share across this edge — less what the cell sheds."""
+    form = (thermal_receive_stencil if sweep_cuda.on_card(elev)
+            else thermal_receive_bands)
+    return form(elev, is_ocean, valid, band_off, band_mask, band_dist,
+                rem_src, rem_dst, rem_dist, talus_slope, shed, nb_share)
+
+
+def thermal_receive_stencil(elev, is_ocean, valid, band_off, band_mask,
+                            band_dist, rem_src, rem_dst, rem_dist,
+                            talus_slope, shed, nb_share):
+    """:func:`thermal_receive` in one launch of its stencil kernel (its
+    plain version on CPU tensors)."""
+    bits, ptr, nbr, rd = stencil_graph(band_mask, rem_src, rem_dst, rem_dist)
+    return sweep_cuda.thermal_receive(
+        spmd.fresh(elev), spmd.fresh(is_ocean), spmd.fresh(valid), bits,
+        band_off, band_dist, ptr, nbr, rd, host_f32(talus_slope),
+        shed.contiguous(), spmd.fresh(nb_share).contiguous())
+
+
+def thermal_receive_bands(elev, is_ocean, valid, band_off, band_mask,
+                          band_dist, rem_src, rem_dst, rem_dist, talus_slope,
+                          shed, nb_share):
+    """:func:`thermal_receive` as the band loop."""
+    talus_slope = _scalar(talus_slope, elev)
     n = band_mask.shape[0]
     land = (~is_ocean) & valid
     recv = torch.zeros(n, device=elev.device)

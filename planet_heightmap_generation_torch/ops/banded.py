@@ -314,6 +314,59 @@ def banded_select(key_src, payloads, band_off, band_mask, rem_src, rem_dst,
     return best_key, best_pay, best_epay
 
 
+# ── the erosion stencils' graph (ops/sweep_cuda.py section 9) ─────────
+
+# Values derived once from tensors that the erosion loop passes unchanged
+# from step to step, keyed by the tensors' identity; weak references check
+# that a key still names them and drop the entry with them.
+_DERIVED: dict = {}
+
+
+def _derived(tag: str, keys: tuple, build):
+    key = (tag, *(id(t) for t in keys))
+    hit = _DERIVED.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], keys)):
+        return hit[1]
+    value = build()
+
+    def drop(_):
+        _DERIVED.pop(key, None)
+
+    _DERIVED[key] = (tuple(weakref.ref(t, drop) for t in keys), value)
+    return value
+
+
+def stencil_graph(band_mask, rem_src, rem_dst, rem_dist=None):
+    """The graph form of the one-pass stencil kernels: (band bits int32
+    [NP], rem_ptr, rem_nbr, the remainder edge lengths in CSR order, or
+    None without ``rem_dist``), built once per set of tensors (no host
+    sync), so a step of the erosion loop reuses them."""
+    npad = band_mask.shape[0]
+    bits = _derived("bits", (band_mask,),
+                    lambda: pack_band_bits(band_mask))
+    ptr, nbr, order = _derived("csr", (rem_src, rem_dst),
+                               lambda: rem_csr_order(rem_src, rem_dst, npad))
+    dist = None if rem_dist is None else _derived(
+        "dist", (rem_src, rem_dst, rem_dist),
+        lambda: rem_dist[order].to(torch.float32).contiguous())
+    return bits, ptr, nbr, dist
+
+
+def host_f32(x) -> float:
+    """A slider constant as the float32 value a kernel argument takes:
+    ``float(x)`` of a float32 tensor (a host read on the card: pass a
+    float there), a Python number rounded to float32."""
+    if torch.is_tensor(x):
+        return float(x.to(torch.float32))
+    return float(np.float32(x))
+
+
+def f32_mul(a: float, b: float) -> float:
+    """``a * b`` rounded to float32 after each factor is, as torch takes a
+    Python number times a float32 scalar tensor."""
+    return float(np.float32(a) * np.float32(b))
+
+
 # ── distance BFS (kernel 1) ──────────────────────────────────────────
 
 def bfs_hops_multi_banded(seeds, barrier, band_off, band_mask, rem_src,

@@ -27,6 +27,16 @@ its one-round form (the bin sums). One sweep of each relax loop exists
 only as a plain version (``<name>_sweep_plain``), the step of the loops'
 oracles.
 
+Besides the loops, four one-pass stencils of the erosion loop (section
+9, port-only: the JAX steps are jnp band loops), one thread a cell and no
+grid barrier, each walking a cell's set band bits in band order and then
+its remainder row, as the band loops of erosion/thermal.py and
+erosion/glacial.py add: ``thermal_shed`` and ``thermal_receive`` (the
+thermal step's two passes; counter ``thermal``), ``ice_argmin`` (the ice
+flow's lowest neighbour) and ``glacial_stencil`` (the glacial step after
+its ice flow; both counter ``glacial``). :func:`on_card` tells the
+callers which route a tensor takes.
+
 Every sweep wrapper takes the state as [F, NP] float32 planes, the band
 bits as one int32 word per cell (bit d = band d present, the packed form
 of ``band_mask``) and the band offsets as a tuple. A wrapper given CPU
@@ -68,7 +78,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bfs_relax": 0, "stress": 0, "warp": 0, "flood": 0,
-            "smooth": 0, "shadow": 0, "components": 0, "accumulate": 0}
+            "smooth": 0, "shadow": 0, "components": 0, "accumulate": 0,
+            "thermal": 0, "glacial": 0}
 # ε-fill sweeps per barrier round on the staged chunk (BFS always runs 1)
 FLOOD_INNER = 4
 
@@ -114,6 +125,24 @@ _ARGTYPES = {
     # pbuf, cnt, offl, cur, list, vbuf, bsum, ctl, total, stream
     "accumulate": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P, _P, _P],
+    # elev, ocean, valid, bits, bdist, rem_ptr, rem_nbr, rdist, m, out, np,
+    # offs, n_offs, talus, k, stream
+    "thermal_shed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F,
+                     _F, _P],
+    # elev, ocean, valid, bits, bdist, rem_ptr, rem_nbr, rdist, m, shed,
+    # share, out, np, offs, n_offs, talus, stream
+    "thermal_receive": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                        _P, _I, _F, _P],
+    # elev, ocean, valid, glac, gidx, bits, rem_ptr, rem_nbr, m, target, ptr,
+    # np, n_total, offs, n_offs, stream
+    "ice_argmin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I,
+                   _P],
+    # elev, ocean, valid, glac, flow, target, gidx, p06, p03, p04, p05, bits,
+    # bdist, rem_ptr, rem_nbr, rdist, m, out, np, offs, n_offs, c_deep,
+    # c_mor, c_trib, c_fjord, strength, stream
+    "glacial_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _F, _F,
+                        _P],
     # out [max_plans, PLAN_FIELDS] int32, max_plans
     "relax_plans": [_P, _I],
 }
@@ -1049,3 +1078,289 @@ def ordered_sum(n_out: int, idx, vals):
         return vals.new_zeros((0, *vals.shape[1:]))
     return _accumulate(fn, vals, idx.contiguous(), int(n_out), 1, False,
                        False)[0]
+
+
+# ── 9. the erosion loop's one-pass stencils (port-only) ────────────────
+
+def on_card(x) -> bool:
+    """Whether a wrapper given ``x`` launches its kernel (a CUDA tensor)
+    rather than running its plain version (a CPU tensor)."""
+    return not _on_cpu(x)
+
+
+def _land(ocean, valid):
+    """valid & ~ocean (``valid`` None: every cell)."""
+    land = ~ocean.bool()
+    return land if valid is None else land & valid.bool()
+
+
+def _check_stencil(bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist,
+                   planes=(), masks=(), ints=()):
+    """Raise unless a stencil can read its inputs: ``bits`` a contiguous
+    int32 [NP]; ``band_dist`` a contiguous float32 [NP, D] (D the band
+    count), or None; the remainder CSR (:func:`_check_csr`) with
+    ``rem_dist`` (where given) a contiguous float32 [M]; every tensor of
+    ``planes`` a contiguous float32 [NP], of ``masks`` a contiguous bool or
+    uint8 [NP] and of ``ints`` a contiguous int32 [NP], all on the bits'
+    device; None entries are skipped."""
+    dev, npad = bits.device, bits.shape[-1]
+    if (bits.dtype != torch.int32 or bits.dim() != 1
+            or not bits.is_contiguous()):
+        raise ValueError("band bits must be a contiguous int32 [NP] tensor")
+    _check_csr(bits, rem_ptr, rem_nbr)
+    want = ((band_dist, torch.float32, (npad, len(band_off))),
+            (rem_dist, torch.float32, (rem_nbr.shape[0],)),
+            *((t, torch.float32, (npad,)) for t in planes),
+            *((t, (torch.bool, torch.uint8), (npad,)) for t in masks),
+            *((t, torch.int32, (npad,)) for t in ints))
+    for t, dtype, shape in want:
+        if t is None:
+            continue
+        ok = t.dtype in dtype if isinstance(dtype, tuple) else t.dtype == dtype
+        if (not ok or t.device != dev or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"stencil input must be a contiguous {dtype} "
+                             f"{shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _edge_excess_plain(h_me, h_nb, d, ok, talus):
+    """erosion/thermal.py ``_edge_excess`` (csrc edge_excess)."""
+    dd = torch.clamp(d, min=1e-6)
+    slope = (h_me - h_nb) / dd
+    return torch.where(ok & (slope > talus), (slope - talus) * dd, 0.0)
+
+
+def thermal_shed_plain(elev, ocean, valid, bits, band_off, band_dist,
+                       rem_ptr, rem_nbr, rem_dist, talus: float, k: float):
+    """:func:`thermal_shed` in plain torch, as the kernel walks it: the
+    set band bits in band order, then the remainder rows."""
+    land = _land(ocean, valid)
+    total = torch.zeros_like(elev)
+    for d, off in enumerate(band_off):
+        ex = _edge_excess_plain(elev, _shift(elev, off), band_dist[:, d],
+                                land & _shift(land, off), talus)
+        total = torch.where(_bit(bits, d), total + ex, total)
+    for has, e, j in _rem_slots(rem_ptr, rem_nbr):
+        ex = _edge_excess_plain(elev, elev[j], rem_dist[e], land & land[j],
+                                talus)
+        total = torch.where(has, total + ex, total)
+    transfer = k * total * 0.5
+    shed = torch.where(total > 0, transfer, 0.0)
+    share = torch.where(total > 0,
+                        transfer / torch.clamp(total, min=1e-20), 0.0)
+    return shed, share
+
+
+def thermal_shed(elev, ocean, valid, bits, band_off, band_dist, rem_ptr,
+                 rem_nbr, rem_dist, talus: float, k: float):
+    """Pass 1 of the thermal step in one launch: per cell the total slope
+    excess above ``talus`` over its land neighbours (land: ``valid`` and
+    not ``ocean``, bool or uint8 [NP]), the bands' edges (``band_dist``
+    [NP, D]) in band order, then the remainder rows (``rem_dist`` [M], the
+    edge lengths in CSR order) in edge order; the cell sheds ``k · total ·
+    0.5`` and each edge carries that over the total. ``talus`` and ``k``
+    are float32 values. Returns (shed, share), float32 [NP] each."""
+    if _on_cpu(elev):
+        return thermal_shed_plain(elev, ocean, valid, bits, band_off,
+                                  band_dist, rem_ptr, rem_nbr, rem_dist,
+                                  talus, k)
+    fn = _kernel("thermal_shed")
+    _check_stencil(bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist,
+                   planes=(elev,), masks=(ocean, valid))
+    npad = bits.shape[0]
+    out = torch.empty((2, npad), dtype=torch.float32, device=elev.device)
+    if npad:
+        offs, nd = _offs(band_off)
+        _launch(fn, "thermal", elev.device, _ptr(elev), _ptr(ocean),
+                _ptr(valid), _ptr(bits), _ptr(band_dist), _ptr(rem_ptr),
+                _ptr(rem_nbr), _ptr(rem_dist), rem_nbr.shape[0], _ptr(out),
+                npad, offs, nd, float(talus), float(k))
+    return out[0], out[1]
+
+
+def thermal_receive_plain(elev, ocean, valid, bits, band_off, band_dist,
+                          rem_ptr, rem_nbr, rem_dist, talus: float, shed,
+                          share):
+    """:func:`thermal_receive` in plain torch, as the kernel walks it."""
+    land = _land(ocean, valid)
+    recv = torch.zeros_like(elev)
+    for d, off in enumerate(band_off):
+        ex = _edge_excess_plain(_shift(elev, off), elev, band_dist[:, d],
+                                land & _shift(land, off), talus)
+        recv = torch.where(_bit(bits, d), recv + ex * _shift(share, off),
+                           recv)
+    for has, e, j in _rem_slots(rem_ptr, rem_nbr):
+        ex = _edge_excess_plain(elev[j], elev, rem_dist[e], land & land[j],
+                                talus)
+        recv = torch.where(has, recv + ex * share[j], recv)
+    return elev + torch.where(land, recv - shed, 0.0)
+
+
+def thermal_receive(elev, ocean, valid, bits, band_off, band_dist, rem_ptr,
+                    rem_nbr, rem_dist, talus: float, shed, share):
+    """Pass 2 of the thermal step in one launch: per land cell, the excess
+    across each edge from a higher land neighbour times that neighbour's
+    ``share`` (read at the neighbours), summed as :func:`thermal_shed`
+    sums, less the cell's ``shed``. Returns the new elevation, float32
+    [NP]."""
+    if _on_cpu(elev):
+        return thermal_receive_plain(elev, ocean, valid, bits, band_off,
+                                     band_dist, rem_ptr, rem_nbr, rem_dist,
+                                     talus, shed, share)
+    fn = _kernel("thermal_receive")
+    _check_stencil(bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist,
+                   planes=(elev, shed, share), masks=(ocean, valid))
+    npad = bits.shape[0]
+    out = torch.empty(npad, dtype=torch.float32, device=elev.device)
+    if npad:
+        offs, nd = _offs(band_off)
+        _launch(fn, "thermal", elev.device, _ptr(elev), _ptr(ocean),
+                _ptr(valid), _ptr(bits), _ptr(band_dist), _ptr(rem_ptr),
+                _ptr(rem_nbr), _ptr(rem_dist), rem_nbr.shape[0], _ptr(shed),
+                _ptr(share), _ptr(out), npad, offs, nd, float(talus))
+    return out
+
+
+def ice_argmin_plain(elev, ocean, valid, glac, gidx, bits, band_off, rem_ptr,
+                     rem_nbr, n_total: int):
+    """:func:`ice_argmin` in plain torch, as the kernel walks it."""
+    npad = elev.shape[0]
+    gi = (torch.arange(npad, dtype=torch.int32, device=elev.device)
+          if gidx is None else gidx)
+    best = torch.full_like(elev, INF)
+    tgt = torch.zeros(npad, dtype=torch.int32, device=elev.device)
+    for d, off in enumerate(band_off):
+        v = torch.where(_bit(bits, d), _shift(elev, off), INF)
+        u = v < best
+        best = torch.where(u, v, best)
+        tgt = torch.where(u, gi + int(off), tgt)
+    w = torch.full_like(elev, INF)
+    wt = torch.full_like(tgt, -1)
+    for has, _, j in _rem_slots(rem_ptr, rem_nbr):
+        v, g = elev[j], gi[j]
+        lt = has & (v < w)
+        eq = has & (v == w) & (g > wt)
+        w = torch.where(lt, v, w)
+        wt = torch.where(lt | eq, g, wt)
+    u = w < best
+    best = torch.where(u, w, best)
+    tgt = torch.where(u, wt, tgt)
+    has = (_land(ocean, valid) & (glac > 0) & (elev - best > 0)
+           & torch.isfinite(best))
+    target = torch.where(has, tgt, -1).to(torch.int32)
+    ptr = torch.where(has, torch.clamp(tgt, 0, n_total - 1),
+                      n_total).to(torch.int32)
+    return target, ptr
+
+
+def ice_argmin(elev, ocean, valid, glac, gidx, bits, band_off, rem_ptr,
+               rem_nbr, n_total: int):
+    """The ice flow's lowest-neighbour pick in one launch: per cell the
+    neighbour of least ``elev``, the first best in band order, then the
+    remainder row's least on strict improvement (its ties to the largest
+    target index); a glaciated (``glac`` > 0) land cell drains there when
+    it is strictly lower. ``gidx`` int32 [NP] is each cell's global index
+    on a split window (None: the cell's own). Returns (target int32 [NP],
+    the global index or -1; pointer int32 [NP], the target clamped into
+    [0, ``n_total``) or ``n_total``, the sink)."""
+    if _on_cpu(elev):
+        return ice_argmin_plain(elev, ocean, valid, glac, gidx, bits,
+                                band_off, rem_ptr, rem_nbr, n_total)
+    fn = _kernel("ice_argmin")
+    _check_stencil(bits, band_off, None, rem_ptr, rem_nbr, None,
+                   planes=(elev, glac), masks=(ocean, valid), ints=(gidx,))
+    npad = bits.shape[0]
+    out = torch.empty((2, npad), dtype=torch.int32, device=elev.device)
+    if npad:
+        offs, nd = _offs(band_off)
+        _launch(fn, "glacial", elev.device, _ptr(elev), _ptr(ocean),
+                _ptr(valid), _ptr(glac), _ptr(gidx), _ptr(bits),
+                _ptr(rem_ptr), _ptr(rem_nbr), rem_nbr.shape[0], _ptr(out[0]),
+                _ptr(out[1]), npad, int(n_total), offs, nd)
+    return out[0], out[1]
+
+
+def glacial_stencil_plain(elev, ocean, valid, glac, flow, target, gidx, p06,
+                          p03, p04, p05, bits, band_off, band_dist, rem_ptr,
+                          rem_nbr, rem_dist, c_deep: float, c_mor: float,
+                          c_trib: float, c_fjord: float, strength: float):
+    """:func:`glacial_stencil` in plain torch, as the kernel walks it."""
+    npad = elev.shape[0]
+    gi = (torch.arange(npad, dtype=torch.int32, device=elev.device)
+          if gidx is None else gidx)
+    land = _land(ocean, valid)
+    ocean_b = ocean.bool()
+    flow_ok = flow > 0.1
+    carving = land & flow_ok
+    deep = torch.where(carving, c_deep * p06 * strength, 0.0)
+    mor = c_mor * p03
+    nup = torch.zeros(npad, dtype=torch.int32, device=elev.device)
+    widen = torch.zeros_like(elev)
+    deposit = torch.zeros_like(elev)
+    ocean_nb = torch.zeros_like(land)
+
+    def visit(has, nb, dist):
+        nonlocal nup, widen, deposit, ocean_nb
+        pam = has & (nb(target) == gi)
+        nup = nup + pam.to(torch.int32)
+        slope = torch.abs(elev - nb(elev)) / torch.clamp(dist, min=1e-6)
+        w = torch.where(nb(carving) & land & nb(land),
+                        nb(deep) * 0.4 * torch.clamp(1 - slope, min=0.0), 0.0)
+        widen = torch.where(has, widen + w, widen)
+        dep_ok = pam & land & nb(flow_ok) & (glac < nb(glac) * 0.3)
+        deposit = torch.where(has, deposit + torch.where(dep_ok, nb(mor), 0.0),
+                              deposit)
+        ocean_nb = ocean_nb | (has & nb(ocean_b))
+
+    for d, off in enumerate(band_off):
+        visit(_bit(bits, d), lambda x, off=off: _shift(x, off),
+              band_dist[:, d])
+    for has, e, j in _rem_slots(rem_ptr, rem_nbr):
+        visit(has, lambda x, j=j: x[j], rem_dist[e])
+    delta = -deep
+    delta = delta - widen
+    delta = delta - torch.where(carving & (nup >= 2), c_trib * p04, 0.0)
+    delta = delta + deposit
+    new = elev + torch.where(land, delta, 0.0)
+    fjord = land & ocean_nb & (glac > 0.2) & (flow > 0.5)
+    new = torch.where(fjord, torch.clamp(new - c_fjord * p05, min=0.0), new)
+    return torch.where(land, torch.clamp(new, min=0.0), new)
+
+
+def glacial_stencil(elev, ocean, valid, glac, flow, target, gidx, p06, p03,
+                    p04, p05, bits, band_off, band_dist, rem_ptr, rem_nbr,
+                    rem_dist, c_deep: float, c_mor: float, c_trib: float,
+                    c_fjord: float, strength: float):
+    """The glacial step after its ice flow, in one launch: per cell, over
+    its neighbours j (the set band bits in band order, then the remainder
+    row), the tributaries that point at it (``target[j]`` equal to its
+    global index ``gidx``, None: its own), the valley widening from
+    carving neighbours, the moraine deposit at termini and whether an
+    ocean cell borders it; then the delta, the fjord carve and the land
+    clamp of erosion/glacial.py ``glacial_step``. ``p06``, ``p03``,
+    ``p04`` and ``p05`` are ``torch.pow(flow, e)`` for e = 0.6, 0.3, 0.4,
+    0.5; ``c_deep``, ``c_mor``, ``c_trib`` and ``c_fjord`` the float32
+    products of 0.02, 0.005, 0.01 and 0.015 with g_scale. Returns the new
+    elevation, float32 [NP]."""
+    if _on_cpu(elev):
+        return glacial_stencil_plain(
+            elev, ocean, valid, glac, flow, target, gidx, p06, p03, p04, p05,
+            bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist, c_deep,
+            c_mor, c_trib, c_fjord, strength)
+    fn = _kernel("glacial_stencil")
+    _check_stencil(bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist,
+                   planes=(elev, glac, flow, p06, p03, p04, p05),
+                   masks=(ocean, valid), ints=(target, gidx))
+    npad = bits.shape[0]
+    out = torch.empty(npad, dtype=torch.float32, device=elev.device)
+    if npad:
+        offs, nd = _offs(band_off)
+        _launch(fn, "glacial", elev.device, _ptr(elev), _ptr(ocean),
+                _ptr(valid), _ptr(glac), _ptr(flow), _ptr(target),
+                _ptr(gidx), _ptr(p06), _ptr(p03), _ptr(p04), _ptr(p05),
+                _ptr(bits), _ptr(band_dist), _ptr(rem_ptr), _ptr(rem_nbr),
+                _ptr(rem_dist), rem_nbr.shape[0], _ptr(out), npad, offs, nd,
+                float(c_deep), float(c_mor), float(c_trib), float(c_fjord),
+                float(strength))
+    return out

@@ -248,8 +248,7 @@ def terrain_step(elev, pos, band_mask, rem_src, rem_dst, valid, perm, pm12,
 
     # thermal talus transport + ridge-preserving bilateral smooth
     e = thermal_step(e, is_ocean, valid, band_off, band_mask, band_dist,
-                     rem_src, rem_dst, rem_dist, _f32(0.8, dev),
-                     _f32(0.15, dev))
+                     rem_src, rem_dst, rem_dist, 0.8, 0.15)
     e = smooth_elevation(e, is_ocean, valid, band_off, band_mask, rem_src,
                          rem_dst, 1, _f32(0.3, dev))
     return (e - 0.01 * _mean_land(e, valid)).to(torch.float32)
@@ -330,9 +329,9 @@ def _split_step(rg: _RowGraph, elev_w, tables):
     # thermal: pass 1, an exchange of the edge shares, pass 2
     dev = [e.device for e in e_w]
     args = [(e_w[c], ocean_w[c], rg.valid[c], off, rg.band_mask[c],
-             rg.band_dist[c], *rg.edges[c], rg.rem_dist[c],
-             _f32(0.8, dev[c])) for c in range(n_sh)]
-    shed = [thermal_shed(*a, _f32(0.15, dev[c])) for c, a in enumerate(args)]
+             rg.band_dist[c], *rg.edges[c], rg.rem_dist[c], 0.8)
+            for c in range(n_sh)]
+    shed = [thermal_shed(*a, 0.15) for a in args]
     share = [s for _, s in shed]
     lay.exchange(share)
     e_w = [thermal_receive(*a, s, share[c])

@@ -32,7 +32,8 @@ split is written out at the primitive layer instead of in the stages:
 
 - :func:`arange`, :func:`total` and :func:`global_index` give the global
   cell indices, the global cell count and the global index of a window
-  position, where the stages index by cell.
+  position, where the stages index by cell (:func:`window_index`: the
+  indices for a kernel, None off a split).
 
 Without a split (the single-device path) every one of these returns at
 once: ``fresh(x)`` is ``x``, ``launch(name, f, *a)`` is ``f(*a)``,
@@ -316,6 +317,15 @@ def arange(n: int, dtype=torch.int64, device=None):
         raise ValueError(f"split arange: {n} rows, the window has "
                          f"{idx.shape[0]}")
     return idx.to(dtype=dtype, device=device)
+
+
+def window_index(n: int, device=None):
+    """On a split, the global cell index (int32) of each position of the
+    window (``n`` its length), as :func:`arange` gives it; None off a
+    split, where each position is its own index."""
+    if getattr(_TLS, "shard", None) is None:
+        return None
+    return arange(n, torch.int32, device)
 
 
 def total(n: int) -> int:

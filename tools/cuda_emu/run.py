@@ -16,7 +16,11 @@ launch on a 2000-cell mesh (every cell, a subset, a sparse subset), and
 every staged launch at chip_smoke.py's synthetic shapes past 204K, whose
 chunks the window cap binds (``plan_checks``), and the eight loops split
 over three windows of a 2000-cell mesh (parallel/loops.py) against their
-unsplit plain loops (``split_checks``). It
+unsplit plain loops (``split_checks``), and the erosion loop's stencils
+(``stencil_checks``: ``thermal_shed``, ``thermal_receive``, ``ice_argmin``
+and ``glacial_stencil`` against their plain versions, and the thermal and
+glacial steps through them against the band loops, unsplit and split
+over three windows of the 2000-cell mesh). It
 checks indexing, barriers, shuffles and loop control before a run on the
 card; it says nothing about speed. Exits 1 on any difference.
 """
@@ -50,6 +54,8 @@ def build(out_dir: str) -> str:
                  lambda m: f"auto& {m.group(2)} = emu_shared<{m.group(1)}"
                            f"{m.group(3) or ''}>(__LINE__);", src)
     src = src.replace("cudaLaunchCooperativeKernel((const void*)kern,",
+                      "emu_launch(kern,")
+    src = src.replace("cudaLaunchKernel(\n      (const void*)kern,",
                       "emu_launch(kern,")
     assert "__shared__" not in src
     cpp = os.path.join(out_dir, "sweeps_emu.cpp")
@@ -87,9 +93,10 @@ def check(label, fn, *args) -> bool:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    counted = len(got) > 1 and got[1].numel() == 1
     print(f"{label}: {'bit-identical' if ok else 'DIFFERS'}"
           + (f", {int(got[1])} / {int(want[1])} rounds or steps"
-             if len(got) > 1 else ""), flush=True)
+             if counted else ""), flush=True)
     return ok
 
 
@@ -219,11 +226,68 @@ def split_checks() -> bool:
     return ok
 
 
+def stencil_checks() -> bool:
+    """The erosion stencils on the 2000-cell mesh of
+    tests/test_torch_erosion_stencil.py: each launch against its plain
+    version, then the thermal and glacial steps through the launches
+    against the band loops, unsplit and split over three windows (the
+    cases of that test, with the emulated kernels in the wrappers)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_erosion_stencil as t
+    from planet_heightmap_generation_torch.erosion import glacial, thermal
+
+    g, band_dist, rem_dist = t.sphere()
+    bits, ptr, nbr, rd = banded.stencil_graph(g.band_mask, g.rem_src,
+                                              g.rem_dst, rem_dist)
+    graph = (bits, g.band_off, band_dist, ptr, nbr, rd)
+    elev = t.polar_terrain(6)
+    ocean = (elev <= 0) & g.valid
+    ok = True
+    for talus, k in ((0.8, 0.15), (1.16, 0.015)):
+        shed = plain(sc.thermal_shed, elev, ocean, g.valid, *graph, talus, k)
+        ok &= check(f"thermal_shed, talus {talus}", sc.thermal_shed, elev,
+                    ocean, g.valid, *graph, talus, k)
+        ok &= check(f"thermal_receive, talus {talus}", sc.thermal_receive,
+                    elev, ocean, g.valid, *graph, talus, *shed)
+    args, s, g_scale = t.glacial_inputs(elev, 1.0)
+    glac = args[-1]
+    gidx = torch.arange(g.n_padded, dtype=torch.int32) * 3 % g.n_padded
+    for label, gi in (("own index", None), ("permuted index", gidx)):
+        ok &= check(f"ice_argmin, {label}", sc.ice_argmin, elev, ocean,
+                    g.valid, glac, gi, bits, g.band_off, ptr, nbr,
+                    g.n_padded)
+    target, p = plain(sc.ice_argmin, elev, ocean, g.valid, glac, None, bits,
+                      g.band_off, ptr, nbr, g.n_padded)
+    flow = plain(sc.accumulate_relax, glac, p, 22, False)[0]
+    pows = [torch.pow(flow, e) for e in (0.6, 0.3, 0.4, 0.5)]
+    ok &= check("glacial_stencil", sc.glacial_stencil, elev, ocean, g.valid,
+                glac, flow, target, None, *pows, *graph, 0.002, 0.0005,
+                0.001, 0.0015, 1.0)
+    # the steps through the launches against the band loops
+    targs = t.thermal_args(elev)
+    ok &= check("thermal_step through the launches against the band loop",
+                thermal.thermal_step, *targs, 1.0, 0.075)
+    for strength in (0.2, 1.0):
+        a, s, g_scale = t.glacial_inputs(elev, strength)
+        ok &= check(f"glacial_step {strength} through the launches against "
+                    "the band loop", glacial.glacial_step, *a, s, g_scale)
+    for step in ("thermal", "glacial"):
+        try:
+            t.check_split(step)
+            print(f"split {step} step over 3 windows: bit-identical",
+                  flush=True)
+        except AssertionError as e:
+            print(f"split {step} step over 3 windows: DIFFERS {e}",
+                  flush=True)
+            ok = False
+    return ok
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         use_library(build(d))
         ok = (accumulate_checks() & components_checks() & plan_checks()
-              & split_checks())
+              & split_checks() & stencil_checks())
     print("all bit-identical" if ok else "DIFFERENCES FOUND")
     return 0 if ok else 1
 
