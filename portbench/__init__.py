@@ -6,6 +6,7 @@ belongs to one configuration, traffic mix, per-layer metric, kernel list
 is a file of its own, found by its name: ``configs/``, ``traffic/``,
 ``metrics/``, ``kernels/``; ``limits.json`` holds the limits of the
 numbers compared. ``harness/`` is the general runner, ``reference/`` the
-plain reference (the JAX package's stage definitions on NumPy) that
-decides ``correct``.
+plain reference (the JAX package's stage definitions, on NumPy on the
+host or, where the configuration's ``"reference"`` says so, on plain
+PyTorch on the card) that decides ``correct``.
 """

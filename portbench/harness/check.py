@@ -10,8 +10,12 @@ elevation after post-processing from the program's elevation before it,
 and the climate from the program's final elevation. The planet is
 chaotic (a tie broken the other way upstream moves whole basins
 downstream), so only a stage run on the same input can be held to its
-answer cell by cell. The stages run at once, each in a process of its
-own. Each number is the worst over the answers compared:
+answer cell by cell. The configuration's ``"reference"`` key chooses
+where the reference runs (``REFERENCES``): on NumPy, the default, the
+stages run at once, each in a host process of its own; on PyTorch they
+run in turn in one process of their own (on the card: its own CUDA
+context, started after the program's state is freed), on one
+``ReferenceEngine``. Each number is the worst over the answers compared:
 
 - ``mesh_rows_off``: the real cells whose set of neighbours differs;
 - ``plate_off_pct``: the share of cells on another plate;
@@ -26,6 +30,8 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import sys
+import time
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
@@ -37,6 +43,12 @@ TEMP = ("r_temperature_summer", "r_temperature_winter")
 # the numbers compared, in the order they are printed
 NUMBERS = ("mesh_rows_off", "plate_off_pct", "pre_post_p90", "elev_p90",
            "climate_p90", "koppen_off_pct")
+
+# the values of a configuration's "reference" key: the array library the
+# reference runs on and its device ("torch-cpu" stands in for the card in
+# the CPU tests)
+REFERENCES = {"numpy": ("numpy", None), "torch-cuda": ("torch", "cuda"),
+              "torch-cpu": ("torch", "cpu")}
 
 # each stage of the check and the products of the answer it reads
 STAGES = {"plates": ("nbr_idx", "r_plate"),
@@ -114,19 +126,50 @@ def _rows_off(prog_nbr, graph) -> int:
     return int((prog != ref).any(1).sum())
 
 
+def reference_of(cfg: dict) -> str:
+    """The reference a configuration file names (NumPy where it names
+    none)."""
+    name = cfg.get("reference", "numpy")
+    if name not in REFERENCES:
+        raise ValueError(f"no reference {name!r}; one of {list(REFERENCES)}")
+    return name
+
+
 def stage(params: dict, sliders, name: str, prog: dict) -> dict:
     """One stage of the check of one answer, in a process of its own:
     the reference of ``params`` recomputes stage ``name`` from the
     answer's products ``prog`` (those of ``STAGES[name]`` and
     ``n_cells``) and returns its numbers."""
-    with np.errstate(all="ignore"):      # JAX's arithmetic does not warn
-        return _stage(params, sliders, name, prog)
-
-
-def _stage(params: dict, sliders, name: str, prog: dict) -> dict:
     from portbench.reference import GenerationParams, ReferenceEngine
 
-    ref = ReferenceEngine(GenerationParams(**params))
+    with np.errstate(all="ignore"):      # JAX's arithmetic does not warn
+        return _stage(ReferenceEngine(GenerationParams(**params)), sliders,
+                      name, prog)
+
+
+def stages(params: dict, sliders, prog: dict) -> dict:
+    """Every stage of the check of one answer in turn, in this process,
+    on one ``ReferenceEngine`` of ``params``: the numbers of all. The
+    seconds of the engine's set-up and of each stage go to standard
+    error."""
+    from portbench.reference import GenerationParams, ReferenceEngine
+
+    out, secs = {}, []
+    with np.errstate(all="ignore"):
+        t = time.perf_counter()
+        ref = ReferenceEngine(GenerationParams(**params))
+        secs.append(("set-up", time.perf_counter() - t))
+        for name in STAGES:
+            t = time.perf_counter()
+            out.update(_stage(ref, sliders, name, prog))
+            secs.append((name, time.perf_counter() - t))
+    print("reference stages, s: " + ", ".join(f"{n} {s:.3f}" for n, s in
+                                              secs), file=sys.stderr,
+          flush=True)
+    return out
+
+
+def _stage(ref, sliders, name: str, prog: dict) -> dict:
     n = prog["n_cells"]
     if name == "plates":
         return dict(mesh_rows_off=_rows_off(prog["nbr_idx"], ref.graph),
@@ -148,28 +191,46 @@ def _stage(params: dict, sliders, name: str, prog: dict) -> dict:
                                         clim["koppen"], n))
 
 
-def pool(n_tasks: int) -> ProcessPoolExecutor:
-    """Processes for ``n_tasks`` NumPy tasks, started afresh (``spawn``:
-    they hold no copy of the caller's CUDA state), after the reference's
-    native libraries are built here once."""
+def _use(lib: str, device) -> None:
+    """A worker's start: its reference runs on ``lib`` on ``device``."""
+    from portbench.reference import backend
+
+    backend.use(lib, device)
+
+
+def pool(n_tasks: int, reference: str = "numpy") -> ProcessPoolExecutor:
+    """Processes for the reference's tasks, started afresh (``spawn``:
+    they hold no copy of the caller's CUDA state), after its native
+    libraries are built here once: for NumPy one a task, up to the
+    cores; for PyTorch one, which runs them in turn."""
     from portbench.reference import native
 
     native.build()
-    workers = max(1, min(n_tasks, os.cpu_count() or 1))
-    return ProcessPoolExecutor(workers,
-                               mp_context=multiprocessing.get_context("spawn"))
+    lib, device = REFERENCES[reference]
+    ctx = multiprocessing.get_context("spawn")
+    if lib == "numpy":
+        return ProcessPoolExecutor(max(1, min(n_tasks, os.cpu_count() or 1)),
+                                   mp_context=ctx)
+    return ProcessPoolExecutor(1, mp_context=ctx, initializer=_use,
+                               initargs=(lib, device))
 
 
-def submit(ex, entry: str, base_params: dict, key: dict, prog: dict):
-    """The futures of every stage of the check of one answer: ``key`` is
-    the fields a ``generate`` command set, or the sliders a ``reapply``
-    answer was made with."""
+def submit(ex, entry: str, base_params: dict, key: dict, prog: dict,
+           reference: str = "numpy"):
+    """The futures of the check of one answer in ``pool(...,
+    reference)``: ``key`` is the fields a ``generate`` command set, or the
+    sliders a ``reapply`` answer was made with."""
     if entry == "generate":
         params, sliders = dict(base_params, **key), None
     elif entry == "reapply":
         params, sliders = base_params, key
     else:
         raise ValueError(f"no reference for the entry {entry!r}")
+    if REFERENCES[reference][0] != "numpy":
+        reads = {k for r in STAGES.values() for k in r}
+        return [ex.submit(stages, params, sliders,
+                          dict({k: prog[k] for k in reads},
+                               n_cells=prog["n_cells"]))]
     return [ex.submit(stage, params, sliders, name,
                       dict({k: prog[k] for k in reads},
                            n_cells=prog["n_cells"]))
@@ -195,26 +256,46 @@ def judge(nums: dict, limits: dict) -> bool:
                for k in NUMBERS)
 
 
-def check(entry: str, base_params: dict, samples) -> dict:
+def check(entry: str, base_params: dict, samples,
+          reference: str = "numpy") -> dict:
     """The worst numbers of the sampled answers, ``samples`` a list of
     (key, products) pairs (:func:`submit`)."""
-    with pool(len(samples) * len(STAGES)) as ex:
-        futures = [submit(ex, entry, base_params, key, prog)
+    with pool(len(samples) * len(STAGES), reference) as ex:
+        futures = [submit(ex, entry, base_params, key, prog, reference)
                    for key, prog in samples]
         return worst([numbers(f) for f in futures])
 
 
-def control_answers(entry: str, base_params: dict, keys) -> list:
+def control_answers(entry: str, base_params: dict, keys,
+                    reference: str = "numpy") -> list:
     """The control in the program's place: the reference with its stage
     products stored in bfloat16 (``ReferenceEngine(lowp=True)``), as
     (key, products) pairs for :func:`check`."""
+    return reference_answers(entry, base_params, keys, reference, lowp=True)
+
+
+def reference_answers(entry: str, base_params: dict, keys,
+                      reference: str = "numpy", lowp: bool = False) -> list:
+    """The reference's own answers to ``keys`` (the control's with
+    ``lowp``), as (key, products) pairs: on NumPy in this process, on
+    PyTorch in a process of its own."""
+    if REFERENCES[reference][0] == "numpy":
+        return answers_here(entry, base_params, keys, lowp)
+    with pool(1, reference) as ex:
+        return ex.submit(answers_here, entry, base_params, keys,
+                         lowp).result()
+
+
+def answers_here(entry: str, base_params: dict, keys,
+                 lowp: bool = False) -> list:
+    """:func:`reference_answers` on this process's reference."""
     from portbench.reference import GenerationParams, ReferenceEngine
 
     with np.errstate(all="ignore"):
         if entry == "generate":
             return [(key, reference_products(ReferenceEngine(
                 GenerationParams(**dict(base_params, **key)),
-                lowp=True).generate())) for key in keys]
-        eng = ReferenceEngine(GenerationParams(**base_params), lowp=True)
+                lowp=lowp).generate())) for key in keys]
+        eng = ReferenceEngine(GenerationParams(**base_params), lowp=lowp)
         eng.generate()
         return [(key, reference_products(eng.reapply(key))) for key in keys]

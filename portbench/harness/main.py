@@ -168,9 +168,10 @@ def device_info(device) -> dict:
                 memory_peak_bytes=int(torch.cuda.max_memory_allocated(device)))
 
 
-def judge(client, samples, base: dict, device):
-    """(numbers, limits): the sampled answers against the reference, run
-    on the host after the program's state is freed."""
+def judge(client, samples, base: dict, device, reference: str = "numpy"):
+    """(numbers, limits): the sampled answers against the configuration's
+    reference, run after the program's state is freed and the card's
+    cache emptied."""
     import torch
 
     limits = spec.limits()
@@ -182,7 +183,7 @@ def judge(client, samples, base: dict, device):
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return check.check(client.entry, base, prog), limits
+    return check.check(client.entry, base, prog, reference), limits
 
 
 def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
@@ -195,6 +196,7 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
     cfg = cfg if cfg is not None else spec.config(bench, wl["config"])
     mix = spec.traffic(wl["traffic"])
     base = base_params(cfg)
+    reference = check.reference_of(cfg)
     client = Client(mix, base, device, engine)
 
     # set-up: the set-up generate of a reapply mix and the warm-up
@@ -257,7 +259,7 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
                 value=v if math.isfinite(v) else None, unit=units[name])
         result["device"] = device_info(device)
     t_ref = time.perf_counter()
-    numbers, limits = judge(client, sample.items, base, device)
+    numbers, limits = judge(client, sample.items, base, device, reference)
     print(f"setup {setup_s:.3f} s; reference check "
           f"{time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
     result["correct"] = result["failed"] == 0 and check.judge(numbers,

@@ -10,9 +10,11 @@ BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
 BENCHMARK = ROOT / "BENCHMARK.json"
 
-# the configuration keys that describe the file, not the planet
+# the configuration keys that describe the file, not the planet; the
+# "reference" one names where the check's reference runs
+# (``check.REFERENCES``; NumPy where absent)
 META_KEYS = ("source", "reduced", "assumed", "deployment", "precision",
-             "guarantees")
+             "guarantees", "reference")
 
 
 def load_benchmark(path: Path = BENCHMARK) -> dict:

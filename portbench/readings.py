@@ -7,8 +7,9 @@ the cell's own configuration and traffic.
     python3 portbench/readings.py --workload <cell> --seeds 1 2 3 [--control 3]
 
 The program runs on the card in this process; the control and the checks
-run in processes of their own on the host. Prints one JSON line per seed
-and side."""
+run on the configuration's reference (``check.REFERENCES``), in processes
+of their own: on NumPy on the host, on PyTorch in one process on the
+card. Prints one JSON line per seed and side."""
 
 import argparse
 import json
@@ -45,7 +46,7 @@ def program_answer(workload_name: str, seed: int, device, cfg=None,
 
 def main_(argv=None) -> int:
     import torch
-    from portbench.harness import check
+    from portbench.harness import check, spec
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -57,22 +58,25 @@ def main_(argv=None) -> int:
         print("readings: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    bench = spec.load_benchmark()
+    reference = check.reference_of(spec.config(
+        bench, spec.workload(bench, args.workload)["config"]))
     n_ctl = min(args.control, len(args.seeds))
     t0 = time.perf_counter()
-    with check.pool(len(args.seeds) * len(check.STAGES)) as ex:
+    with check.pool(len(args.seeds) * len(check.STAGES), reference) as ex:
         ctl = {}
         jobs = []
         for i, seed in enumerate(args.seeds):
             entry, base, key, prog = program_answer(args.workload, seed, dev)
-            jobs.append((seed, "program",
-                         check.submit(ex, entry, base, key, prog)))
+            jobs.append((seed, "program", check.submit(
+                ex, entry, base, key, prog, reference)))
             if i < n_ctl:
                 ctl[seed] = (entry, base, key, ex.submit(
-                    check.control_answers, entry, base, [key]))
+                    check.answers_here, entry, base, [key], True))
         for seed, (entry, base, key, fut) in ctl.items():
             (_, prog), = fut.result()
-            jobs.append((seed, "control",
-                         check.submit(ex, entry, base, key, prog)))
+            jobs.append((seed, "control", check.submit(
+                ex, entry, base, key, prog, reference)))
         for seed, side, futures in jobs:
             print(json.dumps(dict(workload=args.workload, seed=seed,
                                   side=side, numbers=check.numbers(futures),

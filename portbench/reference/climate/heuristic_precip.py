@@ -10,8 +10,8 @@ from __future__ import annotations
 import math
 from functools import partial
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.banded import banded_sum, smooth_field_banded
 from .util import smoothstep, elev_to_height_km, itcz_lookup

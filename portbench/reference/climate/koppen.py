@@ -11,8 +11,8 @@ reference table (js/koppen.js:19-51) exactly.
 from __future__ import annotations
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 KOPPEN_CODES = [
     "Ocean", "Af", "Am", "Aw", "BWh", "BWk", "BSh", "BSk",

@@ -14,8 +14,8 @@ import math
 from functools import partial
 from typing import Dict
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..mesh.device import DeviceGraph
 from ..ops.banded import (bfs_hops_multi_banded, smooth_masked_banded,

@@ -20,8 +20,8 @@ from functools import partial
 from typing import Dict
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..mesh.device import DeviceGraph
 from ..ops.banded import (banded_sum, banded_count, band_shift,

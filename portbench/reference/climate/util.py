@@ -6,8 +6,8 @@ from __future__ import annotations
 from functools import partial
 from typing import NamedTuple
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 
 def smoothstep(e0, e1, x):

@@ -21,8 +21,8 @@ from functools import partial
 from typing import Dict
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..mesh.device import DeviceGraph
 from ..ops.noise import Tables, fbm

@@ -14,8 +14,8 @@ from __future__ import annotations
 from functools import partial
 from typing import NamedTuple
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..mesh.device import DeviceGraph
 from ..ops.noise import Tables, fbm

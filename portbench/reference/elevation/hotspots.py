@@ -14,8 +14,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.rng import ParkMiller
 from ..ops.noise import Tables, fbm, ridged_fbm

@@ -19,8 +19,8 @@ import math
 from typing import Optional
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..mesh.device import DeviceGraph
 from ..ops.noise import tables

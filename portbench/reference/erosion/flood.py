@@ -32,8 +32,8 @@ from __future__ import annotations
 from functools import partial
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.graph import hash01
 from ..ops.banded import banded_min, banded_sum, banded_count, band_shift

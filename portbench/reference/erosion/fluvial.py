@@ -25,8 +25,8 @@ import math
 from functools import partial
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 
 def _log_rounds(n: int) -> int:

@@ -14,8 +14,8 @@ from __future__ import annotations
 from functools import partial
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.banded import banded_sum, band_shift, banded_select, _rem_real
 

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 from functools import partial
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.banded import (banded_sum, banded_count, band_shift, _rem_real)
 

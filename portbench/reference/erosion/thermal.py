@@ -14,8 +14,8 @@ from __future__ import annotations
 
 from functools import partial
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.banded import band_shift, _rem_real
 

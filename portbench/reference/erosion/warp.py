@@ -17,8 +17,8 @@ from __future__ import annotations
 
 from functools import partial
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from ..ops.noise import Tables, fbm
 from ..ops.banded import band_shift, _rem_real

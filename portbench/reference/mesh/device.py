@@ -6,8 +6,8 @@ import dataclasses
 from functools import partial
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from .build import SphereGraph
 

@@ -14,8 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 from scipy.spatial import cKDTree
 
 

@@ -29,8 +29,8 @@ from __future__ import annotations
 
 from functools import partial
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 
 def _expand(mask, field):

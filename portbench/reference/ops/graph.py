@@ -22,8 +22,8 @@ payload per index is the optimization that remains.
 
 from __future__ import annotations
 
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 from functools import partial
 
 

@@ -17,8 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 
 from .rng import ParkMiller
 

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from .config import GenerationParams, AUTO_CLIMATE_THRESHOLD
-from .npjax import bfloat16, jax, jnp
+from .backend import bfloat16, jax, jnp
 from .mesh.build import build_sphere
 from .mesh.device import to_device
 from .ops.rng import ParkMiller

@@ -17,8 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-from ..npjax import jax
-from ..npjax import jnp
+from ..backend import jax
+from ..backend import jnp
 from functools import partial
 
 from ..config import N_COARSE, COARSE_JITTER

@@ -47,8 +47,23 @@ def test_reference_sources_import_nothing_of_the_program():
 
 
 def test_reference_loads_nothing_of_the_program():
-    tops = _loaded_after("import portbench.reference")
+    tops = _loaded_after("from portbench.reference import ReferenceEngine")
     assert PORT not in tops
+    assert not set(tops) & set(FORBIDDEN)
+
+
+def test_torch_reference_run_loads_nothing_of_the_program():
+    """``torchjax`` and a whole reference run on it."""
+    tops = _loaded_after(
+        "from portbench.reference import backend, torchjax\n"
+        "backend.use('torch', 'cpu')\n"
+        "import numpy as np\n"
+        "from portbench.reference import GenerationParams, ReferenceEngine\n"
+        "with np.errstate(all='ignore'):\n"
+        "    ReferenceEngine(GenerationParams(seed=3, n_cells=2000, "
+        "n_plates=10, num_continents=2)).generate()\n"
+        "assert backend.chosen() == ('torch', 'cpu')")
+    assert "torch" in tops and PORT not in tops
     assert not set(tops) & set(FORBIDDEN)
 
 

@@ -19,6 +19,8 @@ ROOT = Path(__file__).resolve().parents[2]
 SEED = 2 ** 31 + 4242
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
 CELLS = ("default-204k.new-planet", "default-204k.sculpt")
+# the reference's two backends (PyTorch on the CPU for the card)
+REFS = ("numpy", "torch-cpu")
 
 
 def _run(wl, cfg, engine=None, trace=False):
@@ -90,31 +92,40 @@ def _altered(eng, kind):
     return eng
 
 
+def _cfg(tiny_cfg, wl, ref):
+    return dict(tiny_cfg(wl), reference=ref)
+
+
+@pytest.mark.parametrize("ref", REFS)
 @pytest.mark.parametrize("wl,kind", [("default-204k.new-planet", "generate"),
                                      ("default-204k.sculpt", "reapply")])
 def test_a_step_that_returns_its_state_unchanged_is_not_correct(
-        wl, kind, tiny_cfg):
-    res = _run(wl, tiny_cfg(wl), engine=_Unchanged(kind).wrap(_engine()))
+        wl, kind, ref, tiny_cfg):
+    res = _run(wl, _cfg(tiny_cfg, wl, ref),
+               engine=_Unchanged(kind).wrap(_engine()))
     assert res["correct"] is False
 
 
+@pytest.mark.parametrize("ref", REFS)
 @pytest.mark.parametrize("wl,kind", [("default-204k.new-planet", "generate"),
                                      ("default-204k.sculpt", "reapply")])
-def test_an_answer_altered_where_produced_is_not_correct(wl, kind,
+def test_an_answer_altered_where_produced_is_not_correct(wl, kind, ref,
                                                          tiny_cfg):
-    res = _run(wl, tiny_cfg(wl), engine=_altered(_engine(), kind))
+    res = _run(wl, _cfg(tiny_cfg, wl, ref),
+               engine=_altered(_engine(), kind))
     assert res["correct"] is False
 
 
+@pytest.mark.parametrize("ref", REFS)
 @pytest.mark.parametrize("wl", CELLS)
-def test_the_lower_precision_control_is_not_correct(wl, tiny_cfg):
+def test_the_lower_precision_control_is_not_correct(wl, ref, tiny_cfg):
     from portbench.readings import program_answer
 
     entry, base, key, prog = program_answer(wl, SEED, "cpu", tiny_cfg(wl))
     lim = spec.limits()
-    assert check.judge(check.check(entry, base, [(key, prog)]), lim)
-    ctl = check.control_answers(entry, base, [key])
-    assert not check.judge(check.check(entry, base, ctl), lim)
+    assert check.judge(check.check(entry, base, [(key, prog)], ref), lim)
+    ctl = check.control_answers(entry, base, [key], ref)
+    assert not check.judge(check.check(entry, base, ctl, ref), lim)
 
 
 def test_a_failed_command_makes_the_run_not_correct(tiny_cfg):
@@ -156,15 +167,18 @@ def test_a_checkout_of_the_benchmark_alone_fails(tmp_path):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("wl", CELLS)
+@pytest.mark.parametrize("wl", CELLS + ("detail-1m.new-planet",))
 def test_the_control_fails_on_the_card(wl, cuda_device):
     """The program passes and the control fails at the cell's own size on
-    three seeds (many minutes)."""
+    three seeds, both on the cell's reference (many minutes)."""
     from portbench.readings import program_answer
 
+    bench = spec.load_benchmark()
+    ref = check.reference_of(spec.config(bench,
+                                         spec.workload(bench, wl)["config"]))
     lim = spec.limits()
     for seed in (SEED, SEED + 1, SEED + 2):
         entry, base, key, prog = program_answer(wl, seed, cuda_device)
-        assert check.judge(check.check(entry, base, [(key, prog)]), lim)
-        ctl = check.control_answers(entry, base, [key])
-        assert not check.judge(check.check(entry, base, ctl), lim)
+        assert check.judge(check.check(entry, base, [(key, prog)], ref), lim)
+        ctl = check.control_answers(entry, base, [key], ref)
+        assert not check.judge(check.check(entry, base, ctl, ref), lim)
