@@ -753,6 +753,32 @@ PLAN_WINDOWS = {"bfs_relax": 1, "flood": 1, "stress": 2, "warp": 3,
                 "shadow": 1, "components": 1}
 
 
+def capped_check(label, hw, kernel, npad, groups, windows, counted):
+    """Fail unless a call's capped-launch count (``counted``, its stage
+    timer's) is the number of its launches, one per entry of ``windows``,
+    whose plan the library cached as capped."""
+    from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+
+    plans = {p["windows"]: p["capped"] for p in sc.relax_plans()
+             if p["kernel"] == kernel and p["np"] == npad and p["H"] == hw
+             and p["groups"] == groups}
+    want = sum(plans[nw] for nw in windows)
+    if counted != want:
+        raise AssertionError(
+            f"plan [{label}, H {hw}]: {counted} capped launches counted, "
+            f"{want} of the call's {len(windows)} planned capped")
+
+
+def capped_by_span(res) -> dict:
+    """The capped relax launches of a command by depth-0 span (those
+    counting none left out), from its ``timing`` spans."""
+    out = {}
+    for s in res.timing.stages:
+        if s.depth == 0 and s.capped:
+            out[s[0]] = out.get(s[0], 0) + s.capped
+    return out
+
+
 def window_fits(nw: int, half_width: int) -> bool:
     """Whether csrc get_plan finds a chunk T >= 1 for ``nw`` windows of
     half-width ``half_width`` (kMaxWindowFloats / nw - 2H - 11 >= 1)."""
@@ -772,9 +798,12 @@ def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
     (:func:`window_fits`) must raise instead, and only then. Smoothing
     launches its fields in the groups of ``sweep_cuda.smooth_groups``, so
     only a one-field group can be refused. Each launch's plan is read back
-    from the library, and on the card the launch is timed. Returns one
-    record per launch."""
+    from the library, the capped launches its call counted are held to
+    those plans (:func:`capped_check`), and on the card the launch is
+    timed. Returns one record per launch."""
     from planet_heightmap_generation_torch.ops import sweep_cuda as sc
+    from planet_heightmap_generation_torch.pipeline import timing
+    from planet_heightmap_generation_torch.pipeline.timing import StageTimer
 
     plain = plain or (lambda fn, *a: fn(*a))
     records = []
@@ -792,8 +821,10 @@ def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
                                                     "stress") else 1
             ref = plain(fn, *args)
             on_dev = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+            timer = StageTimer(sync_enabled=False)
             try:
-                got = fn(*on_dev)
+                with timing.current(timer):
+                    got = fn(*on_dev)
             except RuntimeError as e:
                 if window_fits(nw, hw) or "launch failed" not in str(e):
                     raise
@@ -825,6 +856,9 @@ def plan_checks(dev, band_off, sizes, seed: int = SEED, reps: int = 3,
                     and p["H"] == hw and p["windows"] == nw
                     and p["groups"] == groups]
             rec.update(plan[-1])
+            capped_check(label, hw, kernel, npad, groups,
+                         [b - a for a, b in split] if split else [nw],
+                         timer.capped)
             unit = "rounds" if kernel == "flood" else "sweeps"
             text = (f"T {rec['T']} (before the cap {rec['T_free']}), {nw} "
                     f"windows, grid {rec['grid']}, {rec['smem_bytes']} B "
@@ -1785,6 +1819,12 @@ def size_checks(dev):
         assert not missing, f"{label}: kernels not launched: {missing}"
         print(kernel_counts(launches, swept), flush=True)
         plans = plan_lines(npad)
+        capped = sum(s.capped for s in res.timing.stages if s.depth == 0)
+        by_span = capped_by_span(res)
+        print(f"  capped launches {capped} (the command's {res.timing.capped}"
+              f"), by span {by_span}", flush=True)
+        if n >= 2_000_000:
+            assert capped > 0, f"{label}: no capped launch"
         staged = {p["kernel"] for p in plans}
         assert staged >= {"bfs_relax", "stress", "warp", "flood",
                           "components"} | ({"smooth", "shadow"} if climate
@@ -1796,6 +1836,7 @@ def size_checks(dev):
         out[label] = dict(
             n_cells=n, np=npad, cold_s=cold_s, warm_s=warm_s,
             peak_bytes=peak, launches=launches, sweeps=swept,
+            capped=capped, capped_by_span=by_span,
             stages=stages, timing_mode_s=timed_s, plans=plans,
             busy_ms=None if prof is None else prof["busy_ms"],
             events=None if prof is None else prof["n_events"],

@@ -1323,6 +1323,10 @@ int get_plan(const void* kern, const Geo& g, Plan* out) {
   return 0;
 }
 
+// The launches of capped plans (T < t_free) this host thread made since
+// it last asked; take_capped_launches() reads and clears it.
+thread_local int g_capped_launches = 0;
+
 // The whole relax loop in one cooperative launch. A refused launch
 // returns its error; it never runs.
 template <class A>
@@ -1340,6 +1344,7 @@ int launch_relax(void (*kern)(A), A a, cudaStream_t stream) {
     cudaGetLastError();
     return e;
   }
+  if (p.T < p.t_free) ++g_capped_launches;
   return (int)cudaGetLastError();
 }
 
@@ -2483,6 +2488,14 @@ int relax_plans(int* out, int max_plans) {
                                   p.T,  p.t_free, p.grid, (int)p.smem};
     std::copy(row, row + kPlanFields, out + kPlanFields * k);
   }
+  return n;
+}
+
+// The capped launches (launch_relax) the calling thread made since its
+// last call, for the port's stage spans: a host counter, no sync.
+int take_capped_launches() {
+  const int n = g_capped_launches;
+  g_capped_launches = 0;
   return n;
 }
 

@@ -49,7 +49,12 @@ The shared library is compiled with ``nvcc`` from ``csrc/sweeps.cu`` into
 is newer than the library. ``LAUNCHES`` counts launches per kernel, and
 :func:`sweeps_run` the sweeps (ε-fill: rounds; rain shadow: hops;
 components: steps; accumulate: rounds) that the launches other than
-smoothing ran; the plain versions never count.
+smoothing ran; the plain versions never count. A staged launch whose
+chunk T the shared-memory window cap cut below its free size (a capped
+plan, csrc ``get_plan``) counts one capped launch on the calling thread's
+current stage timer (pipeline/timing.py ``count_capped``): the library
+counts them per host thread and ``_launch`` takes its count after each
+launch, on the host, with no sync.
 
 Remainder edges (~0.5 % of edges off the bands) come as CSR rows of the
 receiving cell in edge order (``rem_ptr`` int32 [NP+1], ``rem_nbr`` int32
@@ -145,6 +150,8 @@ _ARGTYPES = {
                         _P],
     # out [max_plans, PLAN_FIELDS] int32, max_plans
     "relax_plans": [_P, _I],
+    # (none): the calling thread's capped launches since it last asked
+    "take_capped_launches": [],
 }
 
 
@@ -356,12 +363,17 @@ def _ptr(t):
 
 def _launch(fn, counter: str, device, *args):
     """Launch ``fn`` on ``device`` (the card its tensors live on, also when
-    another card is current) and its current stream."""
+    another card is current) and its current stream; a launch the
+    library planned capped counts on the current stage timer."""
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
     LAUNCHES[counter] += 1
+    if _kernel("take_capped_launches")():
+        from ..pipeline import timing
+
+        timing.count_capped()
 
 
 def _bit(bits, d: int):

@@ -7,7 +7,9 @@ Each command records one span tree: its stages at depth 0 and the
 sub-stage spans the stage code opens inside them (:func:`span`), each
 with its host start and end on ``time.perf_counter()`` and the
 convergence reads made inside it (:func:`count_read`, called by
-``parallel/spmd.py`` ``flag_any``). The stage code finds the command's
+``parallel/spmd.py`` ``flag_any``) and the staged relax launches whose
+chunk the shared-memory window cap cut (:func:`count_capped`, called by
+``ops/sweep_cuda.py``'s launch path). The stage code finds the command's
 timer through the calling thread's current timer (:func:`current`),
 which the engine sets for the length of each command."""
 
@@ -26,19 +28,21 @@ _CURRENT = threading.local()
 class Span(tuple):
     """One recorded span: unpacks as ``(name, ms)``. ``depth`` (0 for a
     command's stages), ``start`` and ``end`` (host seconds on
-    ``time.perf_counter()``) and ``reads`` (the convergence reads made
-    inside it, its children's included) are attributes."""
+    ``time.perf_counter()``), ``reads`` (the convergence reads made
+    inside it) and ``capped`` (the capped relax launches made inside it),
+    each counting its children's, are attributes."""
 
     def __new__(cls, name: str, ms: float, depth: int, start: float,
-                end: float, reads: int):
+                end: float, reads: int, capped: int = 0):
         self = super().__new__(cls, (name, ms))
         self.depth, self.start, self.end, self.reads = depth, start, end, \
             reads
+        self.capped = capped
         return self
 
     def __reduce__(self):
         return (Span, (self[0], self[1], self.depth, self.start, self.end,
-                       self.reads))
+                       self.reads, self.capped))
 
 
 class StageTimer:
@@ -48,7 +52,8 @@ class StageTimer:
     (engine ``timing=True`` / ``PLANET_TIMING=1``) to get true per-stage
     device timings at the cost of a host round trip between stages.
     ``syncs`` counts the per-stage synchronizes made, ``reads`` the
-    convergence reads of the command; ``stop()`` (at the end of a
+    convergence reads of the command and ``capped`` its capped relax
+    launches; ``stop()`` (at the end of a
     command) freezes ``total_ms``. ``stages`` holds the :class:`Span` of
     every stage and sub-stage, in the order they ended."""
 
@@ -57,13 +62,14 @@ class StageTimer:
         self.sync_enabled = sync_enabled
         self.syncs = 0
         self.reads = 0
+        self.capped = 0
         self._depth = 0
         self._t0 = time.perf_counter()
         self._t1 = None
 
     @contextmanager
     def stage(self, name: str, sync=None):
-        depth, reads = self._depth, self.reads
+        depth, reads, capped = self._depth, self.reads, self.capped
         self._depth = depth + 1
         t0 = time.perf_counter()
         try:
@@ -76,7 +82,8 @@ class StageTimer:
             self._depth = depth
             t1 = time.perf_counter()
             self.stages.append(Span(name, (t1 - t0) * 1000.0, depth, t0, t1,
-                                    self.reads - reads))
+                                    self.reads - reads,
+                                    self.capped - capped))
 
     def stop(self) -> None:
         if self._t1 is None:
@@ -144,3 +151,12 @@ def count_read() -> None:
     timer = getattr(_CURRENT, "timer", None)
     if timer is not None:
         timer.reads += 1
+
+
+def count_capped() -> None:
+    """Count one capped relax launch (a staged kernel whose chunk T the
+    shared-memory window cap cut below its free size) on the calling
+    thread's current timer, if there is one."""
+    timer = getattr(_CURRENT, "timer", None)
+    if timer is not None:
+        timer.capped += 1

@@ -14,7 +14,8 @@ star row past the ranking limit, a fixed-round ice flow with -0.0 values)
 and its one-round form (few targets, long rows), and the components
 launch on a 2000-cell mesh (every cell, a subset, a sparse subset), and
 every staged launch at chip_smoke.py's synthetic shapes past 204K, whose
-chunks the window cap binds (``plan_checks``), and the eight loops split
+chunks the window cap binds, with the capped launches each call counted
+against the library's plans (``plan_checks``), and the eight loops split
 over three windows of a 2000-cell mesh (parallel/loops.py) against their
 unsplit plain loops (``split_checks``), and the erosion loop's stencils
 (``stencil_checks``: ``thermal_shed``, ``thermal_receive``, ``ice_argmin``
