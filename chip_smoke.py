@@ -103,9 +103,11 @@ Phases (any failure exits non-zero with its traceback):
    terrain-only by the 300K rule), each cold, then warm (launches and
    sweeps of every kernel, peak device memory, and one line per staged
    launch with its plan, read back from the library), then warm in timing
-   mode (stage table), then warm under the profiler (device busy time,
-   events); each passes the gates of the default generate, and at 1M the
-   climate's;
+   mode (stage table, the mesh's sub-spans and ``build_stats``), then warm
+   under the profiler (device busy time, events); each passes the gates
+   of the default generate, and at 1M the climate's; at 2.56M the chunked
+   host mesh equals a serial build of the same seed in every array (the
+   triangles as sets, each rotated to its smallest vertex);
 8. the product surfaces on the default planet of phase 3: every
    ``available_layers`` colour on the card equal to the same call on CPU
    copies (atol 1e-6); ``nearest_region`` and ``cell_info`` at 8 points,
@@ -165,6 +167,7 @@ code 1 before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -1656,6 +1659,7 @@ def stage_table(dev, params, label: str, ref=None):
     bit. Returns (stages, wall s)."""
     res, wall = run_generate(dev, params, timing=True)
     print(res.timing.table())
+    print(f"mesh build: {res.graph.build_stats}", flush=True)
     print(f"generate {label} warm with timing=True (a device sync after "
           f"each of its {res.timing.syncs} synced stages): {wall:.3f} s",
           flush=True)
@@ -1781,6 +1785,72 @@ def plan_lines(npad: int):
     return plans
 
 
+MESH_SPANS = ("Mesh: points", "Mesh: Delaunay", "Mesh: adjacency",
+              "Mesh: band census + pack", "Mesh: upload")
+
+
+def mesh_checks(label: str, stages, graph, params, dev) -> dict:
+    """Print the mesh's sub-spans of a timing-mode generate and its
+    ``build_stats``; past 2M cells also build the same seed's mesh
+    serially (the serial sweep-hull, then the same adjacency and band
+    packing) and hold every array of the chunked build to it (the
+    triangles as sets, each rotated to its smallest vertex), and the
+    triangle elevations on the card to the same values in the serial
+    triangles' rotation. Returns the sub-spans' ms, the stats and the
+    serial build's wall."""
+    from planet_heightmap_generation_torch.mesh import build
+    from planet_heightmap_generation_torch.native import get_mesh_build
+    from planet_heightmap_generation_torch.ops.rng import ParkMiller
+    from planet_heightmap_generation_torch.pipeline.engine import (
+        triangle_elevations)
+
+    spans = {name: ms for name, ms in stages if name in MESH_SPANS}
+    print(f"  mesh sub-spans ({label}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items())
+          + f"; build_stats {graph.build_stats}", flush=True)
+    out = dict(spans=spans, build_stats=graph.build_stats, serial_s=None)
+    if graph.n_cells < 2_000_000:
+        return out
+    assert graph.build_stats["chunks"] > 0, graph.build_stats
+    assert graph.build_stats["fallbacks"] == 0, graph.build_stats
+    t0 = time.perf_counter()
+    native = get_mesh_build()
+    n = params.n_cells
+    _, flat, pos_all = build.mesh_points(n, params.jitter,
+                                         ParkMiller(params.seed))
+    tris = build.serial_triangles(native, flat, n)
+    adj = build.mesh_adjacency(native, tris, pos_all, graph.n_padded,
+                               build.mesh_threads(n))
+    packed = build.build_banded_packed(adj[0], adj[1])
+    out["serial_s"] = time.perf_counter() - t0
+    assert np.array_equal(graph.pos[:n + 1], pos_all.astype(np.float32))
+    for f, x in zip(("nbr_idx", "nbr_mask", "nbr_dist", "deg"), adj):
+        assert np.array_equal(getattr(graph, f), x), f
+
+    def canonical(t):
+        r = np.argmin(t, axis=1)
+        c = np.take_along_axis(t, (r[:, None] + np.arange(3)) % 3, axis=1)
+        return c, np.lexsort((c[:, 2], c[:, 1], c[:, 0]))
+
+    (cg, og), (cs, os_) = canonical(graph.triangles), canonical(tris)
+    assert np.array_equal(cg[og], cs[os_]), "triangles"
+    pa = graph.banded_packed
+    assert pa[0] == packed[0], (pa[0], packed[0])
+    for i, (x, y) in enumerate(zip(pa[1:], packed[1:])):
+        assert np.array_equal(x, y), f"banded_packed[{i + 1}]"
+    g = torch.Generator(device=dev).manual_seed(int(params.seed))
+    elev = torch.randn(graph.n_padded, device=dev, generator=g) * 4000
+    serial = dataclasses.replace(graph, triangles=tris, _t_pos=None)
+    te_g = triangle_elevations(elev, graph).cpu().numpy()
+    te_s = triangle_elevations(elev, serial).cpu().numpy()
+    assert np.array_equal(te_g[og], te_s[os_]), "triangle elevations"
+    print(f"  {label}: the chunked mesh equals a serial build of seed "
+          f"{params.seed} in every array and in its triangle elevations "
+          f"on the card (serial build + census {out['serial_s']:.2f} s)",
+          flush=True)
+    return out
+
+
 def size_checks(dev):
     """The 1M-with-climate and 2.56M terrain-only generates, each cold
     then warm (counted, timed, its plans read back), then warm in timing
@@ -1830,13 +1900,14 @@ def size_checks(dev):
                           "components"} | ({"smooth", "shadow"} if climate
                                            else set()), staged
         stages, timed_s = stage_table(dev, params, label, ref=res)
+        mesh = mesh_checks(label, stages, res.graph, params, dev)
         del res
         prof = profile_generate(dev, params)
         report_profile(prof, warm_s)
         out[label] = dict(
             n_cells=n, np=npad, cold_s=cold_s, warm_s=warm_s,
             peak_bytes=peak, launches=launches, sweeps=swept,
-            capped=capped, capped_by_span=by_span,
+            capped=capped, capped_by_span=by_span, mesh=mesh,
             stages=stages, timing_mode_s=timed_s, plans=plans,
             busy_ms=None if prof is None else prof["busy_ms"],
             events=None if prof is None else prof["n_events"],

@@ -232,6 +232,7 @@ def main(argv=None):
         result = engine.generate(
             params, on_progress=lambda pct, label: print(f"[{pct:3.0f}%] {label}"))
         print(result.timing.table())
+        print("mesh build:", result.graph.build_stats)
         print("diagnostics:", result.diagnostics())
         _save_result(result, args.out)
         if args.session:

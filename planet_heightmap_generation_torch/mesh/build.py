@@ -13,21 +13,26 @@ vectorized masked gather instead of a pointer chase. Cell count is padded to
 a multiple of 1024 so fields tile cleanly onto the VPU (8×128 lanes) and
 shard evenly across a device mesh.
 
-Mesh construction is seed-dependent but cheap relative to the field pipeline
-(native C++ sweep-hull Delaunay + adjacency, ~2.5 s at 1M cells; scipy
-fallback when no compiler), so it stays on host and ships static arrays to
-device.
+Mesh construction is seed-dependent and stays on host, shipping static
+arrays to device: native C++ sweep-hull Delaunay + adjacency (scipy fallback
+when no compiler), on all the host's cores from ``CHUNKED_MIN_POINTS``
+points (csrc/mesh_chunked.cpp; on the 8-core host of an H100 machine
+~0.6 s at 999K and ~1.6 s at 2.56M points, band census and packing
+included, against ~2.5 and ~6.9 s on one core).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Optional
 
 import numpy as np
 from scipy.spatial import Delaunay
 
 from ..ops.rng import ParkMiller
+from ..pipeline.timing import span
 
 _PAD_MULTIPLE = 1024
 
@@ -125,6 +130,9 @@ class SphereGraph:
     valid: np.ndarray            # [NP] bool
     triangles: np.ndarray        # [T, 3] i32 — for rendering / export parity
     pole_id: int                 # index of the stitched pole cell (= N)
+    # how build_sphere built it: chunks (0: the serial build), threads,
+    # margin re-runs, serial fallbacks; None for a mesh from elsewhere
+    build_stats: Optional[dict] = None
     _t_pos: Optional[np.ndarray] = None
     _banded: Optional[tuple] = None
     _banded_packed: Optional[tuple] = ()   # () = not yet computed
@@ -136,11 +144,14 @@ class SphereGraph:
     @property
     def t_pos(self) -> np.ndarray:
         """[T,3] f32 triangle centers (Voronoi vertices) — computed lazily;
-        only renderer/export consumers need it (~2 s at 1M cells)."""
+        only renderer/export consumers need it (~2 s at 1M cells). The
+        vertices are summed in ascending index order, so a center does not
+        depend on which vertex a triangle's row starts at."""
         if self._t_pos is None:
             object.__setattr__(
                 self, "_t_pos",
-                self.pos[self.triangles].mean(axis=1).astype(np.float32))
+                self.pos[np.sort(self.triangles, axis=1)].mean(axis=1)
+                .astype(np.float32))
         return self._t_pos
 
     @property
@@ -231,101 +242,108 @@ def _native_delaunay(fn, flat: np.ndarray):
     return tris[:t].copy(), hull[: hl.value].copy()
 
 
+def _pole_closure(hull_cycle: np.ndarray, pole_id: int) -> np.ndarray:
+    """Pole triangles from the hull CYCLE: consecutive pairs are hull edges,
+    stitched in the REVERSE direction of how they appear in the hull
+    triangles so every directed edge keeps exactly one twin (a watertight
+    halfedge surface for the renderer bridge)."""
+    return np.stack(
+        [np.roll(hull_cycle, -1), hull_cycle,
+         np.full(len(hull_cycle), pole_id, dtype=np.int32)], axis=1)
+
+
+# The chunked build (csrc/mesh_chunked.cpp) engages from this many spiral
+# points: the default 204K planet takes it, the 20K coarse mesh and the
+# test meshes keep the serial build (and with it the JAX package's
+# triangle order).
+CHUNKED_MIN_POINTS = 100_000
+
+
+def chunk_count(n: int) -> int:
+    """The chunked Delaunay's chunk count for ``n`` spiral points, 0 (the
+    serial build) below :data:`CHUNKED_MIN_POINTS`: a function of the
+    point count alone, never of the host, so every host builds the same
+    chunks. A chunk's margin grows as sqrt(n) (a few spiral rings), so
+    chunks of ~48 sqrt(n) points keep the margins at about a quarter of
+    the work (9 chunks at 204K, 21 at 999K, 33 at 2.56M)."""
+    if n < CHUNKED_MIN_POINTS:
+        return 0
+    return max(2, round(math.sqrt(n) / 48))
+
+
+def mesh_threads(n: int) -> int:
+    """Threads for the native passes over a mesh of ``n`` cells: the cores
+    this process may run on from :data:`CHUNKED_MIN_POINTS`, one below it
+    (where starting the threads costs about as much as the work). The
+    thread count never changes a result."""
+    return len(os.sched_getaffinity(0)) if n >= CHUNKED_MIN_POINTS else 1
+
+
+def mesh_points(n: int, jitter: float, rng: ParkMiller):
+    """The spiral's unit vectors [n, 3], their stereographic doubles
+    [n, 2], and the vectors with the stitched pole appended [n + 1, 3]."""
+    xyz = generate_fibonacci_sphere(n, jitter, rng)
+    return (xyz, _stereographic(xyz),
+            np.concatenate([xyz, [[0.0, 0.0, 1.0]]], axis=0))
+
+
 def build_sphere(
     n: int,
     jitter: float,
     rng: Optional[ParkMiller] = None,
     seed: float = 0.0,
     pad_multiple: int = _PAD_MULTIPLE,
+    *,
+    threads: Optional[int] = None,
 ) -> SphereGraph:
     """Fibonacci sphere → Delaunay → pole closure → padded neighbor arrays.
 
     Mirrors reference buildSphere (js/sphere-mesh.js:174-186): N spiral
     points plus one stitched pole cell at index N, so n_cells = N+1.
+
+    From :data:`CHUNKED_MIN_POINTS` points the Delaunay runs in
+    :func:`chunk_count` latitude chunks: every array but ``triangles``
+    equals the serial build's bit for bit, and ``triangles`` holds the
+    same triangles with the same winding, each rotated to its smallest
+    vertex, sorted. The native passes run on ``threads`` threads
+    (default: :func:`mesh_threads`). ``build_stats`` counts the chunks,
+    threads, margin re-runs and serial fallbacks.
     """
     if rng is None:
         rng = ParkMiller(seed)
-    xyz = generate_fibonacci_sphere(n, jitter, rng)
-    flat = _stereographic(xyz)
+    with span("Mesh: points"):
+        xyz, flat, pos_all = mesh_points(n, jitter, rng)
 
     from ..native import get_mesh_build
     native = get_mesh_build()
-
+    threads = max(1, mesh_threads(n) if threads is None else threads)
+    chunks = chunk_count(n) if native is not None else 0
+    stats = dict(chunks=chunks, threads=threads if native else 1,
+                 reruns=0, fallbacks=0)
     pole_id = n
-    if native is not None:
-        simplices, hull_cycle = _native_delaunay(native[0], flat)
-        # Pole closure from the hull CYCLE: consecutive pairs are hull
-        # edges, stitched in the REVERSE direction of how they appear in
-        # the hull triangles so every directed edge keeps exactly one twin
-        # (a watertight halfedge surface for the renderer bridge).
-        pole_tris = np.stack(
-            [np.roll(hull_cycle, -1), hull_cycle,
-             np.full(len(hull_cycle), pole_id, dtype=np.int32)], axis=1)
-    else:
-        tri = Delaunay(flat)
-        simplices = tri.simplices.astype(np.int32)  # [T0, 3]
-        # Pole closure: connect every hull edge to the pole point (index n).
-        # (The hull of the stereographic projection surrounds the north pole.)
-        hull = tri.convex_hull.astype(np.int32)  # [H, 2]
-        pole_tris = np.concatenate(
-            [hull, np.full((len(hull), 1), pole_id, dtype=np.int32)], axis=1)
-    triangles = np.concatenate([simplices, pole_tris], axis=0)
-
     n_total = n + 1
-    pos_all = np.concatenate([xyz, [[0.0, 0.0, 1.0]]], axis=0)
-    k_max = K_FIXED
     n_padded = -(-n_total // pad_multiple) * pad_multiple
 
-    nbr_idx = np.tile(
-        np.arange(n_padded, dtype=np.int32)[:, None], (1, k_max)
-    )  # self-index default (safe gather)
-    nbr_mask = np.zeros((n_padded, k_max), dtype=bool)
-    nbr_dist = np.zeros((n_padded, k_max), dtype=np.float32)
-    deg_pad = np.zeros(n_padded, dtype=np.int32)
-
-    if native is not None:
-        mask_u8 = np.zeros((n_padded, k_max), dtype=np.uint8)
-        rc = native[1](
-            np.ascontiguousarray(triangles), len(triangles),
-            np.ascontiguousarray(pos_all), n_total,
-            k_max, n_padded, nbr_idx, mask_u8, nbr_dist, deg_pad)
-        assert rc == 0
-        nbr_mask = mask_u8.astype(bool)
-    else:
-        src, dst = _ordered_adjacency(n_total, triangles, pos_all)
-        deg = np.bincount(src, minlength=n_total).astype(np.int32)
-        # truncate over-degree vertices (pole fan / rare jitter artifacts) to
-        # their K_FIXED nearest neighbors so shapes stay seed-independent
-        if int(deg.max()) > k_max:
-            edge_d = np.linalg.norm(pos_all[src] - pos_all[dst], axis=1)
-            over = np.flatnonzero(deg > k_max)
-            keep = np.ones(len(src), dtype=bool)
-            offsets0 = np.zeros(n_total + 1, dtype=np.int64)
-            np.cumsum(deg, out=offsets0[1:])
-            for v in over:
-                lo, hi = offsets0[v], offsets0[v + 1]
-                order = np.argsort(edge_d[lo:hi], kind="stable")
-                keep[lo + order[k_max:]] = False
-            # drop the reverse edges of every dropped edge too: an asymmetric
-            # graph breaks conservation in proportional-share transport (a
-            # receiver's total[j] would count an edge the sender no longer
-            # has) and silently skips pole-fan neighbors in circulation order
-            dropped = src[~keep].astype(np.int64) * n_total + dst[~keep]
-            rev_key = dst.astype(np.int64) * n_total + src
-            keep &= ~np.isin(rev_key, dropped)
-            src, dst = src[keep], dst[keep]
-            deg = np.bincount(src, minlength=n_total).astype(np.int32)
-
-        offsets = np.zeros(n_total + 1, dtype=np.int64)
-        np.cumsum(deg, out=offsets[1:])
-        slot = np.arange(len(src), dtype=np.int64) - offsets[src]
-        nbr_idx[src, slot] = dst
-        nbr_mask[src, slot] = True
-        d = pos_all[nbr_idx[:n_total]] - pos_all[:, None, :]
-        nbr_dist[:n_total] = np.where(
-            nbr_mask[:n_total], np.sqrt((d * d).sum(-1)), 0.0
-        ).astype(np.float32)
-        deg_pad[:n_total] = deg
+    got = None
+    if chunks:
+        with span("Mesh: Delaunay"):
+            tri_rr = _chunked_triangles(native, flat, xyz, chunks, threads)
+        if tri_rr is not None:
+            triangles, stats["reruns"] = tri_rr
+            with span("Mesh: adjacency"):
+                got = mesh_adjacency(native, triangles, pos_all, n_padded,
+                                     threads)
+        stats["fallbacks"] = int(got is None)
+    if got is None:
+        with span("Mesh: Delaunay"):
+            triangles = serial_triangles(native, flat, pole_id)
+        with span("Mesh: adjacency"):
+            got = mesh_adjacency(native, triangles, pos_all, n_padded,
+                                 threads)
+        if got is None:
+            raise RuntimeError("the serial triangulation is no closed "
+                               "surface")
+    nbr_idx, nbr_mask, nbr_dist, deg_pad = got
 
     pos_pad = np.zeros((n_padded, 3), dtype=np.float32)
     pos_pad[:n_total] = pos_all.astype(np.float32)
@@ -345,7 +363,114 @@ def build_sphere(
         valid=valid,
         triangles=triangles,
         pole_id=pole_id,
+        build_stats=stats,
     )
+
+
+def _chunked_triangles(native, flat: np.ndarray, xyz: np.ndarray,
+                       chunks: int, threads: int):
+    """(triangles [T,3] with the pole closure, margin re-runs) from the
+    chunked native triangulator, or None where a chunk could not be made
+    exact or the triangles miss the Euler count of a closed triangulated
+    sphere, T = 2 (N+1) - 4 (the adjacency checks the twins)."""
+    import ctypes
+
+    m = len(flat)
+    xs = np.ascontiguousarray(flat[:, 0], np.float64)
+    ys = np.ascontiguousarray(flat[:, 1], np.float64)
+    tris = np.empty((2 * m, 3), np.int32)
+    hull = np.empty(m, np.int32)
+    hl = ctypes.c_int64(0)
+    stats = np.zeros(1, np.int64)
+    t = native.delaunay_chunked(
+        xs, ys, np.ascontiguousarray(xyz, np.float64), m, chunks, threads,
+        tris, hull, ctypes.byref(hl), stats)
+    if t <= 0:
+        return None
+    triangles = np.concatenate(
+        [tris[:t], _pole_closure(hull[: hl.value], m)], axis=0)
+    if len(triangles) != 2 * (m + 1) - 4:
+        return None
+    return triangles, int(stats[0])
+
+
+def serial_triangles(native, flat: np.ndarray, pole_id: int) -> np.ndarray:
+    """The serial triangulation and its pole closure (native sweep-hull in
+    insertion order, else scipy's Qhull)."""
+    if native is not None:
+        simplices, hull_cycle = _native_delaunay(native.delaunay, flat)
+        pole_tris = _pole_closure(hull_cycle, pole_id)
+    else:
+        tri = Delaunay(flat)
+        simplices = tri.simplices.astype(np.int32)  # [T0, 3]
+        # Pole closure: connect every hull edge to the pole point (index n).
+        # (The hull of the stereographic projection surrounds the north pole.)
+        hull = tri.convex_hull.astype(np.int32)  # [H, 2]
+        pole_tris = np.concatenate(
+            [hull, np.full((len(hull), 1), pole_id, dtype=np.int32)], axis=1)
+    return np.concatenate([simplices, pole_tris], axis=0)
+
+
+def mesh_adjacency(native, triangles: np.ndarray, pos_all: np.ndarray,
+                   n_padded: int, threads: int):
+    """(nbr_idx, nbr_mask, nbr_dist, deg), padded to ``n_padded`` rows: the
+    native threaded adjacency (the same for any order or rotation of the
+    triangles; None when some halfedge lacks exactly one twin), else
+    numpy."""
+    n_total, k_max = len(pos_all), K_FIXED
+    if native is not None:
+        nbr_idx = np.empty((n_padded, k_max), np.int32)
+        mask_u8 = np.empty((n_padded, k_max), np.uint8)
+        nbr_dist = np.empty((n_padded, k_max), np.float32)
+        deg = np.empty(n_padded, np.int32)
+        if native.adjacency(
+                np.ascontiguousarray(triangles), len(triangles),
+                np.ascontiguousarray(pos_all), n_total, k_max, n_padded,
+                nbr_idx, mask_u8, nbr_dist, deg, threads) != 0:
+            return None
+        return nbr_idx, mask_u8.view(bool), nbr_dist, deg
+
+    nbr_idx = np.tile(
+        np.arange(n_padded, dtype=np.int32)[:, None], (1, k_max)
+    )  # self-index default (safe gather)
+    nbr_mask = np.zeros((n_padded, k_max), dtype=bool)
+    nbr_dist = np.zeros((n_padded, k_max), dtype=np.float32)
+    deg_pad = np.zeros(n_padded, dtype=np.int32)
+    src, dst = _ordered_adjacency(n_total, triangles, pos_all)
+    deg = np.bincount(src, minlength=n_total).astype(np.int32)
+    # truncate over-degree vertices (pole fan / rare jitter artifacts) to
+    # their K_FIXED nearest neighbors so shapes stay seed-independent
+    if int(deg.max()) > k_max:
+        edge_d = np.linalg.norm(pos_all[src] - pos_all[dst], axis=1)
+        over = np.flatnonzero(deg > k_max)
+        keep = np.ones(len(src), dtype=bool)
+        offsets0 = np.zeros(n_total + 1, dtype=np.int64)
+        np.cumsum(deg, out=offsets0[1:])
+        for v in over:
+            lo, hi = offsets0[v], offsets0[v + 1]
+            order = np.argsort(edge_d[lo:hi], kind="stable")
+            keep[lo + order[k_max:]] = False
+        # drop the reverse edges of every dropped edge too: an asymmetric
+        # graph breaks conservation in proportional-share transport (a
+        # receiver's total[j] would count an edge the sender no longer
+        # has) and silently skips pole-fan neighbors in circulation order
+        dropped = src[~keep].astype(np.int64) * n_total + dst[~keep]
+        rev_key = dst.astype(np.int64) * n_total + src
+        keep &= ~np.isin(rev_key, dropped)
+        src, dst = src[keep], dst[keep]
+        deg = np.bincount(src, minlength=n_total).astype(np.int32)
+
+    offsets = np.zeros(n_total + 1, dtype=np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    slot = np.arange(len(src), dtype=np.int64) - offsets[src]
+    nbr_idx[src, slot] = dst
+    nbr_mask[src, slot] = True
+    d = pos_all[nbr_idx[:n_total]] - pos_all[:, None, :]
+    nbr_dist[:n_total] = np.where(
+        nbr_mask[:n_total], np.sqrt((d * d).sum(-1)), 0.0
+    ).astype(np.float32)
+    deg_pad[:n_total] = deg
+    return nbr_idx, nbr_mask, nbr_dist, deg_pad
 
 
 def _band_off_for(nbr_idx: np.ndarray, nbr_mask: np.ndarray, n_bands: int,
@@ -380,18 +505,23 @@ def build_banded_packed(nbr_idx: np.ndarray, nbr_mask: np.ndarray,
     IDENTICAL to :func:`build_banded` + the former numpy packing in
     mesh/device.py (row-major edge order; rem bucket = max(1024, NP//16)
     doubling, padded with src=NP). Returns None when the native library
-    is unavailable (callers fall back to the numpy path)."""
+    is unavailable (callers fall back to the numpy path). The band census
+    (a histogram of the offsets, :func:`_band_off_for`'s picks) and the
+    packing run on :func:`mesh_threads` threads."""
     import ctypes
 
     from ..native import get_mesh_build
     native = get_mesh_build()
-    if native is None or len(native) < 4 or native[3] is None:
+    if native is None:
         return None
     npad, k = nbr_idx.shape
-    band_off = _band_off_for(nbr_idx, nbr_mask, n_bands)
-    boff32 = np.ascontiguousarray(band_off, np.int32)
+    threads = mesh_threads(npad)
     idx_c = np.ascontiguousarray(nbr_idx, np.int32)
     mask_c = np.ascontiguousarray(nbr_mask, np.uint8)
+    boff32 = np.empty(n_bands + 1, np.int32)
+    boff32 = boff32[:native.census(idx_c, mask_c, npad, k, n_bands, threads,
+                                   boff32)].copy()
+    band_off = boff32.astype(np.int64)
     band_bits = np.empty(npad, np.uint32)
     mask_bits = np.empty(npad, np.uint32)
     off16 = np.empty((npad, k), np.int16)
@@ -404,12 +534,12 @@ def build_banded_packed(nbr_idx: np.ndarray, nbr_mask: np.ndarray,
         rem_dst = np.empty(rem_cap, np.int32)
         exc_n = ctypes.c_int64(0)
         rem_n = ctypes.c_int64(0)
-        rc = native[3](idx_c, mask_c, npad, k, boff32, len(band_off),
+        if native.pack(idx_c, mask_c, npad, k, boff32, len(band_off),
                        band_bits, mask_bits, off16.reshape(-1),
                        exc_flat, exc_val, exc_cap,
                        rem_src, rem_dst, rem_cap,
-                       ctypes.byref(exc_n), ctypes.byref(rem_n))
-        if rc == 0:
+                       ctypes.byref(exc_n), ctypes.byref(rem_n),
+                       threads) == 0:
             break
         exc_cap *= 2
         rem_cap *= 2

@@ -38,7 +38,7 @@ def _build(src: str, so: str, timeout: int) -> bool:
         try:
             subprocess.run(
                 [cc, "-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
-                 "-o", tmp, src],
+                 "-pthread", "-o", tmp, src],
                 check=True, capture_output=True, timeout=timeout)
             os.replace(tmp, so)
             return True
@@ -92,88 +92,83 @@ def get_coarse_fill():
 
 
 _MESH_SRC = os.path.join(_ROOT, "native", "mesh_build.cpp")
-_MESH_SO = os.path.join(_BUILD_DIR, "mesh_build.so")
+_CHUNKED_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "csrc", "mesh_chunked.cpp")
+_MESH_SO = os.path.join(_BUILD_DIR, "mesh_chunked.so")
 _MESH_LOCK = threading.Lock()
 _MESH_LIB = None
 _MESH_TRIED = False
 
 
-def _compile_mesh() -> bool:
-    return _build(_MESH_SRC, _MESH_SO, 180)
-
-
 def get_mesh_build():
-    """(mesh_delaunay, mesh_adjacency) ctypes handles, or None.
+    """The native mesh builder's ctypes handles, or None without a
+    compiler (mesh/build.py then falls back to scipy and numpy):
+    ``delaunay`` (the serial sweep-hull), ``pm_sequence`` (Park-Miller
+    draws), ``delaunay_chunked``, ``adjacency``, ``census`` and ``pack``
+    (the threaded mesh build, bit for bit with the serial functions).
 
-    The native mesh builder replaces scipy Qhull + numpy adjacency on the
-    host prologue hot path (~40x at 1M cells); mesh/build.py falls back to
-    the pure-Python implementation when no compiler is available."""
+    ``csrc/mesh_chunked.cpp`` compiles ``native/mesh_build.cpp`` in; the
+    library is rebuilt when either source is newer than it."""
     global _MESH_LIB, _MESH_TRIED
     with _MESH_LOCK:
         if _MESH_TRIED:
             return _MESH_LIB
         _MESH_TRIED = True
-        if not os.path.exists(_MESH_SRC):
+        if not (os.path.exists(_CHUNKED_SRC) and os.path.exists(_MESH_SRC)):
             return None
+        newest = max(os.path.getmtime(_CHUNKED_SRC),
+                     os.path.getmtime(_MESH_SRC))
         if not os.path.exists(_MESH_SO) or (
-                os.path.getmtime(_MESH_SO) < os.path.getmtime(_MESH_SRC)):
-            if not _compile_mesh():
+                os.path.getmtime(_MESH_SO) < newest):
+            if not _build(_CHUNKED_SRC, _MESH_SO, 180):
                 return None
         try:
             lib = ctypes.CDLL(_MESH_SO)
         except OSError:
             return None
+        import types
+
         import numpy as np
         from numpy.ctypeslib import ndpointer
 
+        f32 = ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64 = ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i16 = ndpointer(np.int16, flags="C_CONTIGUOUS")
+        i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
+        u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        u32 = ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        i64p = ctypes.POINTER(ctypes.c_int64)
         dl = lib.mesh_delaunay
         dl.restype = ctypes.c_int64
-        dl.argtypes = [
-            ndpointer(np.float64, flags="C_CONTIGUOUS"),  # xs
-            ndpointer(np.float64, flags="C_CONTIGUOUS"),  # ys
-            ctypes.c_int64,
-            ndpointer(np.int32, flags="C_CONTIGUOUS"),    # out_tris
-            ndpointer(np.int32, flags="C_CONTIGUOUS"),    # out_hull
-            ctypes.POINTER(ctypes.c_int64),               # hull_len
-        ]
+        dl.argtypes = [f64, f64, ctypes.c_int64,         # xs, ys, n
+                       i32, i32, i64p]                   # tris, hull, len
         pm = lib.pm_sequence
         pm.restype = ctypes.c_int64
-        pm.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                       ndpointer(np.float64, flags="C_CONTIGUOUS")]
-        adj = lib.mesh_adjacency
+        pm.argtypes = [ctypes.c_int64, ctypes.c_int64, f64]
+        dlc = lib.mesh_delaunay_chunked
+        dlc.restype = ctypes.c_int64
+        dlc.argtypes = [f64, f64, f64,                   # xs, ys, xyz
+                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                        i32, i32, i64p, i64]             # tris, hull, stats
+        adj = lib.mesh_adjacency_mt
         adj.restype = ctypes.c_int
-        adj.argtypes = [
-            ndpointer(np.int32, flags="C_CONTIGUOUS"),    # tris
-            ctypes.c_int64,
-            ndpointer(np.float64, flags="C_CONTIGUOUS"),  # pos
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-            ndpointer(np.int32, flags="C_CONTIGUOUS"),    # nbr_idx
-            ndpointer(np.uint8, flags="C_CONTIGUOUS"),    # nbr_mask
-            ndpointer(np.float32, flags="C_CONTIGUOUS"),  # nbr_dist
-            ndpointer(np.int32, flags="C_CONTIGUOUS"),    # deg
-        ]
-        try:
-            bp = lib.banded_pack
-            bp.restype = ctypes.c_int
-            bp.argtypes = [
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # nbr_idx
-                ndpointer(np.uint8, flags="C_CONTIGUOUS"),   # nbr_mask
-                ctypes.c_int64, ctypes.c_int32,
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # band_off
-                ctypes.c_int32,
-                ndpointer(np.uint32, flags="C_CONTIGUOUS"),  # band_bits
-                ndpointer(np.uint32, flags="C_CONTIGUOUS"),  # mask_bits
-                ndpointer(np.int16, flags="C_CONTIGUOUS"),   # off16
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # exc_flat
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # exc_val
-                ctypes.c_int64,
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # rem_src
-                ndpointer(np.int32, flags="C_CONTIGUOUS"),   # rem_dst
-                ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64),              # exc_n
-                ctypes.POINTER(ctypes.c_int64),              # rem_n
-            ]
-        except AttributeError:                               # stale .so
-            bp = None
-        _MESH_LIB = (dl, adj, pm, bp)
+        adj.argtypes = [i32, ctypes.c_int64, f64,        # tris, t, pos
+                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                        i32, u8, f32, i32, ctypes.c_int32]  # .., threads
+        census = lib.band_census
+        census.restype = ctypes.c_int32
+        census.argtypes = [i32, u8, ctypes.c_int64, ctypes.c_int32,
+                           ctypes.c_int32, ctypes.c_int32, i32]
+        bp = lib.banded_pack_mt
+        bp.restype = ctypes.c_int
+        bp.argtypes = [i32, u8, ctypes.c_int64, ctypes.c_int32,
+                       i32, ctypes.c_int32,              # band_off, d
+                       u32, u32, i16,                    # bits, off16
+                       i32, i32, ctypes.c_int64,         # exceptions
+                       i32, i32, ctypes.c_int64,         # remainder
+                       i64p, i64p, ctypes.c_int32]
+        _MESH_LIB = types.SimpleNamespace(
+            delaunay=dl, pm_sequence=pm, delaunay_chunked=dlc,
+            adjacency=adj, census=census, pack=bp)
         return _MESH_LIB

@@ -58,7 +58,7 @@ class ParkMiller:
             native = None
         if native is not None and count >= 4096:
             out = np.empty(count, dtype=np.float64)
-            self.s = int(native[2](self.s, count, out))
+            self.s = int(native.pm_sequence(self.s, count, out))
             return out
         out = pm_sequence_from_state(self.s, count)
         # advance state to s * A^count mod M

@@ -108,6 +108,7 @@ class Split:
         self._cond = threading.Condition()
         self._turn = 0
         self._broken = None
+        self.timed_out = None        # the timeout that broke the split
         self._slots = [None] * self.n
         self._sites = ["start"] * self.n
         self._out = None
@@ -134,11 +135,12 @@ class Split:
             if not ok:
                 self._broken = (f"shard {c} waited more than "
                                 f"{self.timeout:g} s at {site!r}")
-                self._cond.notify_all()
-                raise SplitError(
+                self.timed_out = SplitError(
                     f"split collective {site!r} on shard {c} did not "
                     f"complete within {self.timeout:g} s; shards at: "
                     f"{self._where()}")
+                self._cond.notify_all()
+                raise self.timed_out
 
     def pass_turn(self, c: int) -> None:
         """Shard ``c`` hands the turn to the next shard."""
@@ -352,7 +354,9 @@ def run(layout, fn: Callable, shard_args: Sequence, timeout=None):
     waits at most ``timeout`` seconds (default :data:`TIMEOUT`). Returns
     (results in shard order, the split's ``stats``). A shard's error is
     re-raised here after every thread has ended (the others leave their
-    collectives through :class:`SplitError`)."""
+    collectives through :class:`SplitError`); where none failed of its
+    own, the timeout that broke the split, whichever shard's thread it
+    ended first."""
     split = Split(layout, TIMEOUT if timeout is None else timeout)
     n = split.n
     results, errors = [None] * n, [None] * n
@@ -382,6 +386,7 @@ def run(layout, fn: Callable, shard_args: Sequence, timeout=None):
         t.join()
     first = ([e for e in errors if e is not None
               and not isinstance(e, SplitError)]
+             or [e for e in (split.timed_out,) if e is not None]
              or [e for e in errors if e is not None])
     if first:
         raise first[0]

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import GenerationParams, AUTO_CLIMATE_THRESHOLD
-from ..mesh.build import SphereGraph, build_sphere
+from ..mesh.build import SphereGraph, build_sphere, mesh_threads
 from ..mesh.device import DeviceGraph, to_device
 from ..ops.rng import ParkMiller
 from ..ops.noise import make_perm_tables, tables, tables_from_numpy
@@ -313,8 +313,11 @@ def prefetch_mesh(params: GenerationParams) -> None:
 
     def build():
         try:
+            # one thread fewer than the host's cores: one stays with the
+            # thread that drives the card
             graph = build_sphere(params.n_cells, params.jitter,
-                                 rng=ParkMiller(params.seed))
+                                 rng=ParkMiller(params.seed),
+                                 threads=mesh_threads(params.n_cells) - 1)
             _ = graph.banded_packed
             holder["graph"] = graph
             if not params.toggled_indices:
@@ -359,7 +362,10 @@ def host_setup(params: GenerationParams, device, timer: StageTimer,
         if graph is None:
             graph = build_sphere(params.n_cells, params.jitter,
                                  rng=ParkMiller(params.seed))
-        g = to_device(graph, device)
+        with timing.span("Mesh: band census + pack"):
+            _ = graph.banded_packed
+        with timing.span("Mesh: upload"):
+            g = to_device(graph, device)
 
     prog(10, "Generating coarse plates…")
     if host is None:
@@ -441,9 +447,13 @@ def _elevation_kw(sup, r_plate) -> Dict:
 
 
 def triangle_elevations(elevation, graph: SphereGraph):
+    """Each triangle's mean elevation, its vertices summed in ascending
+    index order: the same value whichever vertex a triangle's row starts
+    at (the serial and the chunked mesh builds rotate triangles
+    differently)."""
     tris = torch.as_tensor(graph.triangles.astype(np.int64),
                            device=elevation.device)
-    return elevation[tris].mean(dim=1)
+    return elevation[tris.sort(dim=1).values].mean(dim=1)
 
 
 class PlanetEngine:

@@ -22,6 +22,7 @@ from ..mesh.build import SphereGraph, build_sphere
 from ..mesh.geobins import GeoBins, build_geobins, nearest_cell
 from ..ops.rng import ParkMiller
 from ..ops.noise import _noise3, make_perm_tables
+from ..pipeline import timing
 from .plates import PlateSet, generate_plates, _low_plate_t
 from .ocean_land import assign_ocean_land
 
@@ -42,7 +43,9 @@ def generate_coarse_plates(seed: int, num_plates: int, num_continents: int,
                            n_coarse: int = N_COARSE) -> CoarsePlates:
     """Full coarse stage: mesh (isolated rng seed+137), plates, ocean/land."""
     coarse_rng = ParkMiller(seed + 137)
-    graph = build_sphere(n_coarse, COARSE_JITTER, rng=coarse_rng)
+    # no "Mesh: …" spans: those label the planet's mesh
+    with timing.current(None):
+        graph = build_sphere(n_coarse, COARSE_JITTER, rng=coarse_rng)
     r_plate, plates = generate_plates(graph, num_plates, seed)
     plates.is_ocean = assign_ocean_land(
         graph, r_plate, plates, seed, num_continents,
