@@ -57,9 +57,9 @@ Phases (any failure exits non-zero with its traceback):
    library. Then the erosion loop's stencils (``erosion_step_checks``):
    one thermal step at the thermal slider 0.1 and 1.0 and one glacial
    step at strength 0.2 and 1.0 over the noise terrain, each through its
-   stencil launches, with no host sync, must give the band loop's bits on
-   the card and launch ``thermal`` twice (at most 3 device events a
-   step) or ``glacial`` twice and ``accumulate`` once (at most 25); the
+   stencil launches, with no host sync, must give the bits of the same
+   step through the stencils' plain versions on the card and launch
+   ``thermal`` twice (at most 3 device events a step) or ``glacial`` twice and ``accumulate`` once (at most 25); the
    launches, device events and ms a step of both forms and each stencil
    kernel's device µs against its byte bound are printed;
 3. drive the port's main path: the default ``PlanetEngine.generate``
@@ -168,6 +168,7 @@ code 1 before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1195,9 +1196,9 @@ def erosion_step_checks(g, dev, reps: int = 20):
     1.0) and one glacial step (strength 0.2 and 1.0, over the noise
     terrain's glaciation index) on the mesh ``g``, each through its
     stencil launches (ops/sweep_cuda.py section 9): the same bits as the
-    band loop on the card (``*_bands``, the slider constants as float32
-    tensors, as the engine passed them before), with no host sync (a warm
-    call first builds the stencil graph), two ``thermal`` launches a
+    same step with each stencil replaced by its plain version
+    (``<stencil>_plain``) on the same CUDA tensors, with no host sync (a
+    warm call first builds the stencil graph), two ``thermal`` launches a
     thermal step and two ``glacial`` plus one ``accumulate`` a glacial
     step, at most 3 / 25 device events a step; the device events and ms a
     step of both forms (CUDA events over back-to-back steps), and each
@@ -1214,66 +1215,70 @@ def erosion_step_checks(g, dev, reps: int = 20):
     base = (elev, is_ocean, g.valid, g.band_off, g.band_mask, band_dist,
             g.rem_src, g.rem_dst, rem_dist)
 
-    def f32(*xs):
-        return [torch.tensor(x, dtype=torch.float32, device=dev) for x in xs]
+    def plain(step, wrappers):
+        """``step`` with each stencil of ``wrappers`` run as its plain
+        version (the accumulate launch stays: its plain loop adds with
+        atomics on the card)."""
+        def run():
+            fn = step
+            for w in wrappers:
+                fn = functools.partial(with_plain, w, fn)
+            return fn()
+        return run
 
     steps = []
     for t in (0.1, 1.0):
         talus, k = 1.2 - t * 0.4, t * 0.15
-        tt, kt = f32(talus, k)
-        steps.append((
-            f"thermal {t}", 3, {"thermal": 2},
-            lambda talus=talus, k=k: thermal.thermal_step(*base, talus, k),
-            lambda tt=tt, kt=kt: thermal.thermal_receive_bands(
-                *base, tt, *thermal.thermal_shed_bands(*base, tt, kt))))
+        kern = functools.partial(thermal.thermal_step, *base, talus, k)
+        steps.append((f"thermal {t}", 3, {"thermal": 2}, kern,
+                      plain(kern, ("thermal_shed", "thermal_receive"))))
     for st in (0.2, 1.0):
-        glac = glacial.glaciation_index(g.pos, elev, is_ocean, g.valid,
-                                        *f32(st))
-        g_scale = 1.0 / round(st * 10)
-        steps.append((
-            f"glacial {st}", 25, {"glacial": 2, "accumulate": 1},
-            lambda glac=glac, st=st, g_scale=g_scale: glacial.glacial_step(
-                *base, glac, st, g_scale),
-            lambda glac=glac, ts=f32(st, g_scale): glacial.glacial_step_bands(
-                *base, glac, *ts)))
+        glac = glacial.glaciation_index(
+            g.pos, elev, is_ocean, g.valid,
+            torch.tensor(st, dtype=torch.float32, device=dev))
+        kern = functools.partial(glacial.glacial_step, *base, glac, st,
+                                 1.0 / round(st * 10))
+        steps.append((f"glacial {st}", 25, {"glacial": 2, "accumulate": 1},
+                      kern, plain(kern, ("ice_argmin", "glacial_stencil"))))
     bound = {k: v / HBM_BYTES_PER_S * 1e6
              for k, v in stencil_bytes(g, band_dist, rem_dist).items()}
     out = {}
-    for label, most, expect, kern, bands in steps:
+    for label, most, expect, kern, mirror in steps:
         kern()
         sweep_cuda.reset_launches()
         got = no_host_sync(f"erosion step {label}", kern)
         torch.cuda.synchronize()
         launches = {k: v for k, v in sweep_cuda.LAUNCHES.items() if v}
-        want = bands()
+        want = mirror()
         if not torch.equal(got, want):
             raise AssertionError(
-                f"erosion step {label}: the stencil path differs from the "
-                f"band loop (max abs err {max_abs_err(got, want)}, "
-                f"{int((got != want).sum())} cells)")
+                f"erosion step {label}: the stencil launches differ from "
+                f"their plain versions (max abs err "
+                f"{max_abs_err(got, want)}, {int((got != want).sum())} "
+                "cells)")
         if launches != expect:
             raise AssertionError(f"erosion step {label}: launches "
                                  f"{launches}, want {expect}")
-        ev_k, ev_b = device_events(kern), device_events(bands)
+        ev_k, ev_p = device_events(kern), device_events(mirror)
         if len(ev_k) > most:
             raise AssertionError(f"erosion step {label}: {len(ev_k)} device "
                                  f"events a step, at most {most}")
-        ms_k, ms_b = time_ms(kern, reps), time_ms(bands, 5, warm=1)
+        ms_k, ms_p = time_ms(kern, reps), time_ms(mirror, 5, warm=1)
         kernels = {fn: dict(device_us=mean_device_ms(ev_k, fn) * 1e3,
                             bound_us=bound[fn])
                    for fn in STENCIL_FNS if mean_device_ms(ev_k, fn)}
         moved = int((want != elev).sum())
-        print(f"erosion step [{label}]: the stencil path gives the band "
-              f"loop's bits on the card ({moved} cells moved), no host "
-              f"sync; launches {launches}; {len(ev_k)} device events a step "
-              f"(band loop {len(ev_b)}); {ms_k:.3f} ms a step back to back "
-              f"(band loop {ms_b:.3f} ms); "
+        print(f"erosion step [{label}]: the stencil launches give their "
+              f"plain versions' bits on the card ({moved} cells moved), no "
+              f"host sync; launches {launches}; {len(ev_k)} device events a "
+              f"step (plain {len(ev_p)}); {ms_k:.3f} ms a step back to back "
+              f"(plain {ms_p:.3f} ms); "
               + ", ".join(f"{fn} {v['device_us']:.1f} us (bound "
                           f"{v['bound_us']:.1f} us)"
                           for fn, v in kernels.items()), flush=True)
         out[label] = dict(launches=launches, events=len(ev_k),
-                          band_loop_events=len(ev_b), ms=ms_k,
-                          band_loop_ms=ms_b, moved=moved, kernels=kernels)
+                          plain_events=len(ev_p), ms=ms_k, plain_ms=ms_p,
+                          moved=moved, kernels=kernels)
     return out
 
 def components_record(g, dev, calls, reps: int = 50):
@@ -2628,7 +2633,7 @@ def main() -> int:
     print(f"mesh: {g.n_cells} cells, NP {g.n_padded}, {len(g.band_off)} "
           f"bands, {g.rem_src.shape[0]} remainder edges", flush=True)
     records = kernel_checks(g, to_device(graph, "cpu"), dev)
-    # the erosion loop's stencil launches against the band loops
+    # the erosion loop's stencil launches against their plain versions
     erosion_steps = erosion_step_checks(g, dev)
     # the staged launches past 204K: synthetic meshes whose plans the
     # window cap binds, each launch against its plain loop on CPU copies

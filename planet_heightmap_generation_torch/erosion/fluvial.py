@@ -37,17 +37,15 @@ def log_rounds(n: int) -> int:
 
 
 def steepest_receivers(elev, is_ocean, valid, band_off, band_mask, band_dist,
-                       rem_src, rem_dst, rem_dist, index_base=None):
+                       rem_src, rem_dst, rem_dist):
     """Per land cell: steepest-descent neighbour, else least-ascent (pit).
-    ``index_base`` [N] f32 is each row's global cell index (a window of a
-    cells split, parallel/windows.py; ``arange(N)`` by default), so the
-    receivers are global indices. Returns (receiver [N] i64 (-1 none),
+    The receivers are global cell indices (on a cells split too:
+    parallel/spmd.py ``arange``). Returns (receiver [N] i64 (-1 none),
     dist [N], is_pit [N])."""
     n = band_mask.shape[0]
     dev = elev.device
     land = (~is_ocean) & valid
-    idx_f = (spmd.arange(n, torch.float32, dev)
-             if index_base is None else index_base)
+    idx_f = spmd.arange(n, torch.float32, dev)
     band_idx = idx_f[:, None] + band_off_tensor(band_off, dev)[None, :]
     min_elev, _, (tgt_f, dist_f) = banded_select(
         elev, [], band_off, band_mask, rem_src, rem_dst, minimize=True,

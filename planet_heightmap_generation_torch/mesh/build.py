@@ -1,17 +1,17 @@
-"""Sphere mesh construction — host side, producing TPU-ready padded arrays.
+"""Sphere mesh construction — host side, producing the padded arrays of the
+device graph (mesh/device.py).
 
 The reference builds a Fibonacci sphere, projects it stereographically, runs
 Delaunator, stitches the projection pole back in, and wraps the result in a
 half-edge dual mesh with CSR adjacency (reference ``js/sphere-mesh.js``).
 
-The TPU re-design keeps the same geometry (bit-identical Fibonacci points and
-RNG consumption) but replaces the CSR/half-edge structure with a
-**fixed-degree padded neighbor-index array** ``nbr_idx [NP, K]`` plus a
-validity mask: Fibonacci meshes have degree ≈6 (5/7 outliers + one pole
-vertex), so every downstream BFS / smoothing / erosion pass becomes a
-vectorized masked gather instead of a pointer chase. Cell count is padded to
-a multiple of 1024 so fields tile cleanly onto the VPU (8×128 lanes) and
-shard evenly across a device mesh.
+The port builds the JAX package's mesh, array for array: the same geometry
+(bit-identical Fibonacci points and RNG consumption), with the CSR/half-edge
+structure replaced by a **fixed-degree padded neighbor-index array**
+``nbr_idx [NP, K]`` plus a validity mask (the gather form of ops/graph.py),
+and the banded form that the neighbour sweeps and the CUDA kernels read
+(:func:`build_banded`). The cell count is padded to a multiple of 1024, as
+in the JAX package; the kernels need a multiple of 4, which it is.
 
 Mesh construction is seed-dependent and stays on host, shipping static
 arrays to device: native C++ sweep-hull Delaunay + adjacency (scipy fallback
@@ -36,38 +36,24 @@ from ..pipeline.timing import span
 
 _PAD_MULTIPLE = 1024
 
-# Fixed neighbor-array width. Fibonacci-Delaunay degree is ~6 (5/7
-# outliers, ~1.3% of jittered cells at 9-11, plus the pole fan). A FIXED
-# width keeps every [N,K] kernel's jit signature identical across seeds and
-# resolutions — the raw max degree is data-dependent and would recompile
-# the whole pipeline per planet. K=8 (a lane-friendly width) covers 98.7%
-# of cells fully; over-degree cells keep their 8 nearest (dropped edges
-# removed symmetrically). TPU gathers are index-bound and K multiplies the
-# index count of EVERY neighbor pass, so the narrow width buys ~33% on the
-# whole pipeline over K=12 for a structural deviation confined to the
-# longest edges of rare high-degree cells (aesthetics-first tolerance).
+# Fixed neighbor-array width, the JAX package's. Fibonacci-Delaunay degree
+# is ~6 (5/7 outliers, ~1.3% of jittered cells at 9-11, plus the pole fan).
+# K=8 covers 98.7% of cells fully; over-degree cells keep their 8 nearest
+# (dropped edges removed symmetrically), so [NP, K] shapes do not depend on
+# the seed: a structural deviation confined to the longest edges of rare
+# high-degree cells.
 K_FIXED = 8
 
 # Banded adjacency width. The Fibonacci spiral ordering concentrates
 # neighbor index offsets (j - i) onto ~a few dozen signed Fibonacci numbers
 # (latitude-banded): the 32 most common offsets cover 99.5%+ of all edges
-# at any tested N/jitter. Edges whose offset is one of these bands are
-# expressed as masked jnp.roll shifts — contiguous vector reads instead of
-# the index-bound [N,K] gather (measured on TPU v5e @1M cells: 62 ms →
-# 2.3 ms per min-sweep, bit-identical results). The few off-band edges
-# (pole fan, jitter outliers) live in a padded remainder edge list handled
-# by scatter ops.
+# at any tested N/jitter. An edge whose offset is one of these bands is a
+# masked shift of the field (ops/banded.py ``band_shift``), and one bit of
+# the cell's int32 band word (``band_bits``, bit d = band d) that the CUDA
+# kernels walk, so 32 is also the most a word holds. The few off-band
+# edges (pole fan, jitter outliers) are the remainder edge list, read as
+# CSR rows of their receiving cell.
 BAND_COUNT = 32
-
-# PLANET_BAND_COUNT overrides the band count (results stay exact at any
-# value — edges not covered by a band fall into the remainder list). The
-# multi-chip dryrun sets it low: every banded sweep unrolls D masked rolls,
-# so D scales the fused program's instruction count (and SPMD collective
-# count) almost linearly, and the dryrun's wall is XLA:CPU *compile* time
-# on one core, not execution.
-import os as _os
-if _os.environ.get("PLANET_BAND_COUNT"):
-    BAND_COUNT = int(_os.environ["PLANET_BAND_COUNT"])
 
 
 def generate_fibonacci_sphere(n: int, jitter: float, rng: ParkMiller) -> np.ndarray:

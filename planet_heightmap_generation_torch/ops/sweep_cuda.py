@@ -30,12 +30,12 @@ oracles.
 Besides the loops, four one-pass stencils of the erosion loop (section
 9, port-only: the JAX steps are jnp band loops), one thread a cell and no
 grid barrier, each walking a cell's set band bits in band order and then
-its remainder row, as the band loops of erosion/thermal.py and
-erosion/glacial.py add: ``thermal_shed`` and ``thermal_receive`` (the
-thermal step's two passes; counter ``thermal``), ``ice_argmin`` (the ice
-flow's lowest neighbour) and ``glacial_stencil`` (the glacial step after
-its ice flow; both counter ``glacial``). :func:`on_card` tells the
-callers which route a tensor takes.
+its remainder row, as the JAX band loops and scatter-adds add:
+``thermal_shed`` and ``thermal_receive`` (the thermal step's two passes;
+counter ``thermal``), ``ice_argmin`` (the ice flow's lowest neighbour)
+and ``glacial_stencil`` (the glacial step after its ice flow; both
+counter ``glacial``). erosion/thermal.py and erosion/glacial.py call them
+on every device.
 
 Every sweep wrapper takes the state as [F, NP] float32 planes, the band
 bits as one int32 word per cell (bit d = band d present, the packed form
@@ -1094,12 +1094,6 @@ def ordered_sum(n_out: int, idx, vals):
 
 # ── 9. the erosion loop's one-pass stencils (port-only) ────────────────
 
-def on_card(x) -> bool:
-    """Whether a wrapper given ``x`` launches its kernel (a CUDA tensor)
-    rather than running its plain version (a CPU tensor)."""
-    return not _on_cpu(x)
-
-
 def _land(ocean, valid):
     """valid & ~ocean (``valid`` None: every cell)."""
     land = ~ocean.bool()
@@ -1137,7 +1131,8 @@ def _check_stencil(bits, band_off, band_dist, rem_ptr, rem_nbr, rem_dist,
 
 
 def _edge_excess_plain(h_me, h_nb, d, ok, talus):
-    """erosion/thermal.py ``_edge_excess`` (csrc edge_excess)."""
+    """Per-edge slope excess above the talus slope where ``ok`` (csrc
+    edge_excess)."""
     dd = torch.clamp(d, min=1e-6)
     slope = (h_me - h_nb) / dd
     return torch.where(ok & (slope > talus), (slope - talus) * dd, 0.0)

@@ -8,26 +8,26 @@ run whole loops in one launch over whole planes, so its split is explicit
 remainder slots, filled from their owners by an exchange.
 
 The mesh is single-controller, as JAX's ``Mesh`` is: one process holds a
-``seed`` × ``cells`` grid of ``torch.device``s and runs each shard's work
-in turn, the copies between devices being ``copy_``s. A device may appear
-more than once, where the caller lists it so (``["cpu"] * 8`` in the
-tests, ``["cuda:0"] * 4`` on one card). Without ``devices`` the mesh takes
-the visible CUDA devices.
+``seed`` × ``cells`` grid of ``torch.device``s. A device may appear more
+than once, where the caller lists it so (``["cpu"] * 8`` in the tests,
+``["cuda:0"] * 4`` on one card). Without ``devices`` the mesh takes the
+visible CUDA devices.
 
 - **Seeds** split over ``seed``: each seed group runs its seeds in turn
   (the JAX package ``vmap``s them; the port has no ``vmap`` over its
   hand-written kernels).
-- **Cells** split over ``cells``: pointwise ops run on the chunk, banded
-  and remainder ops on the window right after an exchange, pointer loops
-  (flow accumulation, the stream-power solve) on gathered whole arrays on
-  the row's first device, and the global mean on the gathered elevation
-  with the same call as the single-device step. So the split step equals
-  the single-device step bit for bit on the same device type.
+- **Cells** split over ``cells``: each seed's step is one run of the
+  split runtime (parallel/spmd.py) over the row's window layout, every
+  shard calling the unchanged :func:`terrain_step` on its window. Its
+  neighbour reads exchange first, its pointer loops and global mean run
+  on gathered whole arrays with the single-device call, so the split
+  step equals the single-device step bit for bit on the same device
+  type.
 
 JAX's ``no_persistent_cache`` guards its compile cache, which the port
 does not have. :func:`shard_fused_args` places the engine's arguments for
 ``PlanetEngine(mesh=)``, whose split generate runs the unchanged stages on
-each shard's window through the collectives of parallel/spmd.py.
+each shard's window through the same runtime.
 """
 
 from __future__ import annotations
@@ -41,9 +41,10 @@ import torch
 from ..erosion.fluvial import (flow_accumulation, steepest_receivers,
                                stream_power_solve)
 from ..erosion.smooth import smooth_elevation
-from ..erosion.thermal import thermal_receive, thermal_shed, thermal_step
+from ..erosion.thermal import thermal_step
 from ..ops.banded import band_nbr_dist
 from ..ops.noise import Tables, fbm
+from . import spmd
 from .windows import CellShards, WindowLayout, _norm_device
 
 
@@ -228,7 +229,8 @@ def terrain_step(elev, pos, band_mask, rem_src, rem_dst, valid, perm, pm12,
     closed by a global mean correction. On the device of ``elev``;
     ``rem_src`` / ``rem_dst`` are the real remainder edges (DeviceGraph's),
     ``perm`` / ``pm12`` a [512] noise table pair. Mirrors one iteration of
-    erodeComposite (reference js/terrain-post.js:369-707)."""
+    erodeComposite (reference js/terrain-post.js:369-707). Runs unchanged
+    on a window of a cells split (parallel/spmd.py)."""
     dev = elev.device
     t = Tables(_tensor(perm).to(dev).long(), _tensor(pm12).to(dev).long())
     x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
@@ -244,14 +246,15 @@ def terrain_step(elev, pos, band_mask, rem_src, rem_dst, valid, perm, pm12,
     rcv, dist, is_pit = steepest_receivers(
         e, is_ocean, valid, band_off, band_mask, band_dist, rem_src, rem_dst,
         rem_dist)
-    e = _fluvial(e, is_ocean, valid, rcv, dist, is_pit)
+    e = spmd.gathered(_fluvial, e, is_ocean, valid, rcv, dist, is_pit)
 
     # thermal talus transport + ridge-preserving bilateral smooth
     e = thermal_step(e, is_ocean, valid, band_off, band_mask, band_dist,
                      rem_src, rem_dst, rem_dist, 0.8, 0.15)
     e = smooth_elevation(e, is_ocean, valid, band_off, band_mask, rem_src,
                          rem_dst, 1, _f32(0.3, dev))
-    return (e - 0.01 * _mean_land(e, valid)).to(torch.float32)
+    mean = spmd.gathered(_mean_land, e, valid)
+    return (e - 0.01 * mean).to(torch.float32)
 
 
 def _fluvial(e, is_ocean, valid, rcv, dist, is_pit):
@@ -270,81 +273,9 @@ def _mean_land(e, valid):
         torch.sum(valid), min=1)
 
 
-@dataclasses.dataclass
-class _RowGraph:
-    """One seed row's static windows: positions, validity, band masks,
-    edge lists, edge lengths and global index bases, per shard."""
-
-    layout: WindowLayout
-    pos: list
-    valid: list
-    band_mask: list
-    edges: list
-    band_dist: list
-    rem_dist: list
-    base: list
-
-
-def _row_graph(lay, pos, band_mask, valid) -> _RowGraph:
-    pos_w = lay.split(pos)
-    bm_w = lay.band_mask(band_mask)
-    edges = lay.edges()
-    return _RowGraph(
-        lay, pos_w, lay.split(valid), bm_w, edges,
-        [band_nbr_dist(p, lay.band_off, m) for p, m in zip(pos_w, bm_w)],
-        [torch.linalg.vector_norm(p[s] - p[d], dim=1).to(torch.float32)
-         for p, (s, d) in zip(pos_w, edges)],
-        lay.index_base())
-
-
-def _split_step(rg: _RowGraph, elev_w, tables):
-    """:func:`terrain_step` of one seed over one row's windows ``elev_w``
-    ([L] each), ``tables[c]`` the seed's noise tables on shard c's device.
-    Returns the windows of the new elevation, exchanged."""
-    lay, off = rg.layout, rg.layout.band_off
-    n_sh = lay.n_shards
-    h = lay.halo
-
-    # pointwise on the chunk, then an exchange
-    e_w = [w.clone() for w in elev_w]
-    for c in range(n_sh):
-        p = lay.chunk(rg.pos[c], c)
-        uplift = fbm(tables[c], p[:, 0] * 4, p[:, 1] * 4, p[:, 2] * 4,
-                     4) * 0.05
-        e_w[c][h:h + lay.chunk_len(c)] = (
-            lay.chunk(elev_w[c], c)
-            + torch.where(lay.chunk(rg.valid[c], c), uplift, 0.0))
-    lay.exchange(e_w)
-    ocean_w = [(e <= 0) & v for e, v in zip(e_w, rg.valid)]
-
-    # routing on the windows; the pointer loops on gathered whole arrays
-    routed = [steepest_receivers(
-        e_w[c], ocean_w[c], rg.valid[c], off, rg.band_mask[c],
-        rg.band_dist[c], *rg.edges[c], rg.rem_dist[c],
-        index_base=rg.base[c]) for c in range(n_sh)]
-    whole = [lay.gather(x) for x in (e_w, ocean_w, rg.valid,
-                                     *zip(*routed))]
-    e_w = lay.split(_fluvial(*whole))
-
-    # thermal: pass 1, an exchange of the edge shares, pass 2
-    dev = [e.device for e in e_w]
-    args = [(e_w[c], ocean_w[c], rg.valid[c], off, rg.band_mask[c],
-             rg.band_dist[c], *rg.edges[c], rg.rem_dist[c], 0.8)
-            for c in range(n_sh)]
-    shed = [thermal_shed(*a, 0.15) for a in args]
-    share = [s for _, s in shed]
-    lay.exchange(share)
-    e_w = [thermal_receive(*a, s, share[c])
-           for c, (a, (s, _)) in enumerate(zip(args, shed))]
-    lay.exchange(e_w)
-    e_w = [smooth_elevation(e_w[c], ocean_w[c], rg.valid[c], off,
-                            rg.band_mask[c], *rg.edges[c], 1,
-                            _f32(0.3, dev[c])) for c in range(n_sh)]
-
-    mean = _mean_land(lay.gather(e_w), lay.gather(rg.valid))
-    out = [(e - 0.01 * mean.to(e.device)).to(torch.float32) for e in e_w]
-    lay.exchange(out)
-    return out
+def _window_step(c, *args):
+    """Shard ``c``'s :func:`terrain_step`, its halo and slots exchanged."""
+    return spmd.fresh(terrain_step(*args))
 
 
 def batched_terrain_step(mesh: CellsMesh, band_off: tuple):
@@ -357,7 +288,7 @@ def batched_terrain_step(mesh: CellsMesh, band_off: tuple):
     do: elevation split over both axes, positions, band masks and validity
     over 'cells', the remainder edges replicated (they build the window
     layout), the noise tables over 'seed'. Each seed group runs its seeds
-    in turn."""
+    in turn, each seed one :func:`spmd.run` over its row's windows."""
     band_off = tuple(int(o) for o in band_off)
     rows = len(mesh.devices)
 
@@ -372,17 +303,16 @@ def batched_terrain_step(mesh: CellsMesh, band_off: tuple):
         out = []
         for r in range(rows):
             lay = _layout(mesh, r, npd, bands)
-            rg = _row_graph(lay, _tensor(pos), _tensor(band_mask),
-                            _tensor(valid))
-            e_rows = lay.split(elev[r * per:(r + 1) * per], 1)
+            graph = list(zip(lay.split(_tensor(pos)),
+                             lay.band_mask(_tensor(band_mask)), lay.edges(),
+                             lay.split(_tensor(valid)), lay.devices))
             seeds = []
             for k in range(r * per, (r + 1) * per):
-                tabs = {str(d): Tables(perm[k].to(d).long(),
-                                       pm12[k].to(d).long())
-                        for d in lay.devices}
-                seeds.append(_split_step(
-                    rg, [w[k - r * per] for w in e_rows],
-                    [tabs[str(d)] for d in lay.devices]))
+                args = [(e, p, m, *edges, v, perm[k].to(d), pm12[k].to(d),
+                         band_off)
+                        for e, (p, m, edges, v, d)
+                        in zip(lay.split(elev[k]), graph)]
+                seeds.append(spmd.run(lay, _window_step, args)[0])
             out.append(CellShards(lay, [torch.stack([s[c] for s in seeds])
                                         for c in range(lay.n_shards)], 1))
         return MeshShards(tuple(out), True)

@@ -216,12 +216,6 @@ class WindowLayout:
         return [(self._t(c, "src"), self._t(c, "dst"))
                 for c in range(self.n_shards)]
 
-    def index_base(self) -> list:
-        """Per shard the global index of each window position, float32
-        (the base of cell-index payloads, exact below 2^24)."""
-        return [self._t(c, "index").to(torch.float32)
-                for c in range(self.n_shards)]
-
     def graph(self, bits, band_off, rem_ptr, rem_nbr) -> "WindowGraph":
         """The window graph of one kernel call: ``bits`` [..., NP] int32
         band bits (the chunk rows' words, 0 elsewhere) and the chunk rows'

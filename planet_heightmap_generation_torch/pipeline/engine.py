@@ -63,7 +63,7 @@ MAX_SUPER = 32
 # Above this many cells the JAX engine leaves its fused program for the
 # staged one, which it never splits (JAX pipeline/engine.py:167); the
 # port's generate splits over a mesh only at or below it, as JAX does.
-FUSED_MAX_CELLS = int(os.environ.get("PLANET_FUSED_MAX_CELLS", 3_000_000))
+FUSED_MAX_CELLS = 3_000_000
 
 
 @dataclasses.dataclass

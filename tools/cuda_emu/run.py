@@ -20,8 +20,9 @@ over three windows of a 2000-cell mesh (parallel/loops.py) against their
 unsplit plain loops (``split_checks``), and the erosion loop's stencils
 (``stencil_checks``: ``thermal_shed``, ``thermal_receive``, ``ice_argmin``
 and ``glacial_stencil`` against their plain versions, and the thermal and
-glacial steps through them against the band loops, unsplit and split
-over three windows of the 2000-cell mesh). It
+glacial steps through them against the steps through the plain
+versions, and split over three windows of the 2000-cell mesh against
+unsplit). It
 checks indexing, barriers, shuffles and loop control before a run on the
 card; it says nothing about speed. Exits 1 on any difference.
 """
@@ -231,8 +232,9 @@ def stencil_checks() -> bool:
     """The erosion stencils on the 2000-cell mesh of
     tests/test_torch_erosion_stencil.py: each launch against its plain
     version, then the thermal and glacial steps through the launches
-    against the band loops, unsplit and split over three windows (the
-    cases of that test, with the emulated kernels in the wrappers)."""
+    against the same steps through the plain versions, and split over
+    three windows against unsplit (the split cases of that test, with the
+    emulated kernels in the wrappers)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_erosion_stencil as t
     from planet_heightmap_generation_torch.erosion import glacial, thermal
@@ -264,14 +266,14 @@ def stencil_checks() -> bool:
     ok &= check("glacial_stencil", sc.glacial_stencil, elev, ocean, g.valid,
                 glac, flow, target, None, *pows, *graph, 0.002, 0.0005,
                 0.001, 0.0015, 1.0)
-    # the steps through the launches against the band loops
+    # the steps through the launches against the plain versions
     targs = t.thermal_args(elev)
-    ok &= check("thermal_step through the launches against the band loop",
-                thermal.thermal_step, *targs, 1.0, 0.075)
+    ok &= check("thermal_step through the launches against the plain "
+                "versions", thermal.thermal_step, *targs, 1.0, 0.075)
     for strength in (0.2, 1.0):
         a, s, g_scale = t.glacial_inputs(elev, strength)
         ok &= check(f"glacial_step {strength} through the launches against "
-                    "the band loop", glacial.glacial_step, *a, s, g_scale)
+                    "the plain versions", glacial.glacial_step, *a, s, g_scale)
     for step in ("thermal", "glacial"):
         try:
             t.check_split(step)
